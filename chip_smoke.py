@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port's main path on the card and check it.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device and ``nvcc`` (the kernels build from ``csrc/`` at
+first use). Phases, each of which fails the script on any mismatch:
+
+1. the card's name and power limit; the kernel build (nvcc seconds,
+   library paths, ptxas register counts);
+2. the fire-compaction kernel (K2) against its plain version at the
+   slice shape (2^17 nodes, max_out 8, payload 1, window 8000, batch
+   2^18): a sparse outbox, one dense enough to drop, and window 1;
+3. the mailbox-insertion kernel (K1) against its plain version: the
+   slice shape (K 16, P 1, no src, commutative) on a batch that
+   overfills some mailboxes, and the ordered mode with src (K 8, P 2);
+4. the main path: the gossip wave at 2^17 nodes (``bench.py``
+   ``gossip_100k_insert``'s configuration) to quiescence through
+   ``TorchEngine.run_quiet``, with the wave-done invariants and both
+   kernels launched once per superstep;
+5. card against CPU: an integer-link gossip wave at 2^14 nodes through
+   ``run`` on both devices — equal traces and final states;
+6. each kernel's time (CUDA events, cold L2), its plain version's time
+   and its bound (bytes over 3.35 TB/s);
+7. where the main path's time goes: wall time per superstep against the
+   device's kernel time under ``torch.profiler`` (the idle share).
+
+Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+SLICE_N, SLICE_M, SLICE_P, SLICE_W, SLICE_S = 1 << 17, 8, 1, 8_000, 1 << 18
+SLICE_K = 16
+K2_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:656"
+K1_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:465"
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def _equal(name, got, want) -> int:
+    """Bit-equality of two tensors (or tuples of them); returns the max
+    absolute difference (0) for the kernels line."""
+    import torch
+    if isinstance(got, tuple):
+        return max(_equal(f"{name}[{i}]", g, w)
+                   for i, (g, w) in enumerate(zip(got, want)))
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    diff = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel != plain (max abs diff {diff})")
+    return diff
+
+
+# -- inputs, made with numpy from a seed ----------------------------------
+
+def compact_inputs(device, n, M, P, frac, seed):
+    import torch
+    rng = np.random.default_rng(seed)
+    pdst = np.where(rng.random((M, n)) < frac,
+                    rng.integers(0, n, (M, n)), -1).astype(np.int32)
+    woff = rng.integers(0, SLICE_W, n).astype(np.int32)
+    pay = rng.integers(-2**31, 2**31 - 1, (M, P, n)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (pdst, woff, pay))
+
+
+def insert_inputs(device, n, K, P, S, ordered, with_src, seed):
+    """A mailbox half full and a destination-sorted batch whose hot
+    destinations overfill their mailboxes."""
+    import torch
+    rng = np.random.default_rng(seed)
+    I32MAX = 2**31 - 1
+    if ordered:
+        counts = rng.integers(0, K + 1, n).astype(np.int32)
+        mb_rel = np.where(np.arange(K)[:, None] < counts[None, :],
+                          rng.integers(0, 1 << 20, (K, n)),
+                          I32MAX).astype(np.int32)
+    else:
+        counts = None
+        mb_rel = np.where(rng.random((K, n)) < 0.5,
+                          rng.integers(0, 1 << 20, (K, n)),
+                          I32MAX).astype(np.int32)
+    n_msgs = int(S * 0.7)
+    hot = rng.integers(0, n, 64)
+    dst = np.concatenate([rng.integers(0, n, n_msgs - 64 * 24),
+                          np.repeat(hot, 24)])
+    sd = np.full(S, n, np.int32)
+    sd[:n_msgs] = np.sort(dst)
+    arrs = dict(
+        sd=sd, counts=counts, mb_rel=mb_rel,
+        drel=rng.integers(0, 1 << 20, S).astype(np.int32),
+        src=rng.integers(0, n, S).astype(np.int32) if with_src else None,
+        pay=rng.integers(-2**31, 2**31 - 1, (P, S)).astype(np.int32),
+        mb_src=rng.integers(0, n, (K, n)).astype(np.int32),
+        mb_payload=rng.integers(-2**31, 2**31 - 1, (K, P, n)).astype(np.int32))
+    return {k: None if v is None else torch.from_numpy(v).to(device)
+            for k, v in arrs.items()}
+
+
+def insert_args(t, n):
+    from timewarp_tpu_torch.interp.torch_engine.cuda_insert import \
+        bucket_bounds
+    start, cnt = bucket_bounds(t["sd"], n)
+    return (start, cnt, t["counts"], t["drel"], t["src"], t["pay"],
+            t["mb_rel"], t["mb_src"], t["mb_payload"])
+
+
+# -- phases ---------------------------------------------------------------
+
+def phase_compact(device, n=SLICE_N, S=SLICE_S):
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    err = 0
+    for tag, frac, window1, seed in (("sparse", 0.2, False, 1),
+                                     ("dense", 0.6, False, 2),
+                                     ("window 1", 0.2, True, 3)):
+        pdst, woff, pay = compact_inputs(device, n, SLICE_M, SLICE_P, frac,
+                                         seed)
+        w = None if window1 else woff
+        got = ci.fire_compact(pdst, w, pay, S)
+        want = ci.fire_compact_plain(pdst, w, pay, S)
+        err = max(err, _equal(f"K2 {tag}", got, want))
+        drops = int(got[4])
+        if (tag == "dense") != (drops > 0):
+            raise AssertionError(f"K2 {tag}: drops={drops}")
+        say(f"K2 {tag}: fired={int((pdst >= 0).sum())} S={S} "
+            f"drops={drops} bit-equal")
+    return err
+
+
+def phase_insert(device, n=SLICE_N, S=SLICE_S):
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    err = 0
+    for tag, K, P, ordered, src, seed in (
+            ("commutative K16 P1", SLICE_K, SLICE_P, False, False, 4),
+            ("ordered K8 P2 src", 8, 2, True, True, 5)):
+        t = insert_inputs(device, n, K, P, S, ordered, src, seed)
+        args = insert_args(t, n)
+        got = ci.mailbox_insert(*args)
+        want = ci.mailbox_insert_plain(*args)
+        err = max(err, _equal(f"K1 {tag}", got, want))
+        ovf = int(got[3])
+        if ovf <= 0:
+            raise AssertionError(f"K1 {tag}: the batch did not overflow")
+        say(f"K1 {tag}: overflow={ovf} bit-equal")
+    return err
+
+
+def gossip_wave(n):
+    """bench.py _gossip_wave: burst relays, 8 ms propagation floor."""
+    from timewarp_tpu_torch.models.gossip import gossip, gossip_links
+    from timewarp_tpu_torch.net.delays import Quantize
+    sc = gossip(n, fanout=8, think_us=2_000, burst=True, end_us=5_000_000,
+                mailbox_cap=16)
+    return sc, Quantize(gossip_links(median_us=20_000, sigma=0.6,
+                                     floor_us=8_000), 1_000)
+
+
+def phase_main_path(device, n=SLICE_N, cap=SLICE_S):
+    import torch
+    from timewarp_tpu_torch.core.scenario import NEVER
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link = gossip_wave(n)
+    eng = TorchEngine(sc, link, window="auto", insert_cap=cap, device=device)
+    ci.reset_launches()
+    fin = eng.run_quiet(1 << 20)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(ci.LAUNCHES)
+    stats = eng.last_run_stats
+    steps, delivered = stats["supersteps"], int(fin.delivered)
+    missed = int((fin.states["hop"] < 0).sum())
+    checks = {
+        "quiesced": int(eng._next_event(fin)) >= NEVER,
+        "short_delay == 0": int(fin.short_delay) == 0,
+        "route_drop == 0": int(fin.route_drop) == 0,
+        "bad_delay == 0": int(fin.bad_delay) == 0,
+        f"missed {missed} <= n/500": missed <= max(n // 500, 8),
+    }
+    if device.type == "cuda":
+        checks.update({f"{k} launched once per superstep": v == steps
+                       for k, v in launches.items()})
+    say(f"main path: gossip wave n={n} window={eng.window} "
+        f"insert_cap={cap} supersteps={steps} delivered={delivered} "
+        f"overflow={int(fin.overflow)} wall_s={stats['wall_seconds']} "
+        f"delivered_msgs_per_s={delivered / stats['wall_seconds']} "
+        f"launches={launches}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"main path invariants failed: {bad}")
+    return launches, steps
+
+
+def phase_card_vs_cpu(device, n=1 << 14):
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        state_to_numpy
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    sc = gossip(n, fanout=8, think_us=2_000, burst=True, end_us=5_000_000,
+                mailbox_cap=8)
+    link = Quantize(UniformDelay(8_000, 30_000), 1_000)
+    runs = []
+    for dev in (device, "cpu"):
+        eng = TorchEngine(sc, link, window="auto", seed=11, device=dev)
+        st, tr = eng.run(1 << 16)
+        runs.append((state_to_numpy(st), tr))
+    (sa, ta), (sb, tb) = runs
+    assert_traces_equal(ta, tb, str(device), "cpu")
+    for name in sa:
+        a, b = sa[name], sb[name]
+        same = all(np.array_equal(a[k], b[k]) for k in a) \
+            if name == "states" else np.array_equal(a, b)
+        if not same:
+            raise AssertionError(f"card vs CPU: state.{name} differs")
+    say(f"card vs CPU: gossip n={n} supersteps={len(ta)} "
+        f"delivered={int(sa['delivered'])} overflow={int(sa['overflow'])} "
+        "traces and states equal")
+
+
+def _time_ms(fn, reps=20):
+    """Mean ms of ``fn`` on the card: CUDA events around each call, with
+    a 1 GiB write before every call. The write flushes the 50 MB L2, and
+    its device time (~0.3 ms) outlasts the wrapper's host time, so the
+    start event fires only once the call's launches are queued: the
+    events time the device, not the host."""
+    import torch
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def phase_where_time_goes(device, n=SLICE_N, cap=SLICE_S, warm=30,
+                          steps=10):
+    """``steps`` supersteps of the wave from superstep ``warm``: their
+    wall time unprofiled, then the same supersteps under
+    ``torch.profiler`` for the device's kernel time and launch count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link = gossip_wave(n)
+    eng = TorchEngine(sc, link, window="auto", insert_cap=cap, device=device)
+    mid = eng.run_quiet(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_quiet(steps, mid)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run_quiet(steps, mid)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    say(f"where the time goes: {steps} supersteps from superstep {warm}: "
+        f"wall_ms_per_superstep={wall / steps * 1e3} "
+        f"device_ms_per_superstep={dev_us / steps / 1e3} "
+        f"device_idle_share={1 - dev_us / 1e6 / wall} "
+        f"device_launches_per_superstep={launches / steps}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"  device_us_per_superstep={e.self_device_time_total / steps} "
+            f"launches_per_superstep={e.count / steps} {e.key[:90]}")
+
+
+def phase_times(device):
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    pdst, woff, pay = compact_inputs(device, SLICE_N, SLICE_M, SLICE_P, 0.2,
+                                     1)
+    fired = int((pdst >= 0).sum())
+    k2_bytes = (pdst.numel() + woff.numel()) * 4 + fired * SLICE_P * 4 \
+        + (3 + SLICE_P) * SLICE_S * 4
+    k2 = dict(ms=_time_ms(lambda: ci.fire_compact(pdst, woff, pay, SLICE_S)),
+              plain_ms=_time_ms(lambda: ci.fire_compact_plain(
+                  pdst, woff, pay, SLICE_S)),
+              bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3, bytes=k2_bytes)
+    t = insert_inputs(device, SLICE_N, SLICE_K, SLICE_P, SLICE_S, False,
+                      False, 4)
+    args = insert_args(t, SLICE_N)
+    start, cnt = args[0], args[1]
+    gathered = int(cnt.sum())
+    planes = t["mb_rel"].numel() + t["mb_payload"].numel()
+    k1_bytes = 2 * planes * 4 + (start.numel() + cnt.numel()) * 4 \
+        + gathered * (1 + SLICE_P) * 4
+    k1 = dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
+              plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args)),
+              bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes)
+    for name, r in (("fire_compact", k2), ("mailbox_insert", k1)):
+        say(f"time {name}: kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
+            f"bound_ms={r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s; "
+            "no single PyTorch call computes this function: library_ms "
+            "null)")
+    return k2, k1
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    from timewarp_tpu_torch.utils import build
+    device = torch.device("cuda")
+    smi = nvidia_smi()
+    say(smi)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    records = build.build_all()
+    say(f"build: {time.perf_counter() - t0:.3f} s wall")
+    for name, rec in records.items():
+        regs = [ln.strip() for ln in rec.ptxas.splitlines()
+                if "registers" in ln]
+        say(f"build {name}: nvcc_s={rec.seconds:.3f} lib={rec.path} "
+            f"ptxas={regs}")
+
+    err_k2 = phase_compact(device)
+    err_k1 = phase_insert(device)
+    launches, steps = phase_main_path(device)
+    phase_card_vs_cpu(device)
+    k2, k1 = phase_times(device)
+    phase_where_time_goes(device)
+
+    kernels = []
+    for name, src, repl, err, r in (
+            ("fire_compact", "timewarp_tpu_torch/csrc/fire_compact.cu",
+             K2_REPLACES, err_k2, k2),
+            ("mailbox_insert", "timewarp_tpu_torch/csrc/mailbox_insert.cu",
+             K1_REPLACES, err_k1, k1)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches[name], "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

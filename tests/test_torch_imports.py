@@ -1,0 +1,81 @@
+"""The port stands alone: importing ``timewarp_tpu_torch`` (every module
+of it) in a fresh interpreter leaves ``jax`` and the reference package
+``timewarp_tpu`` out of ``sys.modules``; no source file of the port
+imports either; and ``TorchEngine`` runs on the card by default, raising
+on a machine without CUDA unless the caller passes ``device="cpu"``.
+
+Tolerance: exact (membership and source checks).
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "timewarp_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def _is_reference(name: str) -> bool:
+    # the port's own name starts with "timewarp_tpu": match the reference
+    # package and its submodules exactly
+    return name == "timewarp_tpu" or name.startswith("timewarp_tpu.")
+
+
+def _is_jax(name: str) -> bool:
+    return name == "jax" or name.startswith("jax.") or name == "jaxlib" \
+        or name.startswith("jaxlib.")
+
+
+def test_import_leaves_jax_and_reference_out():
+    mods = _modules()
+    assert "timewarp_tpu_torch.interp.torch_engine.engine" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'timewarp_tpu' or m.startswith('timewarp_tpu.')]\n"
+        "print(len(bad), sorted(bad)[:5])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 "), out.stdout
+
+
+def test_sources_import_neither_jax_nor_reference():
+    offenders = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [f"{path.name}: {n}" for n in names
+                          if _is_jax(n) or _is_reference(n)]
+    assert not offenders
+
+
+def test_engine_raises_without_cuda_unless_cpu_requested():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is valid")
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.delays import FixedDelay
+    sc = gossip(64, burst=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchEngine(sc, FixedDelay(5_000), window="auto")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine(sc, FixedDelay(5_000), window="auto", device="cuda")
+    eng = TorchEngine(sc, FixedDelay(5_000), window="auto", device="cpu")
+    assert eng.device.type == "cpu"

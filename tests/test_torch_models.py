@@ -1,0 +1,137 @@
+"""The port's scenario steps against the reference's, leaf for leaf: one
+gossip step (burst and paced) and one token-ring step (with the observer,
+the ordered-inbox scenario, and the static ring without it) on random
+inboxes and states made with numpy from a seed, plus the initial states.
+The reference step is ``vmap``-ed exactly as ``JaxEngine`` does (inbox
+and outbox node axis minor); the port's step is batched by hand.
+
+Tolerance: exact (every leaf is integer).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from timewarp_tpu.core.scenario import Inbox as JInbox
+from timewarp_tpu.core.scenario import Outbox as JOutbox
+from timewarp_tpu.models.gossip import gossip as jgossip
+from timewarp_tpu.models.token_ring import token_ring as jring
+from timewarp_tpu_torch.core.scenario import NEVER, Inbox
+from timewarp_tpu_torch.models.gossip import gossip as tgossip
+from timewarp_tpu_torch.models.token_ring import token_ring as tring
+
+I32MIN, I32MAX = -2**31, 2**31 - 1
+
+
+def _inbox(rng, K, P, n, pay_lo, pay_hi, kinds=False):
+    payload = rng.integers(pay_lo, pay_hi, (K, P, n)).astype(np.int32)
+    if kinds:
+        payload[:, 1, :] = rng.integers(0, 2, (K, n))
+    return dict(valid=rng.random((K, n)) < 0.4,
+                src=rng.integers(0, n, (K, n)).astype(np.int32),
+                time=rng.integers(0, 10**6, (K, n)).astype(np.int64),
+                payload=payload)
+
+
+def _both_steps(jsc, tsc, states, inbox, now):
+    n = now.size
+    ids = np.arange(n, dtype=np.int32)
+    jout = jax.vmap(
+        jsc.step,
+        in_axes=(0, JInbox(valid=-1, src=-1, time=-1, payload=-1), 0, 0,
+                 None),
+        out_axes=(0, JOutbox(valid=-1, dst=-1, payload=-1), 0))(
+            {k: jnp.asarray(v) for k, v in states.items()},
+            JInbox(**{k: jnp.asarray(v) for k, v in inbox.items()}),
+            jnp.asarray(now), jnp.asarray(ids), None)
+    tout = tsc.step({k: torch.from_numpy(v) for k, v in states.items()},
+                    Inbox(**{k: torch.from_numpy(v)
+                             for k, v in inbox.items()}),
+                    torch.from_numpy(now), torch.from_numpy(ids), None)
+    (js, jo, jw), (ts, to, tw) = jout, tout
+    assert set(js) == set(ts)
+    for k in js:
+        np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]),
+                                      err_msg=f"state.{k}")
+    for f in ("valid", "dst", "payload"):
+        np.testing.assert_array_equal(getattr(to, f).numpy(),
+                                      np.asarray(getattr(jo, f)),
+                                      err_msg=f"outbox.{f}")
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw),
+                                  err_msg="wake")
+    return ts, to
+
+
+def _gossip_states(rng, n, fanout):
+    lcg = rng.integers(I32MIN, I32MAX, n).astype(np.int32)
+    lcg[:4] = (I32MIN, I32MAX, 0, -1)
+    return dict(
+        hop=rng.integers(-1, 6, n).astype(np.int32),
+        lcg=lcg,
+        left=rng.integers(0, fanout + 1, n).astype(np.int32),
+        next=np.where(rng.random(n) < 0.3, NEVER,
+                      rng.integers(0, 2 * 10**6, n)).astype(np.int64))
+
+
+@pytest.mark.parametrize("burst", [True, False], ids=["burst", "paced"])
+def test_gossip_step_equal(burst):
+    n, K, fanout = 301, 8, 8
+    kw = dict(fanout=fanout, think_us=2_000, burst=burst, end_us=10**6,
+              mailbox_cap=K)
+    jsc, tsc = jgossip(n, **kw), tgossip(n, **kw)
+    assert (tsc.max_out, tsc.payload_width, tsc.mailbox_cap,
+            tsc.commutative_inbox, tsc.inbox_src) == \
+        (jsc.max_out, jsc.payload_width, jsc.mailbox_cap,
+         jsc.commutative_inbox, jsc.inbox_src)
+    rng = np.random.default_rng(11 + burst)
+    states = _gossip_states(rng, n, fanout)
+    now = rng.integers(0, 2 * 10**6, n).astype(np.int64)
+    now[:8] = states["next"][:8].clip(max=2 * 10**6)   # some nodes due
+    _, out = _both_steps(jsc, tsc, states, _inbox(rng, K, 1, n, 0, 10),
+                         now)
+    assert bool(out.valid.any())
+
+
+@pytest.mark.parametrize("with_observer", [True, False],
+                         ids=["observer", "static-ring"])
+def test_token_ring_step_equal(with_observer):
+    n_ring, K = 63, 8
+    kw = dict(n_tokens=16, think_us=1_000, with_observer=with_observer,
+              mailbox_cap=K)
+    jsc, tsc = jring(n_ring, **kw), tring(n_ring, **kw)
+    assert (tsc.commutative_inbox, tsc.max_out, tsc.payload_width) == \
+        (jsc.commutative_inbox, jsc.max_out, jsc.payload_width)
+    n = jsc.n_nodes
+    rng = np.random.default_rng(13 + with_observer)
+    states = dict(
+        cnt=rng.integers(0, 3, n).astype(np.int32),
+        val=rng.integers(0, 50, n).astype(np.int32),
+        send_at=np.where(rng.random(n) < 0.5, NEVER,
+                         rng.integers(0, 30_000, n)).astype(np.int64))
+    if with_observer:
+        states.update(prev=rng.integers(0, 50, n).astype(np.int32),
+                      errs=rng.integers(0, 3, n).astype(np.int32))
+    inbox = _inbox(rng, K, 2, n, 0, 50, kinds=True)
+    inbox["valid"][:, -1] = True          # the last node's inbox is full
+    now = rng.integers(0, 30_000, n).astype(np.int64)
+    _both_steps(jsc, tsc, states, inbox, now)
+
+
+@pytest.mark.parametrize("which", ["gossip", "token_ring"])
+def test_init_states_equal(which):
+    if which == "gossip":
+        jsc = jgossip(1000, burst=True)
+        tsc = tgossip(1000, burst=True)
+    else:
+        jsc = jring(99, n_tokens=7)
+        tsc = tring(99, n_tokens=7)
+    js, jw = jsc.init_batched(jsc.n_nodes)
+    ts, tw = tsc.init_batched(tsc.n_nodes, torch.device("cpu"))
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    assert set(js) == set(ts)
+    for k in js:
+        assert ts[k].dtype == getattr(torch, str(np.asarray(js[k]).dtype))
+        np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]))

@@ -1,0 +1,328 @@
+"""The general engine's insertion stage on Hopper (counterpart of
+``timewarp_tpu/interp/jax_engine/pallas_insert.py``): the fire-compaction
+kernel (K2), the mailbox-insertion kernel (K1), their plain PyTorch
+versions, and :class:`InsertStage`, the counterpart of
+``PallasInsertStage``.
+
+Each wrapper takes its plain version for tensors on the CPU only. For a
+CUDA tensor it launches the hand-written CUDA kernel (``csrc/``, built
+with ``nvcc`` at first use — utils/build.py) or raises: there is no
+fallback. Every launch adds one to :data:`LAUNCHES`.
+
+No kernel writes into its inputs: outputs are allocated fresh. This
+matters because the commutative path hands the previous state's
+``mb_src``/``mb_payload`` to insertion unchanged — an in-place write
+would mutate the caller's earlier ``EngineState``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from ...ops.numeric import I32MAX
+from ...utils import build
+
+__all__ = ["LAUNCHES", "reset_launches", "fire_compact",
+           "fire_compact_plain", "mailbox_insert", "mailbox_insert_plain",
+           "bucket_bounds", "InsertStage", "LANES"]
+
+#: the compaction order's segment width (one CTA per segment on the card)
+LANES = 1024
+
+#: kernel launches on the card since the last reset, by kernel name
+LAUNCHES = {"fire_compact": 0, "mailbox_insert": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _kernel(lib: str, sym: str, argtypes: tuple):
+    fn = getattr(build.library(lib), sym)
+    fn.argtypes = list(argtypes)
+    fn.restype = _I
+    return fn
+
+
+def _check_launch(lib: str, rc: int) -> None:
+    if rc != 0:
+        err = build.library(lib).tw_error_string
+        err.argtypes = [_I]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(
+            f"{lib} kernel launch failed: CUDA error {rc} "
+            f"({err(rc).decode()})")
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _require(name: str, x: torch.Tensor, shape: tuple, device) -> None:
+    """Refuse what the kernel does not take: device, int32, shape,
+    contiguity."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != torch.int32:
+        raise ValueError(f"{name} must be int32, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _on_card(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; anything else is
+    refused (never quietly moved)."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel or plain version for device "
+                     f"{x.device}")
+
+
+# ----------------------------------------------------------------------
+# K2 — fire-compaction
+# ----------------------------------------------------------------------
+
+def _compact_layout(n: int):
+    """The reference kernel's write order as segments of LANES nodes:
+    ``NR`` node rows of LANES (the last one ragged when ``n`` is not a
+    multiple), grouped into blocks of ``RW`` rows (8 when ``NR % 8 ==
+    0``, else 1 — pallas_insert.py ``PallasInsertStage``), and inside a
+    block slot-major, then row, then lane."""
+    NR = -(-n // LANES)
+    RW = 8 if NR % 8 == 0 else 1
+    return NR, RW
+
+
+def fire_compact_plain(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
+                       payload: torch.Tensor, S: int):
+    """Plain version of K2. ``pdst`` int32 ``[M, N]`` (-1 = no message),
+    ``woff_n`` int32 ``[N]`` in-window send offsets (None when the window
+    is 1: the batch's woff column is then 0), ``payload`` int32
+    ``[M, P, N]``. Returns ``(dst[S], woff[S], smrank[S], pay[P, S],
+    drops)``: valid messages in the reference kernel's order
+    (``_compact_layout``), ``dst = n`` past the fired count, and the
+    count of messages beyond ``S`` (an int32 scalar tensor)."""
+    M, n = pdst.shape
+    P = payload.shape[1]
+    dev = pdst.device
+    NR, RW = _compact_layout(n)
+    G = NR // RW
+    padded = torch.full((M, NR * LANES), -1, dtype=torch.int32, device=dev)
+    padded[:, :n] = pdst
+    d = padded.view(M, G, RW, LANES).permute(1, 0, 2, 3).reshape(-1)
+    node = torch.arange(NR * LANES, dtype=torch.int64, device=dev) \
+        .view(1, G, RW, LANES).expand(M, G, RW, LANES) \
+        .permute(1, 0, 2, 3).reshape(-1)
+    slot = torch.arange(M, dtype=torch.int64, device=dev) \
+        .view(M, 1, 1, 1).expand(M, G, RW, LANES) \
+        .permute(1, 0, 2, 3).reshape(-1)
+    idx = torch.nonzero(d >= 0).squeeze(1)
+    total = idx.numel()
+    keep = idx[:S]
+    F = keep.numel()
+    nodes, slots = node[keep], slot[keep]
+    out_dst = torch.full((S,), n, dtype=torch.int32, device=dev)
+    out_dst[:F] = d[keep]
+    out_woff = torch.zeros(S, dtype=torch.int32, device=dev)
+    if woff_n is not None:
+        out_woff[:F] = woff_n[nodes]
+    out_smrank = torch.zeros(S, dtype=torch.int32, device=dev)
+    out_smrank[:F] = (nodes * M + slots).to(torch.int32)
+    out_pay = torch.zeros((P, S), dtype=torch.int32, device=dev)
+    out_pay[:, :F] = payload[slots, :, nodes].T
+    drops = torch.tensor(max(total - S, 0), dtype=torch.int32, device=dev)
+    return out_dst, out_woff, out_smrank, out_pay, drops
+
+
+_COMPACT_ARGS = (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P)
+
+
+def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
+                 payload: torch.Tensor, S: int):
+    """K2: stream compaction of the raw outbox planes into the fired
+    batch of static width ``S`` (see :func:`fire_compact_plain` for the
+    function). CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/fire_compact.cu``."""
+    if not _on_card(pdst, "fire_compact"):
+        return fire_compact_plain(pdst, woff_n, payload, S)
+    M, n = pdst.shape
+    P = payload.shape[1]
+    dev = pdst.device
+    _require("pdst", pdst, (M, n), dev)
+    _require("payload", payload, (M, P, n), dev)
+    if woff_n is not None:
+        _require("woff_n", woff_n, (n,), dev)
+    NR, _ = _compact_layout(n)
+    scratch = torch.empty(NR * M + 1, dtype=torch.int32, device=dev)
+    out_dst = torch.empty(S, dtype=torch.int32, device=dev)
+    out_woff = torch.empty(S, dtype=torch.int32, device=dev)
+    out_smrank = torch.empty(S, dtype=torch.int32, device=dev)
+    out_pay = torch.empty((P, S), dtype=torch.int32, device=dev)
+    drops = torch.empty((), dtype=torch.int32, device=dev)
+    fn = _kernel("fire_compact", "tw_fire_compact", _COMPACT_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(pdst.data_ptr(), _ptr(woff_n), payload.data_ptr(), n, M, P,
+                S, scratch.data_ptr(), out_dst.data_ptr(),
+                out_woff.data_ptr(), out_smrank.data_ptr(),
+                out_pay.data_ptr(), drops.data_ptr(), stream)
+    _check_launch("fire_compact", rc)
+    LAUNCHES["fire_compact"] += 1
+    return out_dst, out_woff, out_smrank, out_pay, drops
+
+
+# ----------------------------------------------------------------------
+# K1 — mailbox insertion
+# ----------------------------------------------------------------------
+
+def bucket_bounds(sd: torch.Tensor, n: int) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """Per-destination bucket of a destination-sorted batch (sentinel
+    ``n`` past the valid entries): ``start[d]`` is the index of d's first
+    message and ``cnt[d]`` their number, int32 ``[n]`` each. Plain torch
+    ops outside the kernel, as the reference computes them in XLA."""
+    nodes = torch.arange(n, dtype=torch.int32, device=sd.device)
+    start = torch.searchsorted(sd, nodes, out_int32=True)
+    end = torch.searchsorted(sd, nodes, right=True, out_int32=True)
+    return start, end - start
+
+
+def mailbox_insert_plain(start, cnt, counts, drel, src, pay,
+                         mb_rel, mb_src, mb_payload):
+    """Plain version of K1: merge a destination-sorted batch into the
+    ``[K, N]`` mailbox. ``start``/``cnt`` int32 ``[N]`` are each node's
+    bucket in the batch; ``drel``/``src`` int32 ``[S]`` and ``pay`` int32
+    ``[P, S]`` are the batch columns (``src`` None when the scenario has
+    no ``inbox_src``: ``mb_src`` then passes through). ``counts`` None
+    selects the commutative inbox — the r-th message of node d fills d's
+    r-th empty slot (``mb_rel == I32MAX``); otherwise (ordered inbox) it
+    fills row ``counts[d] + r``. Returns ``(mb_rel, mb_src, mb_payload,
+    overflow)`` with the messages that found no slot counted in the int32
+    scalar ``overflow``."""
+    K, n = mb_rel.shape
+    S = drel.shape[0]
+    if counts is None:
+        free = mb_rel == I32MAX
+        h = torch.cumsum(free, dim=0, dtype=torch.int32) - free.to(
+            torch.int32)
+        want = free & (h < cnt[None, :])
+        j = start[None, :] + h
+        ovf = torch.clamp(cnt - free.sum(dim=0, dtype=torch.int32), min=0)
+    else:
+        rows = torch.arange(K, dtype=torch.int32, device=mb_rel.device)
+        jr = rows[:, None] - counts[None, :]
+        want = (jr >= 0) & (jr < cnt[None, :])
+        j = start[None, :] + jr
+        ovf = torch.clamp(cnt - (K - counts), min=0)
+    jc = torch.where(want, j, 0).clamp(0, S - 1).long()
+    o_rel = torch.where(want, drel[jc], mb_rel)
+    o_pay = torch.where(want[:, None, :], pay[:, jc].permute(1, 0, 2),
+                        mb_payload)
+    o_src = mb_src if src is None else torch.where(want, src[jc], mb_src)
+    return o_rel, o_src, o_pay, ovf.sum(dtype=torch.int32)
+
+
+_INSERT_ARGS = (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                _P, _P, _P, _P, _P)
+
+
+def mailbox_insert(start, cnt, counts, drel, src, pay,
+                   mb_rel, mb_src, mb_payload):
+    """K1: see :func:`mailbox_insert_plain` for the function. CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/mailbox_insert.cu`` (one thread per node column, outputs
+    freshly allocated)."""
+    if not _on_card(mb_rel, "mailbox_insert"):
+        return mailbox_insert_plain(start, cnt, counts, drel, src, pay,
+                                    mb_rel, mb_src, mb_payload)
+    K, n = mb_rel.shape
+    P = mb_payload.shape[1]
+    S = drel.shape[0]
+    dev = mb_rel.device
+    for name, x, shape in (("start", start, (n,)), ("cnt", cnt, (n,)),
+                           ("drel", drel, (S,)), ("pay", pay, (P, S)),
+                           ("mb_rel", mb_rel, (K, n)),
+                           ("mb_src", mb_src, (K, n)),
+                           ("mb_payload", mb_payload, (K, P, n))):
+        _require(name, x, shape, dev)
+    if counts is not None:
+        _require("counts", counts, (n,), dev)
+    if src is not None:
+        _require("src", src, (S,), dev)
+    o_rel = torch.empty_like(mb_rel)
+    o_pay = torch.empty_like(mb_payload)
+    o_src = mb_src if src is None else torch.empty_like(mb_src)
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    fn = _kernel("mailbox_insert", "tw_mailbox_insert", _INSERT_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(start.data_ptr(), cnt.data_ptr(), _ptr(counts),
+                drel.data_ptr(), _ptr(src), pay.data_ptr(), S,
+                mb_rel.data_ptr(), None if src is None else mb_src.data_ptr(),
+                mb_payload.data_ptr(), n, K, P,
+                o_rel.data_ptr(), None if src is None else o_src.data_ptr(),
+                o_pay.data_ptr(), overflow.data_ptr(), stream)
+    _check_launch("mailbox_insert", rc)
+    LAUNCHES["mailbox_insert"] += 1
+    return o_rel, o_src, o_pay, overflow
+
+
+# ----------------------------------------------------------------------
+# the engine-facing stage
+# ----------------------------------------------------------------------
+
+class InsertStage:
+    """The engine's routing front end and insertion back end: K2 turns
+    the pre-masked ``[M, N]`` outbox into the compact fired batch, K1
+    merges the sorted, sampled batch into the mailbox.
+
+    ``insert_cap`` bounds the fired batch in messages, as in the
+    reference: default ``n_nodes * max_out`` (nothing can drop), rounded
+    UP to a multiple of 1024 — so a given cap drops exactly the messages
+    the reference's ``PallasInsertStage`` drops, counted in
+    ``route_drop``. Unlike the reference, ``n_nodes`` need not be a
+    multiple of 1024."""
+
+    def __init__(self, scenario, n: int, *, window: int,
+                 insert_cap: Optional[int]) -> None:
+        M = scenario.max_out
+        self.n, self.M = n, M
+        self.W = int(window)
+        self.inbox_src = scenario.inbox_src
+        full = n * M
+        if insert_cap is not None and int(insert_cap) < M:
+            raise ValueError(f"insert_cap must be >= max_out={M} (one "
+                             f"whole sender), got {insert_cap}")
+        cap = full if insert_cap is None else min(int(insert_cap), full)
+        #: the fired batch's static width
+        self.S = -(-cap // 1024) * 1024
+
+    def compact(self, pdst, woff_n, payload):
+        """Raw pre-masked outbox planes in, compact fired batch out:
+        ``(dst, woff, smrank, pay[P, S], route_drop)``."""
+        return fire_compact(pdst, woff_n if self.W > 1 else None,
+                            payload, self.S)
+
+    def insert(self, sd, drel_s, src_s, pay_s, mb_rel, mb_src,
+               mb_payload, counts):
+        """One destination-sorted batch into the mailbox (``counts`` is
+        the ordered inbox's kept-rows plane, None when commutative)."""
+        start, cnt = bucket_bounds(sd, self.n)
+        return mailbox_insert(start, cnt, counts, drel_s,
+                              src_s if self.inbox_src else None, pay_s,
+                              mb_rel, mb_src, mb_payload)

@@ -1,0 +1,421 @@
+"""The general engine on PyTorch (port of
+``timewarp_tpu/interp/jax_engine/engine.py``, the adaptive regime).
+
+Whole-network emulation as a Python loop of supersteps over tensors:
+per-node ``next_wake`` plus bounded ``[K, N]`` mailboxes with int32
+epoch-relative deliver times (``I32MAX`` = empty slot). Each superstep,
+in the reference's order:
+
+1. pop the minimum event (``t``) — the one host sync of the loop, which
+   is also the run loop's quiescence test;
+2. fire every node whose next event lies in ``[t, t + window)``, each at
+   its own instant;
+3. deliver and build the inbox (sorted by ``(deliver time, slot)`` for
+   ordered inboxes);
+4. run the scenario's batched step;
+5. drop what was delivered and rebase to the new epoch;
+6. route: fire-compact the outbox (kernel K2), sort the batch by
+   ``(destination, window offset, sender-major rank)``, sample the link,
+   and insert into the mailbox (kernel K1).
+
+The emitted trace and final state equal ``JaxEngine``'s bit for bit
+(tests/test_torch_engine.py). The slice covers the adaptive regime —
+no ``route_cap``, a drop-free link, and ``window > 1`` or ``max_out > 1``
+— and refuses everything else at construction.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from ...core.rng import fire_bits, msg_bits, seed_words
+from ...core.scenario import NEVER, Inbox, Scenario
+from ...net.delays import LinkModel
+from ...ops.numeric import I32MAX, thi, tlo, u32sum
+from ...trace.events import SuperstepTrace
+from ...trace.hashing import FIRED, RECV, SENT, mix32
+from .common import LocalComm, init_states_wake, run_stats
+from .cuda_insert import InsertStage
+
+__all__ = ["TorchEngine", "EngineState", "resolve_device"]
+
+
+class EngineState(NamedTuple):
+    """The complete simulation state — the reference's ``EngineState``
+    leaf for leaf, same dtypes and ``[K, N]`` layout (so states carry
+    across, state_io.py). Scalars are 0-d tensors on the engine's
+    device."""
+    states: Any                  # dict of [N, ...] tensors
+    wake: torch.Tensor           # int64[N]
+    mb_rel: torch.Tensor         # int32[K, N]; I32MAX = empty slot
+    mb_src: torch.Tensor         # int32[K, N]
+    mb_payload: torch.Tensor     # int32[K, P, N]
+    overflow: torch.Tensor       # int32[]
+    bad_dst: torch.Tensor        # int32[]
+    bad_delay: torch.Tensor      # int32[]
+    short_delay: torch.Tensor    # int32[]
+    route_drop: torch.Tensor     # int32[]
+    delivered: torch.Tensor      # int64[]
+    steps: torch.Tensor          # int64[]
+    time: torch.Tensor           # int64[] — current epoch
+    ev_time: torch.Tensor        # int64[0] — the event ring (not ported)
+    ev_meta: torch.Tensor        # int32[4, 0]
+    ev_count: torch.Tensor       # int64[]
+    fault_dropped: torch.Tensor  # int32[] — faults are not ported: 0
+    restart_done: torch.Tensor   # bool[0]
+
+
+#: the reference engine's options this slice does not port, with the
+#: value that means "off" — any other value is refused at construction
+_UNPORTED = {"route_cap": None, "record_events": 0, "batch": None,
+             "faults": None, "telemetry": "off", "controller": None,
+             "verify": "off", "record": "off", "speculate": "off"}
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device: the card unless the caller asks for another.
+    Without CUDA, a caller that did not pass ``device="cpu"`` gets an
+    error, never a silent move to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchEngine runs on the CUDA device by default and none "
+                "is available; pass device='cpu' to run the kernels' plain "
+                "versions on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} but CUDA is not available")
+    return dev
+
+
+def _sort_rows(key: torch.Tensor) -> torch.Tensor:
+    """Indices of a stable ascending sort along axis 0."""
+    return torch.sort(key, dim=0, stable=True).indices
+
+
+class TorchEngine:
+    """Single-device engine for dynamic-destination scenarios —
+    ``JaxEngine(insert="pallas")`` on the adaptive regime, with the
+    fire-compaction and mailbox-insertion kernels on the card (their
+    plain versions on the CPU).
+
+    ``window`` is an int µs width or ``"auto"`` (the link's declared
+    floor); it must not exceed ``link.min_delay_us``, and sampled delays
+    shorter than it are counted in ``short_delay``. ``insert_cap`` bounds
+    the fired batch (default ``n_nodes * max_out``: nothing can drop; a
+    smaller cap counts the excess in ``route_drop``). ``device`` defaults
+    to the card. After ``run``/``run_quiet``, ``last_run_stats`` holds
+    the call's supersteps, wall seconds and compiles (0)."""
+
+    last_run_stats = None
+
+    def __init__(self, scenario: Scenario, link: LinkModel, *,
+                 seed: int = 0, window=1,
+                 insert_cap: Optional[int] = None,
+                 device=None, **unported) -> None:
+        for k, v in unported.items():
+            if k not in _UNPORTED:
+                raise TypeError(f"TorchEngine got an unexpected keyword "
+                                f"argument {k!r}")
+            if v != _UNPORTED[k]:
+                raise ValueError(f"TorchEngine: {k}={v!r} is not yet "
+                                 "ported (run JaxEngine)")
+        self.device = resolve_device(device)
+        sc = scenario
+        if sc.n_nodes * sc.max_out >= 2**31:
+            raise ValueError(
+                "n_nodes * max_out must fit int32 (sender-major rank)")
+        if link.can_drop:
+            raise ValueError(
+                "TorchEngine: links that can drop take the reference's "
+                "eager routing path, which is not yet ported")
+        floor = link.min_delay_us
+        if isinstance(window, str) and window != "auto":
+            raise ValueError(f"window must be an int µs count or 'auto', "
+                             f"got {window!r}")
+        if window == "auto":
+            window = max(1, min(int(floor), I32MAX - 1))
+        if window < 1:
+            raise ValueError(f"window must be >= 1 µs, got {window}")
+        if window > 1 and window > floor:
+            raise ValueError(
+                f"window={window} µs exceeds the link model's declared "
+                f"min_delay_us={floor}; windowed supersteps would reorder "
+                "causally dependent events")
+        if window >= I32MAX:
+            raise ValueError("window must fit int32")
+        if not (window > 1 or sc.max_out > 1):
+            raise ValueError(
+                "TorchEngine: window=1 with max_out=1 takes the reference's "
+                "eager routing path, which is not yet ported")
+        self.scenario, self.link = sc, link
+        self.window = int(window)
+        self.s0, self.s1 = seed_words(seed)
+        self.comm = LocalComm(sc.n_nodes, self.device)
+        self._node_ids = self.comm.node_ids()
+        self.stage = InsertStage(sc, sc.n_nodes, window=self.window,
+                                 insert_cap=insert_cap)
+
+    # -- state -------------------------------------------------------------
+
+    def init_state(self) -> EngineState:
+        sc, dev = self.scenario, self.device
+        n, K, P = sc.n_nodes, sc.mailbox_cap, sc.payload_width
+        states, wake = init_states_wake(sc, dev)
+
+        def scalar(dtype):
+            return torch.zeros((), dtype=dtype, device=dev)
+        return EngineState(
+            states=states, wake=wake,
+            mb_rel=torch.full((K, n), I32MAX, dtype=torch.int32, device=dev),
+            mb_src=torch.zeros((K, n), dtype=torch.int32, device=dev),
+            mb_payload=torch.zeros((K, P, n), dtype=torch.int32, device=dev),
+            overflow=scalar(torch.int32), bad_dst=scalar(torch.int32),
+            bad_delay=scalar(torch.int32), short_delay=scalar(torch.int32),
+            route_drop=scalar(torch.int32), delivered=scalar(torch.int64),
+            steps=scalar(torch.int64), time=scalar(torch.int64),
+            ev_time=torch.zeros((0,), dtype=torch.int64, device=dev),
+            ev_meta=torch.zeros((4, 0), dtype=torch.int32, device=dev),
+            ev_count=scalar(torch.int64),
+            fault_dropped=scalar(torch.int32),
+            restart_done=torch.zeros((0,), dtype=torch.bool, device=dev))
+
+    def _next_event(self, st: EngineState) -> torch.Tensor:
+        """The next event time (NEVER = quiesced), an int64 0-d tensor."""
+        mmin = st.mb_rel.min()
+        return torch.minimum(
+            st.wake.min(),
+            torch.where(mmin == I32MAX, NEVER, st.time + mmin.long()))
+
+    # -- one superstep -----------------------------------------------------
+
+    def _sample_nodrop(self, src, dst, tmsg, slot, woff, ok):
+        """Link sampling for the no-drop routing path: per-message
+        entropy, the ``>= 1 µs`` flight clamp, the epoch-relative deliver
+        time saturated to int32, and the ``bad_delay``/``short_delay``
+        counts."""
+        mbits = msg_bits(self.s0, self.s1, src, dst, tmsg, slot) \
+            if self.link.needs_key else None
+        delay, _ = self.link.sample(src, dst, tmsg, mbits)
+        flight = torch.clamp(delay, min=1)                     # contract #4
+        drel64 = woff.long() + flight
+        bad = (ok & (drel64 > I32MAX - 1)).sum(dtype=torch.int32)
+        if self.window > 1:
+            short = (ok & (flight < self.window)).sum(dtype=torch.int32)
+        else:
+            short = torch.zeros((), dtype=torch.int32, device=ok.device)
+        drel = torch.clamp(drel64, max=I32MAX - 1).to(torch.int32)
+        return flight, drel, bad, short
+
+    def _route_firecompact(self, out, out_valid, now_vec, t, mb_rel,
+                           mb_src, mb_payload, counts, with_trace):
+        """Step 6: pre-mask, fire-compact (K2), order by ``(dst, woff,
+        smrank)``, sample, insert (K1), and the SENT digest."""
+        sc = self.scenario
+        M = sc.max_out
+        n = self.comm.n_local
+        dst32 = out.dst.to(torch.int32)
+        dst_okf = (dst32 >= 0) & (dst32 < self.comm.n_global)
+        bad_dst_step = (out_valid & ~dst_okf).sum(dtype=torch.int32)
+        pdst = torch.where(out_valid & dst_okf, dst32, -1).contiguous()
+        woff_n = (now_vec - t).to(torch.int32)
+        dst_f, woff_f, smrank, pay_f, route_drop_step = self.stage.compact(
+            pdst, woff_n, out.payload.to(torch.int32).contiguous())
+        ok = dst_f < n
+        # the reference's 3-key sort as two stable sorts: (woff, smrank)
+        # packed into one int64 (woff < 2^31, smrank < 2^31), then dst
+        lo = (woff_f.long() << 31) | smrank.long()
+        o1 = _sort_rows(lo)
+        perm = o1[_sort_rows(dst_f[o1])]
+        sd, woff_s, smrank_s = dst_f[perm], woff_f[perm], smrank[perm]
+        pay_s = pay_f[:, perm]
+        ok_s = sd < n
+        src_s = torch.div(smrank_s, M, rounding_mode="floor")
+        tmsg_s = t + woff_s.long()
+        flight_s, drel_s, bad_delay_step, short_step = self._sample_nodrop(
+            src_s, sd, tmsg_s, smrank_s - src_s * M, woff_s, ok_s)
+        mrel, msrc, mpay, overflow_step = self.stage.insert(
+            sd, drel_s, src_s, pay_s.contiguous(), mb_rel, mb_src,
+            mb_payload, counts)
+        sent_count = ok.sum(dtype=torch.int32)
+        sent_hash = None
+        if with_trace:
+            dt_abs = tmsg_s + flight_s
+            sent_mix = mix32(SENT, src_s, sd, tlo(dt_abs), thi(dt_abs),
+                             pay_s[0])
+            sent_hash = u32sum(torch.where(ok_s, sent_mix, 0))
+        return (mrel, msrc, mpay, overflow_step, bad_dst_step,
+                bad_delay_step, short_step, route_drop_step, sent_count,
+                sent_hash)
+
+    def _superstep(self, st: EngineState, with_trace: bool
+                   ) -> Optional[Tuple[EngineState, Optional[torch.Tensor]]]:
+        """One superstep: ``(new_state, trace_row)`` — the row an int64
+        ``[8]`` tensor when ``with_trace`` — or None once quiesced."""
+        sc = self.scenario
+        K, P = sc.mailbox_cap, sc.payload_width
+        n = self.comm.n_local
+        node_ids = self._node_ids
+        base = st.time
+        W = self.window
+        mb_live = st.mb_rel < I32MAX                            # [K, N]
+
+        # 1. global next event time (the batched "pop min")
+        nnr = st.mb_rel.amin(dim=0)
+        node_next = torch.minimum(
+            st.wake, torch.where(nnr == I32MAX, NEVER, base + nnr.long()))
+        t = node_next.min()
+        if int(t) >= NEVER:        # the loop's one host sync per superstep
+            return None
+        # 2. windowed firing, each node at its own instant
+        fire = (node_next < NEVER) & (node_next - t < W)
+        now_vec = torch.where(fire, node_next, t)               # int64[N]
+        shift32 = torch.clamp(t - base, max=I32MAX - 1).to(torch.int32)
+        nrel = torch.clamp(now_vec - base, max=I32MAX - 1).to(torch.int32)
+        deliver = mb_live & (st.mb_rel <= nrel[None, :]) & fire[None, :]
+
+        # 3. inbox: delivered slots first, by (time, slot) — a stable sort
+        #    on the packed (undelivered, rel) key keeps slot order on ties.
+        #    Commutative inboxes waive the order.
+        if sc.commutative_inbox:
+            inbox = Inbox(
+                valid=deliver,
+                src=torch.where(deliver, st.mb_src, 0) if sc.inbox_src
+                else torch.zeros_like(st.mb_src),
+                time=torch.where(deliver, base + st.mb_rel.long(), NEVER),
+                payload=torch.where(deliver[:, None, :], st.mb_payload, 0))
+        else:
+            rel_key = torch.where(deliver, st.mb_rel, I32MAX)
+            order = _sort_rows(((~deliver).long() << 32)
+                               | (rel_key.long() + 2**31))
+            ib_valid = deliver.gather(0, order)
+            ib_rel = rel_key.gather(0, order)
+            ib_src = st.mb_src.gather(0, order)
+            ib_pay = st.mb_payload.gather(
+                0, order[:, None, :].expand(K, P, n))
+            inbox = Inbox(
+                valid=ib_valid,
+                src=torch.where(ib_valid, ib_src, 0) if sc.inbox_src
+                else torch.zeros_like(ib_src),
+                time=torch.where(ib_valid, base + ib_rel.long(), NEVER),
+                payload=torch.where(ib_valid[:, None, :], ib_pay, 0))
+
+        # 4. fire every node simultaneously; mask non-fired results
+        bits = fire_bits(self.s0, self.s1, node_ids, now_vec) \
+            if sc.needs_key else None
+        new_states, out, new_wake = sc.step(st.states, inbox, now_vec,
+                                            node_ids, bits)
+        states = {k: torch.where(
+            fire.view((n,) + (1,) * (v.dim() - 1)), new_states[k], v)
+            for k, v in st.states.items()}
+        new_wake = torch.where(new_wake >= NEVER, NEVER,
+                               torch.maximum(new_wake, now_vec + 1))
+        wake = torch.where(fire, new_wake, st.wake)
+        out_valid = out.valid & fire[None, :]                   # [M, N]
+
+        # 5. drop delivered messages, rebase to the new epoch t.
+        #    Commutative: freed slots become holes (mb_src / mb_payload
+        #    pass on unchanged — stale in holes, never read). Ordered: a
+        #    stable sort on `not kept` compacts kept rows in slot order.
+        keep = mb_live & ~deliver
+        if sc.commutative_inbox:
+            mb_rel = torch.where(keep, st.mb_rel - shift32, I32MAX)
+            mb_src, mb_payload, counts = st.mb_src, st.mb_payload, None
+        else:
+            order = _sort_rows((~keep).to(torch.int32))
+            kept = keep.gather(0, order)
+            mb_rel = torch.where(kept, st.mb_rel.gather(0, order) - shift32,
+                                 I32MAX)
+            mb_src = st.mb_src.gather(0, order)
+            mb_payload = st.mb_payload.gather(
+                0, order[:, None, :].expand(K, P, n))
+            counts = kept.sum(dim=0, dtype=torch.int32)
+
+        # 6. route, sample, insert
+        (mb_rel, mb_src, mb_payload, overflow_step, bad_dst_step,
+         bad_delay_step, short_step, route_drop_step, sent_count,
+         sent_hash) = self._route_firecompact(
+            out, out_valid, now_vec, t, mb_rel, mb_src, mb_payload, counts,
+            with_trace)
+        return self._finish_superstep(
+            st, states, wake, mb_rel, mb_src, mb_payload, deliver, fire,
+            node_ids, t, base, overflow_step, bad_dst_step, bad_delay_step,
+            short_step, route_drop_step, sent_count, sent_hash, with_trace)
+
+    def _finish_superstep(self, st, states, wake, mb_rel, mb_src,
+                          mb_payload, deliver, fire, node_ids, t, base,
+                          overflow_step, bad_dst_step, bad_delay_step,
+                          short_step, route_drop_step, sent_count,
+                          sent_hash, with_trace):
+        """Assemble the post-superstep state and (optionally) the trace
+        row ``(t, fired_count, fired_hash, recv_count, recv_hash,
+        sent_count, sent_hash, overflow)``."""
+        sc = self.scenario
+        K, n = sc.mailbox_cap, self.comm.n_local
+        recv_count = deliver.sum(dtype=torch.int32)
+        new_st = st._replace(
+            states=states, wake=wake,
+            mb_rel=mb_rel, mb_src=mb_src, mb_payload=mb_payload,
+            overflow=st.overflow + overflow_step,
+            bad_dst=st.bad_dst + bad_dst_step,
+            bad_delay=st.bad_delay + bad_delay_step,
+            short_delay=st.short_delay + short_step,
+            route_drop=st.route_drop + route_drop_step,
+            delivered=st.delivered + recv_count.long(),
+            steps=st.steps + 1,
+            time=t)
+        if not with_trace:
+            return new_st, None
+        # trace digests (order-independent): from the pre-sort mask
+        fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0))
+        d_abs = base + torch.where(deliver, st.mb_rel, 0).long()
+        recv_mix = mix32(
+            RECV, node_ids[None, :].expand(K, n),
+            st.mb_src if sc.inbox_src else torch.zeros_like(st.mb_src),
+            tlo(d_abs), thi(d_abs), st.mb_payload[:, 0, :])
+        recv_hash = u32sum(torch.where(deliver, recv_mix, 0))
+        row = torch.stack([
+            t, fire.sum().long(), fired_hash, recv_count.long(), recv_hash,
+            sent_count.long(), sent_hash, overflow_step.long()])
+        return new_st, row
+
+    # -- run loops ---------------------------------------------------------
+
+    def run(self, max_steps: int, state: Optional[EngineState] = None
+            ) -> Tuple[EngineState, SuperstepTrace]:
+        """Execute up to ``max_steps`` supersteps (stopping early once
+        quiesced); returns the final state and the trace of the
+        supersteps that fired."""
+        st = self.init_state() if state is None else state
+        steps0 = int(st.steps)
+        t0 = time.perf_counter()
+        rows = []
+        for _ in range(max_steps):
+            res = self._superstep(st, True)
+            if res is None:
+                break
+            st, row = res
+            rows.append(row)
+        cols = torch.stack(rows).cpu().numpy().T if rows else [[]] * 8
+        self.last_run_stats = run_stats(t0, steps0, int(st.steps))
+        return st, SuperstepTrace.from_columns(cols)
+
+    def run_quiet(self, max_steps: int,
+                  state: Optional[EngineState] = None) -> EngineState:
+        """Traceless run: no digest work. Stops at quiescence or after
+        ``max_steps`` supersteps."""
+        st = self.init_state() if state is None else state
+        steps0 = int(st.steps)
+        t0 = time.perf_counter()
+        for _ in range(max_steps):
+            res = self._superstep(st, False)
+            if res is None:
+                break
+            st = res[0]
+        # int() waits for the device, so the wall time covers the work
+        self.last_run_stats = run_stats(t0, steps0, int(st.steps))
+        return st
