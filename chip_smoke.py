@@ -23,7 +23,32 @@ first use). Phases, each of which fails the script on any mismatch:
 6. each kernel's time (CUDA events, cold L2), its plain version's time
    and its bound (bytes over 3.35 TB/s);
 7. where the main path's time goes: wall time per superstep against the
-   device's kernel time under ``torch.profiler`` (the idle share).
+   device's kernel time under ``torch.profiler`` (the idle share);
+
+then the fused-sparse engine's slice (kernel K3, Praos at 2^20 stake
+nodes):
+
+8. the sample-and-insert kernel (K3) against its plain version at the
+   slice shape (2^20 nodes, K 16, P 2, no src, max_out 8, window 8000,
+   the 2^23-wide batch of the main path, mailboxes overfilled), once per
+   lowered link kind: Fixed, Uniform, SeededHashUniform and
+   Quantize(LogNormal), a FixedDelay shorter than the window
+   (``short_delay > 0``) and an epoch just below 2^32 µs (the carry);
+9. the main path: Praos at 2^20 (``bench.py`` ``bench_praos_1m_fused``'s
+   configuration, ``max_batch = n * max_out``) through
+   ``FusedSparseEngine.run_quiet``, 16 warm supersteps then 256 timed,
+   with its invariants and K3 launched once per superstep; then the same
+   supersteps through ``run`` for the peak fired messages per superstep
+   and an equal final state;
+10. the card law, fused = general: Praos at 2^20 for 64 supersteps through
+    ``TorchEngine`` (K2 + K1) and ``FusedSparseEngine`` (K3), every state
+    leaf equal;
+11. card against CPU for the fused engine: integer-link Praos at 2^14
+    through ``run`` to quiescence, equal traces and final states;
+12. the gossip wave of phase 4 through ``FusedSparseEngine``: the same
+    supersteps, delivered count and final state as phase 4;
+13. K3's time, its plain version's time and its bound;
+14. where the Praos path's time goes, as phase 7.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -43,6 +68,13 @@ SLICE_N, SLICE_M, SLICE_P, SLICE_W, SLICE_S = 1 << 17, 8, 1, 8_000, 1 << 18
 SLICE_K = 16
 K2_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:656"
 K1_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:465"
+K3_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:259"
+# the fused slice: Praos at 2^20 stake nodes, payload 2, fanout 8
+PRAOS_N, PRAOS_P, PRAOS_S = 1 << 20, 2, (1 << 20) * SLICE_M
+FP32_OPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
+# K3's operations per drawn message: three 20-round Threefry-2x32 blocks
+# (about 120 integer operations each) and the lognormal's float arithmetic
+K3_OPS_PER_MSG = 400
 
 
 def nvidia_smi() -> str:
@@ -198,44 +230,59 @@ def phase_main_path(device, n=SLICE_N, cap=SLICE_S):
         f"missed {missed} <= n/500": missed <= max(n // 500, 8),
     }
     if device.type == "cuda":
-        checks.update({f"{k} launched once per superstep": v == steps
-                       for k, v in launches.items()})
+        checks.update({f"{k} launched once per superstep":
+                       launches[k] == steps
+                       for k in ("fire_compact", "mailbox_insert")})
     say(f"main path: gossip wave n={n} window={eng.window} "
         f"insert_cap={cap} supersteps={steps} delivered={delivered} "
         f"overflow={int(fin.overflow)} wall_s={stats['wall_seconds']} "
         f"delivered_msgs_per_s={delivered / stats['wall_seconds']} "
         f"launches={launches}")
+    _require_all("main path", checks)
+    return launches, steps, fin
+
+
+def _require_all(what, checks) -> None:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"main path invariants failed: {bad}")
-    return launches, steps
+        raise AssertionError(f"{what} invariants failed: {bad}")
+
+
+def _states_equal(what, a, b, sc=None) -> None:
+    """Every ``EngineState`` leaf of ``a`` and ``b`` equal (any devices)."""
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        state_to_numpy
+    sa, sb = state_to_numpy(a, sc), state_to_numpy(b, sc)
+    for name in sa:
+        x, y = sa[name], sb[name]
+        same = all(np.array_equal(x[k], y[k]) for k in x) \
+            if name == "states" else np.array_equal(x, y)
+        if not same:
+            raise AssertionError(f"{what}: state.{name} differs")
+
+
+def _card_vs_cpu(device, engine_cls, sc, link, **kw):
+    """``run`` to quiescence on the card and on the CPU: equal traces and
+    final states. Returns the card's state and trace."""
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    runs = [engine_cls(sc, link, window="auto", seed=11, device=dev,
+                       **kw).run(1 << 16) for dev in (device, "cpu")]
+    (sa, ta), (sb, tb) = runs
+    assert_traces_equal(ta, tb, str(device), "cpu")
+    _states_equal("card vs CPU", sa, sb, sc)
+    return sa, ta
 
 
 def phase_card_vs_cpu(device, n=1 << 14):
     from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
-    from timewarp_tpu_torch.interp.torch_engine.state_io import \
-        state_to_numpy
     from timewarp_tpu_torch.models.gossip import gossip
     from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
-    from timewarp_tpu_torch.trace.events import assert_traces_equal
     sc = gossip(n, fanout=8, think_us=2_000, burst=True, end_us=5_000_000,
                 mailbox_cap=8)
     link = Quantize(UniformDelay(8_000, 30_000), 1_000)
-    runs = []
-    for dev in (device, "cpu"):
-        eng = TorchEngine(sc, link, window="auto", seed=11, device=dev)
-        st, tr = eng.run(1 << 16)
-        runs.append((state_to_numpy(st), tr))
-    (sa, ta), (sb, tb) = runs
-    assert_traces_equal(ta, tb, str(device), "cpu")
-    for name in sa:
-        a, b = sa[name], sb[name]
-        same = all(np.array_equal(a[k], b[k]) for k in a) \
-            if name == "states" else np.array_equal(a, b)
-        if not same:
-            raise AssertionError(f"card vs CPU: state.{name} differs")
-    say(f"card vs CPU: gossip n={n} supersteps={len(ta)} "
-        f"delivered={int(sa['delivered'])} overflow={int(sa['overflow'])} "
+    st, tr = _card_vs_cpu(device, TorchEngine, sc, link)
+    say(f"card vs CPU: gossip n={n} supersteps={len(tr)} "
+        f"delivered={int(st.delivered)} overflow={int(st.overflow)} "
         "traces and states equal")
 
 
@@ -262,16 +309,12 @@ def _time_ms(fn, reps=20):
     return total / reps
 
 
-def phase_where_time_goes(device, n=SLICE_N, cap=SLICE_S, warm=30,
-                          steps=10):
-    """``steps`` supersteps of the wave from superstep ``warm``: their
+def phase_where_time_goes(tag, eng, warm, steps):
+    """``steps`` supersteps of ``eng``'s run from superstep ``warm``: their
     wall time unprofiled, then the same supersteps under
     ``torch.profiler`` for the device's kernel time and launch count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
-    sc, link = gossip_wave(n)
-    eng = TorchEngine(sc, link, window="auto", insert_cap=cap, device=device)
     mid = eng.run_quiet(warm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -285,7 +328,8 @@ def phase_where_time_goes(device, n=SLICE_N, cap=SLICE_S, warm=30,
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    say(f"where the time goes: {steps} supersteps from superstep {warm}: "
+    say(f"where the time goes, {tag}: {steps} supersteps from superstep "
+        f"{warm}: "
         f"wall_ms_per_superstep={wall / steps * 1e3} "
         f"device_ms_per_superstep={dev_us / steps / 1e3} "
         f"device_idle_share={1 - dev_us / 1e6 / wall} "
@@ -325,6 +369,234 @@ def phase_times(device):
     return k2, k1
 
 
+# -- the fused-sparse slice: K3 and Praos at 2^20 ---------------------------
+
+def praos_link():
+    """The Praos bench's link: quantized lognormal, 8 ms floor."""
+    from timewarp_tpu_torch.net.delays import LogNormalDelay, Quantize
+    return Quantize(LogNormalDelay(20_000, 0.6, cap_us=150_000,
+                                   floor_us=8_000), 1_000)
+
+
+def praos_consensus(n):
+    """bench.py _praos_consensus: burst diffusion, 8 ms propagation
+    floor, slots of 1 s, about four leaders a slot."""
+    from timewarp_tpu_torch.models.praos import praos
+    sc = praos(n, slot_us=1_000_000, n_slots=1 << 30, leader_prob=4.0 / n,
+               fanout=8, burst=True, mailbox_cap=16)
+    return sc, praos_link()
+
+
+def sample_inputs(device, n=PRAOS_N, K=SLICE_K, P=PRAOS_P, S=PRAOS_S,
+                  seed=8):
+    """A mailbox half full and a batch of width ``S`` sorted by ``(dst,
+    woff, smrank)``, 60% valid, whose 64 hot destinations overfill their
+    mailboxes; made with numpy from ``seed``, sorted on ``device``."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine.cuda_insert import \
+        bucket_bounds
+    from timewarp_tpu_torch.interp.torch_engine.engine import sort_batch
+    rng = np.random.default_rng(seed)
+    I32MAX = 2**31 - 1
+    n_msgs = int(S * 0.6)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+    dst = dev(np.concatenate([rng.integers(0, n, n_msgs - 64 * 24),
+                              np.repeat(rng.integers(0, n, 64), 24)]
+                             ).astype(np.int32))
+    woff = dev(rng.integers(0, SLICE_W, n_msgs).astype(np.int32))
+    smrank = dev(rng.permutation(n * SLICE_M)[:n_msgs].astype(np.int32))
+    perm = sort_batch(dst, woff, smrank)
+
+    def col(x, fill):
+        out = torch.full((S,), fill, dtype=torch.int32, device=device)
+        out[:n_msgs] = x[perm]
+        return out
+    sd = col(dst, n)
+    start, cnt = bucket_bounds(sd, n)
+    return dict(
+        start=start, cnt=cnt, sd=sd, woff=col(woff, 0),
+        smrank=col(smrank, 0),
+        pay=dev(rng.integers(-2**31, I32MAX, (P, S)).astype(np.int32)),
+        mb_rel=dev(np.where(rng.random((K, n)) < 0.5,
+                            rng.integers(0, 1 << 20, (K, n)),
+                            I32MAX).astype(np.int32)),
+        mb_src=torch.zeros((K, n), dtype=torch.int32, device=device),
+        mb_payload=dev(rng.integers(-2**31, I32MAX, (K, P, n)).astype(
+            np.int32)))
+
+
+def k3_call(fn, t, tt, link, s0=0x1234, s1=0x5678):
+    """``fn`` (K3's wrapper or its plain version) on the inputs ``t``,
+    epoch ``tt`` (a 0-d int64 tensor) and lowered ``link``."""
+    return fn(t["start"], t["cnt"], t["sd"], t["woff"], t["smrank"],
+              t["pay"], tt, t["mb_rel"], t["mb_src"], t["mb_payload"],
+              link=link, s0=s0, s1=s1, M=SLICE_M, W=SLICE_W,
+              inbox_src=False)
+
+
+def k3_links():
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        lower_link
+    from timewarp_tpu_torch.net import delays as d
+    qln = praos_link()
+    return [("fixed", lower_link(d.FixedDelay(9_000)), 1 << 36),
+            ("uniform", lower_link(d.UniformDelay(8_000, 30_000)), 1 << 36),
+            ("seeded-hash", lower_link(d.SeededHashUniform(8_000, 30_000,
+                                                           7)), 1 << 36),
+            ("quantized-lognormal", lower_link(qln), 1 << 36),
+            ("short fixed 3000 < W", lower_link(d.FixedDelay(3_000)),
+             1 << 36),
+            ("carry: t = 2^32 - 4000", lower_link(qln), 2**32 - 4_000)]
+
+
+def phase_sample_insert(device, t):
+    """K3 against its plain version on the inputs ``t`` (sample_inputs),
+    per link kind."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    err = 0
+    for tag, link, t0 in k3_links():
+        tt = torch.tensor(t0, dtype=torch.int64, device=device)
+        got = k3_call(ci.sample_insert, t, tt, link)
+        want = k3_call(ci.sample_insert_plain, t, tt, link)
+        torch.cuda.synchronize()
+        unequal = int((got[0] != want[0]).sum())
+        diff = max(int((g.long() - w.long()).abs().max())
+                   for g, w in zip(got, want))
+        ovf, bad, short = (int(x) for x in got[3:])
+        say(f"K3 {tag}: S={t['sd'].numel()} valid={int(t['cnt'].sum())} "
+            f"overflow={ovf} bad_delay={bad} short_delay={short} "
+            f"max_abs_err={diff} unequal_drel={unequal}")
+        err = max(err, _equal(f"K3 {tag}", got, want))
+        _require_all(f"K3 {tag}", {
+            "overflow > 0": ovf > 0,
+            "short_delay > 0 iff the delay is below W":
+                (short > 0) == tag.startswith("short")})
+    return err
+
+
+def phase_praos_main_path(device, n=PRAOS_N, warm=16, steps=256):
+    """The slice's main path: Praos at 2^20 through ``run_quiet``."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    sc, link = praos_consensus(n)
+    max_batch = n * sc.max_out
+    eng = FusedSparseEngine(sc, link, window="auto", max_batch=max_batch,
+                            device=device)
+    ci.reset_launches()
+    mid = eng.run_quiet(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin = eng.run_quiet(steps, mid)
+    wall = time.perf_counter() - t0           # run_quiet ends in a sync
+    launches = dict(ci.LAUNCHES)
+    delivered = int(fin.delivered) - int(mid.delivered)
+    # the same supersteps traced: the fired messages of each, and the
+    # traced driver's final state against the quiet one's
+    traced, tr = eng.run(warm + steps)
+    _states_equal("praos run vs run_quiet", traced, fin, sc)
+    sent = np.asarray(tr.sent_count)
+    slots = fin.states["slot"]
+    total = int(fin.steps)
+    checks = {
+        "short_delay == bad_delay == route_drop == bad_dst == 0":
+            int(fin.short_delay) == int(fin.bad_delay)
+            == int(fin.route_drop) == int(fin.bad_dst) == 0,
+        "two slots advanced": int(slots.min()) >= 2,
+        "delivered > 0": delivered > 0}
+    if device.type == "cuda":
+        checks.update({
+            "sample_insert launched once per superstep":
+                launches["sample_insert"] == total,
+            "no K1/K2 launch": launches["fire_compact"]
+                == launches["mailbox_insert"] == 0})
+    _require_all("praos main path", checks)
+    say(f"praos main path: n={n} window={eng.window} max_batch={max_batch} "
+        f"peak_fired_per_superstep={int(sent.max())} "
+        f"supersteps={total} (timed {steps}) delivered={delivered} "
+        f"overflow={int(fin.overflow)} slots={int(slots.min())}.."
+        f"{int(slots.max())} best_chain={int(fin.states['best'].max())} "
+        f"wall_s={wall} delivered_msgs_per_s={delivered / wall} "
+        f"launches={launches}")
+    return launches, eng
+
+
+def phase_fused_equals_general(device, n=PRAOS_N, steps=64):
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    sc, link = praos_consensus(n)
+    gen = TorchEngine(sc, link, window="auto", device=device).run_quiet(steps)
+    fus = FusedSparseEngine(sc, link, window="auto",
+                            max_batch=n * sc.max_out,
+                            device=device).run_quiet(steps)
+    _states_equal("fused vs general", fus, gen, sc)
+    say(f"fused = general: praos n={n} supersteps={int(fus.steps)} "
+        f"delivered={int(fus.delivered)} overflow={int(fus.overflow)} "
+        "every state leaf equal")
+
+
+def phase_fused_card_vs_cpu(device, n=1 << 14):
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    from timewarp_tpu_torch.models.praos import praos
+    from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
+    sc = praos(n, slot_us=100_000, n_slots=6, leader_prob=4.0 / n,
+               fanout=8, burst=True, mailbox_cap=16)
+    link = Quantize(UniformDelay(8_000, 30_000), 1_000)
+    st, tr = _card_vs_cpu(device, FusedSparseEngine, sc, link,
+                          max_batch=n * sc.max_out)
+    say(f"fused card vs CPU: praos n={n} supersteps={len(tr)} "
+        f"delivered={int(st.delivered)} overflow={int(st.overflow)} "
+        "traces and states equal")
+
+
+def phase_fused_gossip(device, general, n=SLICE_N):
+    """Phase 4's wave through the fused engine: nothing drops in either,
+    so both compute the same function."""
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    sc, link = gossip_wave(n)
+    eng = FusedSparseEngine(sc, link, window="auto", max_batch=n * sc.max_out,
+                            device=device)
+    fin = eng.run_quiet(1 << 20)
+    _states_equal("fused gossip vs phase 4", fin, general, sc)
+    say(f"fused gossip wave: n={n} supersteps={int(fin.steps)} "
+        f"delivered={int(fin.delivered)} wall_s="
+        f"{eng.last_run_stats['wall_seconds']}: phase 4's counts and state")
+
+
+def phase_time_k3(device, t):
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        lower_link
+    link = lower_link(praos_link())
+    tt = torch.tensor(1 << 36, dtype=torch.int64, device=device)
+    valid = int(t["cnt"].sum())
+    planes = t["mb_rel"].numel() + t["mb_payload"].numel()
+    k3_bytes = 2 * planes * 4 + (t["start"].numel() + t["cnt"].numel()) * 4 \
+        + valid * (3 + PRAOS_P) * 4
+    bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = valid * K3_OPS_PER_MSG / FP32_OPS_PER_S * 1e3
+    r = dict(ms=_time_ms(lambda: k3_call(ci.sample_insert, t, tt, link)),
+             plain_ms=_time_ms(lambda: k3_call(ci.sample_insert_plain, t, tt,
+                                               link)),
+             bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             bytes=k3_bytes)
+    say(f"time sample_insert: kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
+        f"bound_ms={r['bound_ms']} (bytes {k3_bytes} over 3.35 TB/s: "
+        f"{bytes_ms} ms; {valid} draws x {K3_OPS_PER_MSG} operations over "
+        f"67 TFLOP/s: {ops_ms} ms; no single PyTorch call computes this "
+        "function: library_ms null)")
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -349,23 +621,41 @@ def main() -> int:
 
     err_k2 = phase_compact(device)
     err_k1 = phase_insert(device)
-    launches, steps = phase_main_path(device)
+    launches, steps, gossip_fin = phase_main_path(device)
     phase_card_vs_cpu(device)
     k2, k1 = phase_times(device)
-    phase_where_time_goes(device)
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link = gossip_wave(SLICE_N)
+    phase_where_time_goes(
+        "gossip wave (TorchEngine)",
+        TorchEngine(sc, link, window="auto", insert_cap=SLICE_S,
+                    device=device), warm=30, steps=10)
+
+    k3_inputs = sample_inputs(device)
+    err_k3 = phase_sample_insert(device, k3_inputs)
+    praos_launches, praos_eng = phase_praos_main_path(device)
+    launches["sample_insert"] = praos_launches["sample_insert"]
+    phase_fused_equals_general(device)
+    phase_fused_card_vs_cpu(device)
+    phase_fused_gossip(device, gossip_fin)
+    k3 = phase_time_k3(device, k3_inputs)
+    phase_where_time_goes("praos (FusedSparseEngine)", praos_eng, warm=16,
+                          steps=32)
 
     kernels = []
     for name, src, repl, err, r in (
             ("fire_compact", "timewarp_tpu_torch/csrc/fire_compact.cu",
              K2_REPLACES, err_k2, k2),
             ("mailbox_insert", "timewarp_tpu_torch/csrc/mailbox_insert.cu",
-             K1_REPLACES, err_k1, k1)):
+             K1_REPLACES, err_k1, k1),
+            ("sample_insert", "timewarp_tpu_torch/csrc/sample_insert.cu",
+             K3_REPLACES, err_k3, k3)):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name], "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": None})
+            "bound_ms": r["bound_ms"],
+            "bound_by": r.get("bound_by", "bytes"), "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ link, seed, window and budget through both packages; equal final states
 - the overflow config (``mailbox_cap=2``);
 - the observer token ring, N=1024 (ordered inbox, append mode);
 - gossip at N=1000 (not a multiple of 1024) and paced gossip;
-- a state carried across from a mid-run JAX state (state_io.py);
+- Praos, burst and paced (its uint32 ``thr`` leaf mapped by state_io.py);
+- a state carried across from a mid-run JAX state (state_io.py), gossip
+  and Praos (the latter run on under the fused engine);
 - a small ``insert_cap`` whose drops must match the Pallas stage's.
 
 Tolerance: exact. The float lognormal link has its own file
@@ -19,10 +21,12 @@ Tolerance: exact. The float lognormal link has its own file
 
 import numpy as np
 import pytest
+import torch
 
 from timewarp_tpu.interp.jax_engine.engine import EngineState as JState
 from timewarp_tpu.interp.jax_engine.engine import JaxEngine
 from timewarp_tpu.models import gossip as jg
+from timewarp_tpu.models import praos as jp
 from timewarp_tpu.models.token_ring import token_ring as jring
 from timewarp_tpu.net import delays as jd
 from timewarp_tpu.trace.events import (assert_states_equal,
@@ -30,7 +34,10 @@ from timewarp_tpu.trace.events import (assert_states_equal,
 from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
 from timewarp_tpu_torch.interp.torch_engine.state_io import (
     state_from_numpy, state_to_numpy)
+from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+    FusedSparseEngine
 from timewarp_tpu_torch.models import gossip as tg
+from timewarp_tpu_torch.models import praos as tp
 from timewarp_tpu_torch.models.token_ring import token_ring as tring
 from timewarp_tpu_torch.net import delays as td
 
@@ -46,10 +53,18 @@ def _gossip_pair(n, link, **kw):
     return (jg.gossip(n, **args), link(jd)), (tg.gossip(n, **args), link(td))
 
 
-def _port_as_jax(ts):
+def _port_as_jax(ts, sc=None):
     """The port's final state as a reference ``EngineState`` of numpy
-    leaves, for the reference's own ``assert_states_equal``."""
-    return JState(**state_to_numpy(ts))
+    leaves (the scenario's ``u32_states`` back to uint32), for the
+    reference's own ``assert_states_equal``."""
+    return JState(**state_to_numpy(ts, sc))
+
+
+def _praos_pair(n, link, **kw):
+    args = dict(slot_us=100_000, n_slots=40, leader_prob=4.0 / n, fanout=8,
+                burst=True, mailbox_cap=16)
+    args.update(kw)
+    return (jp.praos(n, **args), link(jd)), (tp.praos(n, **args), link(td))
 
 
 def _run_both(pair, steps, **kw):
@@ -60,7 +75,7 @@ def _run_both(pair, steps, **kw):
     ts, tt = te.run(steps)
     assert te.window == je.window
     assert_traces_equal(jt, tt, "jax", "torch")
-    assert_states_equal(js, _port_as_jax(ts), "jax vs torch")
+    assert_states_equal(js, _port_as_jax(ts, tsc), "jax vs torch")
     return ts, tt
 
 
@@ -108,6 +123,51 @@ def test_state_carried_across_from_jax():
     bad = dict(leaves, mb_rel=leaves["mb_rel"].astype(np.int64))
     with pytest.raises(ValueError, match="dtype"):
         state_from_numpy(bad, "cpu")
+
+
+@pytest.mark.parametrize("burst", [True, False], ids=["burst", "paced"])
+def test_praos_equals_reference(burst):
+    """Praos through the general engine (K2 + K1): burst on an 8 ms
+    window, and the paced model (max_out 1) on a 1 ms one."""
+    pair = _praos_pair(1024, _quantized_uniform, burst=burst)
+    ts, _ = _run_both(pair, 80, window="auto" if burst else 1_000, seed=4)
+    assert int(ts.delivered) > 1024
+    assert int(ts.states["slot"].min()) >= 1
+
+
+def _leaves(st):
+    return {f: ({k: np.asarray(v) for k, v in st.states.items()}
+                if f == "states" else np.asarray(getattr(st, f)))
+            for f in st._fields}
+
+
+def test_praos_state_carried_across_from_jax():
+    """A mid-run JAX Praos state (its ``thr`` leaf uint32) carried into
+    the port (int64 words), run on under the fused engine, and carried
+    back bit for bit."""
+    (jsc, jl), (tsc, tl) = _praos_pair(1024, _quantized_uniform)
+    je = JaxEngine(jsc, jl, window="auto", seed=9)
+    mid = je.run_quiet(12)
+    leaves = _leaves(mid)
+    assert leaves["states"]["thr"].dtype == np.uint32
+    carried = state_from_numpy(leaves, "cpu", tsc)
+    assert carried.states["thr"].dtype == torch.int64
+    back = state_to_numpy(carried, tsc)
+    assert back["states"]["thr"].dtype == np.uint32
+    assert_states_equal(mid, JState(**back), "carried")
+    fe = FusedSparseEngine(tsc, tl, window="auto", seed=9, device="cpu",
+                           max_batch=1 << 20)
+    js, jt = je.run(40, mid)
+    ts, tt = fe.run(40, carried)
+    assert_traces_equal(jt, tt, "jax", "torch")
+    assert_states_equal(js, _port_as_jax(ts, tsc), "after carry")
+    with pytest.raises(ValueError, match="u32_states"):
+        state_from_numpy(leaves, "cpu")
+    wrong = dict(leaves, states=dict(leaves["states"],
+                                     thr=leaves["states"]["thr"].astype(
+                                         np.int64)))
+    with pytest.raises(ValueError, match="dtype"):
+        state_from_numpy(wrong, "cpu", tsc)
 
 
 def test_insert_cap_drops_match_pallas_stage():

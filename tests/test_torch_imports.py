@@ -1,8 +1,9 @@
 """The port stands alone: importing ``timewarp_tpu_torch`` (every module
 of it) in a fresh interpreter leaves ``jax`` and the reference package
-``timewarp_tpu`` out of ``sys.modules``; no source file of the port
-imports either; and ``TorchEngine`` runs on the card by default, raising
-on a machine without CUDA unless the caller passes ``device="cpu"``.
+``timewarp_tpu`` out of ``sys.modules``; no source file of the port, nor
+``chip_smoke.py``, imports either; and ``TorchEngine`` and
+``FusedSparseEngine`` run on the card by default, raising on a machine
+without CUDA unless the caller passes ``device="cpu"``.
 
 Tolerance: exact (membership and source checks).
 """
@@ -53,8 +54,12 @@ def test_import_leaves_jax_and_reference_out():
 
 
 def test_sources_import_neither_jax_nor_reference():
+    """The package's sources and ``chip_smoke.py``, the script that drives
+    the port on the card."""
     offenders = []
-    for path in PKG.rglob("*.py"):
+    smoke = PKG.parent / "chip_smoke.py"
+    assert smoke.exists()
+    for path in [*PKG.rglob("*.py"), smoke]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
@@ -79,3 +84,9 @@ def test_engine_raises_without_cuda_unless_cpu_requested():
         TorchEngine(sc, FixedDelay(5_000), window="auto", device="cuda")
     eng = TorchEngine(sc, FixedDelay(5_000), window="auto", device="cpu")
     assert eng.device.type == "cpu"
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FusedSparseEngine(sc, FixedDelay(5_000), window="auto")
+    assert FusedSparseEngine(sc, FixedDelay(5_000), window="auto",
+                             device="cpu").device.type == "cpu"

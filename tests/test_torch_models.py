@@ -1,7 +1,9 @@
 """The port's scenario steps against the reference's, leaf for leaf: one
-gossip step (burst and paced) and one token-ring step (with the observer,
-the ordered-inbox scenario, and the static ring without it) on random
-inboxes and states made with numpy from a seed, plus the initial states.
+gossip step (burst and paced), one Praos step (burst and paced, with
+stake weights and random firing entropy) and one token-ring step (with
+the observer, the ordered-inbox scenario, and the static ring without it)
+on random inboxes and states made with numpy from a seed, plus the
+initial states (Praos' per-node ``init`` too).
 The reference step is ``vmap``-ed exactly as ``JaxEngine`` does (inbox
 and outbox node axis minor); the port's step is batched by hand.
 
@@ -18,9 +20,11 @@ import jax.numpy as jnp
 from timewarp_tpu.core.scenario import Inbox as JInbox
 from timewarp_tpu.core.scenario import Outbox as JOutbox
 from timewarp_tpu.models.gossip import gossip as jgossip
+from timewarp_tpu.models.praos import praos as jpraos
 from timewarp_tpu.models.token_ring import token_ring as jring
 from timewarp_tpu_torch.core.scenario import NEVER, Inbox
 from timewarp_tpu_torch.models.gossip import gossip as tgossip
+from timewarp_tpu_torch.models.praos import praos as tpraos
 from timewarp_tpu_torch.models.token_ring import token_ring as tring
 
 I32MIN, I32MAX = -2**31, 2**31 - 1
@@ -36,21 +40,30 @@ def _inbox(rng, K, P, n, pay_lo, pay_hi, kinds=False):
                 payload=payload)
 
 
-def _both_steps(jsc, tsc, states, inbox, now):
+def _both_steps(jsc, tsc, states, inbox, now, key=None):
+    """One step of each package on the same inputs; ``key`` (optional) is
+    the firing entropy as two uint32 arrays ``[n]``. States the scenario
+    declares in ``u32_states`` go to the reference as uint32 and to the
+    port as int64 words."""
     n = now.size
     ids = np.arange(n, dtype=np.int32)
+    u32 = set(tsc.u32_states)
     jout = jax.vmap(
         jsc.step,
         in_axes=(0, JInbox(valid=-1, src=-1, time=-1, payload=-1), 0, 0,
-                 None),
+                 None if key is None else 0),
         out_axes=(0, JOutbox(valid=-1, dst=-1, payload=-1), 0))(
-            {k: jnp.asarray(v) for k, v in states.items()},
+            {k: jnp.asarray(v.astype(np.uint32) if k in u32 else v)
+             for k, v in states.items()},
             JInbox(**{k: jnp.asarray(v) for k, v in inbox.items()}),
-            jnp.asarray(now), jnp.asarray(ids), None)
+            jnp.asarray(now), jnp.asarray(ids),
+            None if key is None else tuple(jnp.asarray(w) for w in key))
     tout = tsc.step({k: torch.from_numpy(v) for k, v in states.items()},
                     Inbox(**{k: torch.from_numpy(v)
                              for k, v in inbox.items()}),
-                    torch.from_numpy(now), torch.from_numpy(ids), None)
+                    torch.from_numpy(now), torch.from_numpy(ids),
+                    None if key is None else tuple(
+                        torch.from_numpy(w.astype(np.int64)) for w in key))
     (js, jo, jw), (ts, to, tw) = jout, tout
     assert set(js) == set(ts)
     for k in js:
@@ -118,6 +131,58 @@ def test_token_ring_step_equal(with_observer):
     inbox["valid"][:, -1] = True          # the last node's inbox is full
     now = rng.integers(0, 30_000, n).astype(np.int64)
     _both_steps(jsc, tsc, states, inbox, now)
+
+
+@pytest.mark.parametrize("burst", [True, False], ids=["burst", "paced"])
+def test_praos_step_equal(burst):
+    n, K, fanout, slot_us = 517, 8, 8, 100_000
+    rng = np.random.default_rng(31 + burst)
+    stake = rng.integers(0, 4, n)
+    kw = dict(slot_us=slot_us, n_slots=5, leader_prob=0.2, stake=stake,
+              fanout=fanout, burst=burst, mailbox_cap=K)
+    jsc, tsc = jpraos(n, **kw), tpraos(n, **kw)
+    assert (tsc.max_out, tsc.payload_width, tsc.mailbox_cap,
+            tsc.commutative_inbox, tsc.inbox_src, tsc.needs_key) == \
+        (jsc.max_out, jsc.payload_width, jsc.mailbox_cap,
+         jsc.commutative_inbox, jsc.inbox_src, jsc.needs_key)
+    thr = tsc.init_batched(n, torch.device("cpu"))[0]["thr"].numpy()
+    now = rng.integers(0, 6 * slot_us, n).astype(np.int64)
+    lcg = rng.integers(I32MIN, I32MAX, n).astype(np.int32)
+    lcg[:4] = (I32MIN, I32MAX, 0, -1)
+    states = dict(best=rng.integers(0, 6, n).astype(np.int32), lcg=lcg,
+                  slot=rng.integers(0, 6, n).astype(np.int32),
+                  nslot=now + rng.integers(-slot_us, slot_us, n), thr=thr)
+    if not burst:
+        states.update(left=rng.integers(0, fanout + 1, n).astype(np.int32),
+                      nrelay=np.where(rng.random(n) < 0.3, NEVER,
+                                      now + rng.integers(-3_000, 3_000, n)))
+    key = tuple(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+                for _ in range(2))
+    ts, out = _both_steps(jsc, tsc, states, _inbox(rng, K, 2, n, 0, 8), now,
+                          key)
+    assert bool(out.valid.any())
+    assert int((ts["best"] > torch.from_numpy(states["best"])).sum()) > 0
+
+
+def test_praos_init_equal():
+    stake = np.arange(300) % 3
+    for burst in (True, False):
+        kw = dict(leader_prob=0.01, stake=stake, burst=burst)
+        jsc, tsc = jpraos(300, **kw), tpraos(300, **kw)
+        js, jw = jsc.init_batched(300)
+        ts, tw = tsc.init_batched(300, torch.device("cpu"))
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+        assert set(js) == set(ts) and np.asarray(js["thr"]).dtype == np.uint32
+        for k in js:
+            want = np.asarray(js[k])
+            assert ts[k].dtype == (torch.int64 if k in tsc.u32_states
+                                   else getattr(torch, str(want.dtype)))
+            np.testing.assert_array_equal(ts[k].numpy(), want)
+        for i in (0, 1, 299):
+            (jst, jwi), (tst, twi) = jsc.init(i), tsc.init(i)
+            assert jwi == twi and set(jst) == set(tst)
+            for k in jst:
+                assert int(tst[k]) == int(jst[k]), (i, k)
 
 
 @pytest.mark.parametrize("which", ["gossip", "token_ring"])

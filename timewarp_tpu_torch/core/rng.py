@@ -22,7 +22,7 @@ import torch
 from ..ops.numeric import MASK32, as_u32
 
 __all__ = ["threefry2x32", "seed_words", "fire_bits", "msg_bits",
-           "uniform_int", "bernoulli", "normal_f32"]
+           "split_bits", "uniform_int", "bernoulli", "normal_f32"]
 
 _PARITY = 0x1BD11BDA  # threefry key-schedule parity constant
 _GOLD = 0x9E3779B9    # golden ratio — domain separation for seeding
@@ -87,6 +87,12 @@ def msg_bits(s0: int, s1: int, src, dst, t, slot) -> Tuple:
     a0, a1 = threefry2x32(s0 ^ _MSG_TAG, s1, src, dst)
     b0, b1 = threefry2x32(a0, a1, tlo, thi)
     return threefry2x32(b0, b1, slot, 0)
+
+
+def split_bits(b0, b1, tag: int) -> Tuple:
+    """An independent substream of an entropy pair; ``tag`` is a static
+    int."""
+    return threefry2x32(b0, b1, tag, 1)
 
 
 def uniform_int(bits: torch.Tensor, lo: int, hi: int) -> torch.Tensor:

@@ -21,12 +21,12 @@ sender-major arrival order, flight ``>= 1 µs``, wake clamped past
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 from .time import FOREVER, Microsecond
 
 __all__ = ["NEVER", "Inbox", "Outbox", "Scenario", "StepFn",
-           "InitBatchedFn"]
+           "InitBatchedFn", "InitFn"]
 
 #: next_wake sentinel: the node has no timer armed.
 NEVER: Microsecond = FOREVER
@@ -54,6 +54,9 @@ StepFn = Callable[[Any, Inbox, Any, Any, Any], tuple]
 #: init_batched(n, device) -> (states dict of [N, ...], wake int64[N])
 InitBatchedFn = Callable[[int, Any], tuple]
 
+#: init(node_id) -> (states dict of 0-d tensors, first wake µs)
+InitFn = Callable[[int], tuple]
+
 
 @dataclass
 class Scenario:
@@ -73,6 +76,13 @@ class Scenario:
     #: False when ``step`` never reads ``inbox.src`` (engines then skip
     #: the mailbox src field and hash src as 0)
     inbox_src: bool = True
+    #: ``states`` leaves that the reference holds as uint32 and the port
+    #: as int64 words in ``[0, 2**32)`` (torch's uint32 has no compare
+    #: or arithmetic on the CPU); state_io.py maps them at the boundary
+    u32_states: Tuple[str, ...] = ()
+    #: init(node_id) -> (dict of 0-d tensors, first wake µs): one node's
+    #: initial state on the CPU, the reference's per-node ``init``
+    init: Optional[InitFn] = None
     meta: dict = field(default_factory=dict)
 
     def __post_init__(self) -> None:

@@ -1,8 +1,9 @@
-"""The general engine's insertion stage on Hopper (counterpart of
+"""The engines' insertion kernels on Hopper (counterpart of
 ``timewarp_tpu/interp/jax_engine/pallas_insert.py``): the fire-compaction
-kernel (K2), the mailbox-insertion kernel (K1), their plain PyTorch
-versions, and :class:`InsertStage`, the counterpart of
-``PallasInsertStage``.
+kernel (K2), the mailbox-insertion kernel (K1), the sample-and-insert
+kernel of the fused engine (K3), their plain PyTorch versions, the link
+sampling they share (:func:`sample_nodrop`), and :class:`InsertStage`,
+the general engine's counterpart of ``PallasInsertStage``.
 
 Each wrapper takes its plain version for tensors on the CPU only. For a
 CUDA tensor it launches the hand-written CUDA kernel (``csrc/``, built
@@ -19,22 +20,25 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ...ops.numeric import I32MAX
+from ...core.rng import msg_bits
+from ...net.delays import LinkModel
+from ...ops.numeric import I32MAX, MASK32
 from ...utils import build
 
 __all__ = ["LAUNCHES", "reset_launches", "fire_compact",
            "fire_compact_plain", "mailbox_insert", "mailbox_insert_plain",
-           "bucket_bounds", "InsertStage", "LANES"]
+           "bucket_bounds", "InsertStage", "LANES", "sample_nodrop",
+           "LoweredLink", "sample_insert", "sample_insert_plain"]
 
 #: the compaction order's segment width (one CTA per segment on the card)
 LANES = 1024
 
 #: kernel launches on the card since the last reset, by kernel name
-LAUNCHES = {"fire_compact": 0, "mailbox_insert": 0}
+LAUNCHES = {"fire_compact": 0, "mailbox_insert": 0, "sample_insert": 0}
 
 
 def reset_launches() -> None:
@@ -44,6 +48,8 @@ def reset_launches() -> None:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
 
 
 @functools.cache
@@ -326,3 +332,141 @@ class InsertStage:
         return mailbox_insert(start, cnt, counts, drel_s,
                               src_s if self.inbox_src else None, pay_s,
                               mb_rel, mb_src, mb_payload)
+
+
+# ----------------------------------------------------------------------
+# link sampling (shared by the general engine and K3's plain version)
+# ----------------------------------------------------------------------
+
+def sample_nodrop(link, s0: int, s1: int, W: int, src, dst, tmsg, slot,
+                  woff, ok):
+    """Link sampling for the no-drop routing path: the per-message
+    entropy ``msg_bits(s0, s1, src, dst, tmsg, slot)``, the link's delay,
+    the ``>= 1 µs`` flight clamp, the epoch-relative deliver time
+    ``woff + flight`` saturated to int32, and the ``bad_delay`` /
+    ``short_delay`` counts over the ``ok`` entries (``short`` only when
+    the window ``W > 1``). Returns ``(flight int64, drel int32, bad,
+    short)``."""
+    mbits = msg_bits(s0, s1, src, dst, tmsg, slot) if link.needs_key \
+        else None
+    delay, _ = link.sample(src, dst, tmsg, mbits)
+    flight = torch.clamp(delay, min=1)                     # contract #4
+    drel64 = woff.long() + flight
+    bad = (ok & (drel64 > I32MAX - 1)).sum(dtype=torch.int32)
+    if W > 1:
+        short = (ok & (flight < W)).sum(dtype=torch.int32)
+    else:
+        short = torch.zeros((), dtype=torch.int32, device=ok.device)
+    drel = torch.clamp(drel64, max=I32MAX - 1).to(torch.int32)
+    return flight, drel, bad, short
+
+
+# ----------------------------------------------------------------------
+# K3 — sample and insert (the fused engine's kernel)
+# ----------------------------------------------------------------------
+
+class LoweredLink(NamedTuple):
+    """A link model as K3 draws it (built by ``fused_sparse.lower_link``):
+    ``kind`` one of :data:`LINK_KINDS`; ``ints`` four uint32 parameters
+    (Fixed: delay; Uniform: lo, span; SeededHashUniform: lo, span and the
+    model's two salt words); ``floats`` four float32 parameters
+    (LogNormal: median, sigma, floor, cap); ``quantum`` the Quantize
+    step, 0 when unwrapped; ``max_delay_us`` the largest delay it can
+    draw; ``model`` the port's link model, whose ``sample`` is the plain
+    torch sampler of the same function (and whose ``needs_key`` says
+    whether the draw reads the message entropy)."""
+    kind: str
+    ints: Tuple[int, int, int, int]
+    floats: Tuple[float, float, float, float]
+    quantum: int
+    max_delay_us: int
+    model: LinkModel
+
+
+#: the link kinds K3 draws in-kernel, by their code in csrc/sample_insert.cu
+LINK_KINDS = {"fixed": 0, "uniform": 1, "seeded_hash": 2, "lognormal": 3}
+
+
+def sample_insert_plain(start, cnt, sd, woff, smrank, pay, t, mb_rel,
+                        mb_src, mb_payload, *, link: LoweredLink, s0: int,
+                        s1: int, M: int, W: int, inbox_src: bool):
+    """Plain version of K3: sample every valid entry of a batch sorted by
+    ``(dst, woff, smrank)`` and merge it into the commutative ``[K, N]``
+    mailbox. ``sd``/``woff``/``smrank`` int32 ``[S]`` and ``pay`` int32
+    ``[P, S]`` are the batch (``sd = n`` past the valid entries);
+    ``start``/``cnt`` int32 ``[N]`` each node's bucket; ``t`` the int64
+    0-d epoch, so a message's send instant is ``t + woff``, its sender
+    ``smrank // M`` and its outbox slot ``smrank % M``. Returns
+    ``(mb_rel, mb_src, mb_payload, overflow, bad_delay, short_delay)``,
+    the counters int32 scalars; ``bad_delay`` and ``short_delay`` count
+    every valid entry, overflowed ones included. ``mb_src`` passes
+    through unless ``inbox_src``."""
+    n = mb_rel.shape[1]
+    src = torch.div(smrank, M, rounding_mode="floor")
+    flight, drel, bad, short = sample_nodrop(
+        link.model, s0, s1, W, src, sd, t + woff.long(), smrank - src * M,
+        woff, sd < n)
+    o_rel, o_src, o_pay, ovf = mailbox_insert_plain(
+        start, cnt, None, drel, src if inbox_src else None, pay, mb_rel,
+        mb_src, mb_payload)
+    return o_rel, o_src, o_pay, ovf, bad, short
+
+
+_SAMPLE_ARGS = (_P, _P, _P, _P, _P, _I, _P,            # batch, t
+                _I, _U, _I, _U, _U, _U, _U, _F, _F, _F, _F,  # link
+                _U, _U, _I, _U,                          # s0, s1, M, W
+                _P, _P, _P, _I, _I, _I,                  # mailbox in
+                _P, _P, _P, _P, _P)                      # out, stream
+
+
+def sample_insert(start, cnt, sd, woff, smrank, pay, t, mb_rel, mb_src,
+                  mb_payload, *, link: LoweredLink, s0: int, s1: int,
+                  M: int, W: int, inbox_src: bool):
+    """K3: see :func:`sample_insert_plain` for the function. CPU tensors
+    take the plain version; CUDA tensors launch
+    ``csrc/sample_insert.cu`` (one thread per node column samples its
+    whole bucket and fills the node's holes; outputs freshly allocated).
+    ``sd`` is read only by the plain version: the kernel finds each
+    node's entries through ``start``/``cnt``."""
+    if not _on_card(mb_rel, "sample_insert"):
+        return sample_insert_plain(start, cnt, sd, woff, smrank, pay, t,
+                                   mb_rel, mb_src, mb_payload, link=link,
+                                   s0=s0, s1=s1, M=M, W=W,
+                                   inbox_src=inbox_src)
+    K, n = mb_rel.shape
+    P = mb_payload.shape[1]
+    S = woff.shape[0]
+    dev = mb_rel.device
+    for name, x, shape in (("start", start, (n,)), ("cnt", cnt, (n,)),
+                           ("sd", sd, (S,)), ("woff", woff, (S,)),
+                           ("smrank", smrank, (S,)), ("pay", pay, (P, S)),
+                           ("mb_rel", mb_rel, (K, n)),
+                           ("mb_src", mb_src, (K, n)),
+                           ("mb_payload", mb_payload, (K, P, n))):
+        _require(name, x, shape, dev)
+    if t.dtype != torch.int64 or t.shape != () or t.device != dev:
+        raise ValueError(f"t must be an int64 0-d tensor on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not 1 <= W < 2**32 or M < 1:
+        raise ValueError(f"need 1 <= W < 2**32 and M >= 1, got W={W} M={M}")
+    o_rel = torch.empty_like(mb_rel)
+    o_pay = torch.empty_like(mb_payload)
+    o_src = torch.empty_like(mb_src) if inbox_src else mb_src
+    counters = torch.zeros(3, dtype=torch.int32, device=dev)
+    fn = _kernel("sample_insert", "tw_sample_insert", _SAMPLE_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(start.data_ptr(), cnt.data_ptr(), woff.data_ptr(),
+                smrank.data_ptr(), pay.data_ptr(), S, t.data_ptr(),
+                LINK_KINDS[link.kind], link.quantum,
+                int(link.model.needs_key),
+                *(v & MASK32 for v in link.ints), *link.floats,
+                s0 & MASK32, s1 & MASK32, M, W,
+                mb_rel.data_ptr(),
+                mb_src.data_ptr() if inbox_src else None,
+                mb_payload.data_ptr(), n, K, P,
+                o_rel.data_ptr(), o_src.data_ptr() if inbox_src else None,
+                o_pay.data_ptr(), counters.data_ptr(), stream)
+    _check_launch("sample_insert", rc)
+    LAUNCHES["sample_insert"] += 1
+    return o_rel, o_src, o_pay, counters[0], counters[1], counters[2]

@@ -31,16 +31,17 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from ...core.rng import fire_bits, msg_bits, seed_words
+from ...core.rng import fire_bits, seed_words
 from ...core.scenario import NEVER, Inbox, Scenario
 from ...net.delays import LinkModel
 from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...trace.hashing import FIRED, RECV, SENT, mix32
 from .common import LocalComm, init_states_wake, run_stats
-from .cuda_insert import InsertStage
+from .cuda_insert import InsertStage, sample_nodrop
 
-__all__ = ["TorchEngine", "EngineState", "resolve_device"]
+__all__ = ["TorchEngine", "EngineState", "resolve_device", "resolve_window",
+           "sort_batch", "sent_digest"]
 
 
 class EngineState(NamedTuple):
@@ -92,9 +93,47 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def resolve_window(window, link: LinkModel) -> int:
+    """The superstep window in µs: an int, or ``"auto"`` for the link's
+    declared floor. A window wider than that floor would reorder causally
+    dependent events and is refused."""
+    floor = link.min_delay_us
+    if isinstance(window, str) and window != "auto":
+        raise ValueError(f"window must be an int µs count or 'auto', "
+                         f"got {window!r}")
+    if window == "auto":
+        window = max(1, min(int(floor), I32MAX - 1))
+    if window < 1:
+        raise ValueError(f"window must be >= 1 µs, got {window}")
+    if window > 1 and window > floor:
+        raise ValueError(
+            f"window={window} µs exceeds the link model's declared "
+            f"min_delay_us={floor}; windowed supersteps would reorder "
+            "causally dependent events")
+    if window >= I32MAX:
+        raise ValueError("window must fit int32")
+    return int(window)
+
+
 def _sort_rows(key: torch.Tensor) -> torch.Tensor:
     """Indices of a stable ascending sort along axis 0."""
     return torch.sort(key, dim=0, stable=True).indices
+
+
+def sort_batch(dst, woff, smrank) -> torch.Tensor:
+    """The permutation that orders a message batch by ``(dst, woff,
+    smrank)``: the reference's 3-key sort as two stable sorts, ``(woff,
+    smrank)`` packed into one int64 (each < 2^31), then ``dst``."""
+    o1 = _sort_rows((woff.long() << 31) | smrank.long())
+    return o1[_sort_rows(dst[o1])]
+
+
+def sent_digest(ok, src, dst, tmsg, flight, pay0) -> torch.Tensor:
+    """The SENT digest of a sorted, sampled batch over its ``ok``
+    entries: each message hashed with its absolute deliver time."""
+    dt_abs = tmsg + flight
+    sent_mix = mix32(SENT, src, dst, tlo(dt_abs), thi(dt_abs), pay0)
+    return u32sum(torch.where(ok, sent_mix, 0))
 
 
 class TorchEngine:
@@ -133,27 +172,13 @@ class TorchEngine:
             raise ValueError(
                 "TorchEngine: links that can drop take the reference's "
                 "eager routing path, which is not yet ported")
-        floor = link.min_delay_us
-        if isinstance(window, str) and window != "auto":
-            raise ValueError(f"window must be an int µs count or 'auto', "
-                             f"got {window!r}")
-        if window == "auto":
-            window = max(1, min(int(floor), I32MAX - 1))
-        if window < 1:
-            raise ValueError(f"window must be >= 1 µs, got {window}")
-        if window > 1 and window > floor:
-            raise ValueError(
-                f"window={window} µs exceeds the link model's declared "
-                f"min_delay_us={floor}; windowed supersteps would reorder "
-                "causally dependent events")
-        if window >= I32MAX:
-            raise ValueError("window must fit int32")
+        window = resolve_window(window, link)
         if not (window > 1 or sc.max_out > 1):
             raise ValueError(
                 "TorchEngine: window=1 with max_out=1 takes the reference's "
                 "eager routing path, which is not yet ported")
         self.scenario, self.link = sc, link
-        self.window = int(window)
+        self.window = window
         self.s0, self.s1 = seed_words(seed)
         self.comm = LocalComm(sc.n_nodes, self.device)
         self._node_ids = self.comm.node_ids()
@@ -197,19 +222,19 @@ class TorchEngine:
         """Link sampling for the no-drop routing path: per-message
         entropy, the ``>= 1 µs`` flight clamp, the epoch-relative deliver
         time saturated to int32, and the ``bad_delay``/``short_delay``
-        counts."""
-        mbits = msg_bits(self.s0, self.s1, src, dst, tmsg, slot) \
-            if self.link.needs_key else None
-        delay, _ = self.link.sample(src, dst, tmsg, mbits)
-        flight = torch.clamp(delay, min=1)                     # contract #4
-        drel64 = woff.long() + flight
-        bad = (ok & (drel64 > I32MAX - 1)).sum(dtype=torch.int32)
-        if self.window > 1:
-            short = (ok & (flight < self.window)).sum(dtype=torch.int32)
-        else:
-            short = torch.zeros((), dtype=torch.int32, device=ok.device)
-        drel = torch.clamp(drel64, max=I32MAX - 1).to(torch.int32)
-        return flight, drel, bad, short
+        counts (cuda_insert.sample_nodrop)."""
+        return sample_nodrop(self.link, self.s0, self.s1, self.window, src,
+                             dst, tmsg, slot, woff, ok)
+
+    def _premask(self, out, out_valid):
+        """The outbox's destinations with invalid and out-of-range
+        messages as -1 (``pdst`` int32 ``[M, N]``), and the count of
+        valid messages to an out-of-range node (``bad_dst``)."""
+        dst32 = out.dst.to(torch.int32)
+        dst_okf = (dst32 >= 0) & (dst32 < self.comm.n_global)
+        bad_dst_step = (out_valid & ~dst_okf).sum(dtype=torch.int32)
+        return (torch.where(out_valid & dst_okf, dst32, -1).contiguous(),
+                bad_dst_step)
 
     def _route_firecompact(self, out, out_valid, now_vec, t, mb_rel,
                            mb_src, mb_payload, counts, with_trace):
@@ -218,19 +243,12 @@ class TorchEngine:
         sc = self.scenario
         M = sc.max_out
         n = self.comm.n_local
-        dst32 = out.dst.to(torch.int32)
-        dst_okf = (dst32 >= 0) & (dst32 < self.comm.n_global)
-        bad_dst_step = (out_valid & ~dst_okf).sum(dtype=torch.int32)
-        pdst = torch.where(out_valid & dst_okf, dst32, -1).contiguous()
+        pdst, bad_dst_step = self._premask(out, out_valid)
         woff_n = (now_vec - t).to(torch.int32)
         dst_f, woff_f, smrank, pay_f, route_drop_step = self.stage.compact(
             pdst, woff_n, out.payload.to(torch.int32).contiguous())
         ok = dst_f < n
-        # the reference's 3-key sort as two stable sorts: (woff, smrank)
-        # packed into one int64 (woff < 2^31, smrank < 2^31), then dst
-        lo = (woff_f.long() << 31) | smrank.long()
-        o1 = _sort_rows(lo)
-        perm = o1[_sort_rows(dst_f[o1])]
+        perm = sort_batch(dst_f, woff_f, smrank)
         sd, woff_s, smrank_s = dst_f[perm], woff_f[perm], smrank[perm]
         pay_s = pay_f[:, perm]
         ok_s = sd < n
@@ -242,15 +260,15 @@ class TorchEngine:
             sd, drel_s, src_s, pay_s.contiguous(), mb_rel, mb_src,
             mb_payload, counts)
         sent_count = ok.sum(dtype=torch.int32)
-        sent_hash = None
-        if with_trace:
-            dt_abs = tmsg_s + flight_s
-            sent_mix = mix32(SENT, src_s, sd, tlo(dt_abs), thi(dt_abs),
-                             pay_s[0])
-            sent_hash = u32sum(torch.where(ok_s, sent_mix, 0))
+        sent_hash = sent_digest(ok_s, src_s, sd, tmsg_s, flight_s,
+                                pay_s[0]) if with_trace else None
         return (mrel, msrc, mpay, overflow_step, bad_dst_step,
                 bad_delay_step, short_step, route_drop_step, sent_count,
                 sent_hash)
+
+    #: step 6, the routing stage; an engine subclass replaces it
+    #: (fused_sparse.py) and keeps everything else
+    _route = _route_firecompact
 
     def _superstep(self, st: EngineState, with_trace: bool
                    ) -> Optional[Tuple[EngineState, Optional[torch.Tensor]]]:
@@ -338,7 +356,7 @@ class TorchEngine:
         # 6. route, sample, insert
         (mb_rel, mb_src, mb_payload, overflow_step, bad_dst_step,
          bad_delay_step, short_step, route_drop_step, sent_count,
-         sent_hash) = self._route_firecompact(
+         sent_hash) = self._route(
             out, out_valid, now_vec, t, mb_rel, mb_src, mb_payload, counts,
             with_trace)
         return self._finish_superstep(

@@ -6,9 +6,12 @@ over whatever layout the engine holds. Entropy is a pair of uint32 words
 (int64 carriers) from ``core.rng.msg_bits``; models without randomness
 declare ``needs_key = False``.
 
-Ported so far: the drop-free models the engine's slice runs —
-``FixedDelay``, ``UniformDelay``, ``LogNormalDelay``, ``Quantize`` (with
-its ``>= 1 µs`` inner clamp) and ``FnDelay``.
+Every model of the reference is ported: ``FixedDelay``,
+``UniformDelay``, ``LogNormalDelay``, ``ParetoDelay``, ``WithDrop``,
+``Quantize`` (with its ``>= 1 µs`` inner clamp), ``SeededHashUniform``
+and ``FnDelay``. The float models (lognormal, Pareto) are float32 inside
+and may differ from the reference by one rounding step on a draw where
+torch's and XLA's float32 ``log``/``exp``/``cos`` differ by an ulp.
 """
 
 from __future__ import annotations
@@ -18,14 +21,24 @@ from typing import Callable, Tuple
 
 import torch
 
-from ..core.rng import normal_f32, uniform_int
+from ..core.rng import (bernoulli, normal_f32, seed_words, split_bits,
+                        threefry2x32, uniform_int)
+from ..ops.numeric import thi, tlo
 
 __all__ = ["LinkModel", "FixedDelay", "UniformDelay", "LogNormalDelay",
-           "Quantize", "FnDelay"]
+           "ParetoDelay", "WithDrop", "Quantize", "SeededHashUniform",
+           "FnDelay", "NEVER_CONNECTED"]
+
+#: drop probability 1 (the reference's ``NeverConnected`` outcome)
+NEVER_CONNECTED = 1.0
 
 
 def _no_drop(dst: torch.Tensor) -> torch.Tensor:
     return torch.zeros(dst.shape, dtype=torch.bool, device=dst.device)
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
 class LinkModel:
@@ -106,11 +119,9 @@ class LogNormalDelay(LinkModel):
     def sample(self, src, dst, t, key):
         b0, b1 = key
         z = normal_f32(b0, b1)
-        f32 = dict(dtype=torch.float32, device=z.device)
-        d = torch.tensor(self.median_us, **f32) * torch.exp(
-            torch.tensor(self.sigma, **f32) * z)
-        d = torch.clamp(d, torch.tensor(float(self.floor_us), **f32),
-                        torch.tensor(float(self.cap_us), **f32))
+        d = _f32(self.median_us, z) * torch.exp(_f32(self.sigma, z) * z)
+        d = torch.clamp(d, _f32(float(self.floor_us), z),
+                        _f32(float(self.cap_us), z))
         return torch.round(d).to(torch.int64), _no_drop(dst)
 
     @property
@@ -120,6 +131,58 @@ class LogNormalDelay(LinkModel):
     @property
     def can_drop(self) -> bool:
         return False
+
+
+@dataclass(frozen=True)
+class ParetoDelay(LinkModel):
+    """Pareto latency (heavy upper tail): delay = round(xm · U^(-1/alpha))
+    clamped to [max(floor, 1), cap] µs, U a 24-bit uniform in (0, 1).
+    ``min_delay_us`` declares ``floor_us``, not ``xm_us``, as the
+    reference does. Float32 inside, like :class:`LogNormalDelay`."""
+    xm_us: int
+    alpha: float
+    cap_us: int = 60_000_000
+    floor_us: int = 1
+
+    def sample(self, src, dst, t, key):
+        b0, _ = key
+        u = (b0 >> 8).to(torch.float32) * _f32(2.0 ** -24, b0) \
+            + _f32(2.0 ** -25, b0)
+        d = _f32(self.xm_us, u) * torch.exp(
+            (_f32(-1.0, u) / _f32(self.alpha, u)) * torch.log(u))
+        d = torch.clamp(d, torch.maximum(_f32(self.floor_us, u),
+                                         _f32(1.0, u)),
+                        _f32(self.cap_us, u))
+        return torch.round(d).to(torch.int64), _no_drop(dst)
+
+    @property
+    def min_delay_us(self) -> int:
+        return max(int(self.floor_us), 1)
+
+    @property
+    def can_drop(self) -> bool:
+        return False
+
+
+@dataclass(frozen=True)
+class WithDrop(LinkModel):
+    """Wrap a model with i.i.d. message loss: ``drop_prob`` from the
+    first entropy word (an integer threshold compare, bit-exact), the
+    inner model fed an independent substream (``split_bits``).
+    ``drop_prob=1`` is ``NEVER_CONNECTED``."""
+    inner: LinkModel
+    drop_prob: float
+
+    def sample(self, src, dst, t, key):
+        b0, b1 = key
+        drop = bernoulli(b0, self.drop_prob)
+        delay, inner_drop = self.inner.sample(
+            src, dst, t, split_bits(b0, b1, 0x1A7E5EED))
+        return delay, drop | inner_drop
+
+    @property
+    def min_delay_us(self) -> int:
+        return self.inner.min_delay_us
 
 
 @dataclass(frozen=True)
@@ -150,6 +213,38 @@ class Quantize(LinkModel):
     @property
     def can_drop(self) -> bool:
         return self.inner.can_drop
+
+
+@dataclass(frozen=True)
+class SeededHashUniform(LinkModel):
+    """Uniform ``[lo_us, hi_us]`` delay from a self-contained threefry
+    hash of ``(dst, t)`` under the model's own ``salt``: it needs no
+    message key, so the same model gives the same delays whatever the
+    sender or outbox slot. The salt's two words are expanded once, at
+    construction."""
+    lo_us: int
+    hi_us: int
+    salt: int = 0
+    needs_key = False
+
+    def __post_init__(self):
+        s0, s1 = seed_words(self.salt)
+        object.__setattr__(self, "_s0", s0)
+        object.__setattr__(self, "_s1", s1)
+
+    def sample(self, src, dst, t, key):
+        t64 = torch.as_tensor(t, dtype=torch.int64, device=dst.device)
+        bits, _ = threefry2x32(self._s0 ^ (dst.to(torch.int64) & 0xFFFFFFFF),
+                               self._s1, tlo(t64), thi(t64))
+        return uniform_int(bits, self.lo_us, self.hi_us), _no_drop(dst)
+
+    @property
+    def min_delay_us(self) -> int:
+        return int(self.lo_us)
+
+    @property
+    def can_drop(self) -> bool:
+        return False
 
 
 @dataclass(frozen=True)

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "timewarp_tpu_torch"
 #: the kernel sources, one library each
-SOURCES = ("fire_compact", "mailbox_insert")
+SOURCES = ("fire_compact", "mailbox_insert", "sample_insert")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
