@@ -340,6 +340,7 @@ def phase_where_time_goes(tag, eng, warm, steps):
 
 
 def phase_times(device):
+    import torch
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
     pdst, woff, pay = compact_inputs(device, SLICE_N, SLICE_M, SLICE_P, 0.2,
                                      1)
@@ -354,7 +355,9 @@ def phase_times(device):
                       False, 4)
     args = insert_args(t, SLICE_N)
     start, cnt = args[0], args[1]
-    gathered = int(cnt.sum())
+    # only the entries that find a hole are gathered
+    holes = (t["mb_rel"] == 2**31 - 1).sum(dim=0, dtype=torch.int32)
+    gathered = int(torch.minimum(cnt, holes).sum())
     planes = t["mb_rel"].numel() + t["mb_payload"].numel()
     k1_bytes = 2 * planes * 4 + (start.numel() + cnt.numel()) * 4 \
         + gathered * (1 + SLICE_P) * 4
@@ -578,9 +581,15 @@ def phase_time_k3(device, t):
     link = lower_link(praos_link())
     tt = torch.tensor(1 << 36, dtype=torch.int64, device=device)
     valid = int(t["cnt"].sum())
+    # the entries that find a hole: only their payload need be read
+    holes = (t["mb_rel"] == 2**31 - 1).sum(dim=0, dtype=torch.int32)
+    inserted = int(torch.minimum(t["cnt"], holes).sum())
     planes = t["mb_rel"].numel() + t["mb_payload"].numel()
+    # planes read and written once, start/cnt, woff and smrank of every
+    # valid entry (each is drawn), the payload of each inserted one; the
+    # dst column is not read (start/cnt stand in for it)
     k3_bytes = 2 * planes * 4 + (t["start"].numel() + t["cnt"].numel()) * 4 \
-        + valid * (3 + PRAOS_P) * 4
+        + valid * 2 * 4 + inserted * PRAOS_P * 4
     bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = valid * K3_OPS_PER_MSG / FP32_OPS_PER_S * 1e3
     r = dict(ms=_time_ms(lambda: k3_call(ci.sample_insert, t, tt, link)),

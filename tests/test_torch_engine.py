@@ -147,7 +147,7 @@ def test_praos_state_carried_across_from_jax():
     back bit for bit."""
     (jsc, jl), (tsc, tl) = _praos_pair(1024, _quantized_uniform)
     je = JaxEngine(jsc, jl, window="auto", seed=9)
-    mid = je.run_quiet(12)
+    mid, _ = je.run(32)     # the same driver as the run on: one compile
     leaves = _leaves(mid)
     assert leaves["states"]["thr"].dtype == np.uint32
     carried = state_from_numpy(leaves, "cpu", tsc)
@@ -157,8 +157,8 @@ def test_praos_state_carried_across_from_jax():
     assert_states_equal(mid, JState(**back), "carried")
     fe = FusedSparseEngine(tsc, tl, window="auto", seed=9, device="cpu",
                            max_batch=1 << 20)
-    js, jt = je.run(40, mid)
-    ts, tt = fe.run(40, carried)
+    js, jt = je.run(32, mid)
+    ts, tt = fe.run(32, carried)
     assert_traces_equal(jt, tt, "jax", "torch")
     assert_states_equal(js, _port_as_jax(ts, tsc), "after carry")
     with pytest.raises(ValueError, match="u32_states"):

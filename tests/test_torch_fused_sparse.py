@@ -70,41 +70,42 @@ def port_as_jax(ts, sc):
     return JState(**state_to_numpy(ts, sc))
 
 
-def check(scenario, link, horizons, ref="xla", max_batch=1 << 16, **kw):
+def check(scenario, link, legs, steps=30, ref="xla", max_batch=1 << 16,
+          **kw):
     """Run ``scenario(m)``/``link(m)`` through the reference and the port
-    (``m`` the models/delays modules of each package): equal states after
-    each of the chained ``horizons`` (``run_quiet``), then from the start
-    equal 30-superstep traces and states (``run``). Returns the port's
-    state at the last horizon (after the traced run when none)."""
+    (``m`` the models/delays modules of each package) for ``legs`` chained
+    legs of ``steps`` supersteps (``run``): equal traces and states after
+    each leg; and the port's ``run_quiet`` to the first leg's state. Every
+    reference leg has the same length, so the reference compiles one
+    driver. Returns the port's final state."""
     jsc, tsc = scenario(jg, jp), scenario(tg, tp)
     jl, tl = link(jd), link(td)
     je = JaxEngine(jsc, jl, insert="xla", **kw) if ref == "xla" \
         else JFused(jsc, jl, max_batch=max_batch, **kw)
     fe = FusedSparseEngine(tsc, tl, device="cpu", max_batch=max_batch, **kw)
     js, fs = je.init_state(), fe.init_state()
-    for k in horizons:
-        js, fs = je.run_quiet(k, js), fe.run_quiet(k, fs)
-        assert_states_equal(js, port_as_jax(fs, tsc), f"+{k}")
-    js, jt = je.run(30)
-    fs30, ft = fe.run(30)
-    assert_traces_equal(jt, ft, "reference", "port-fused")
-    assert_states_equal(js, port_as_jax(fs30, tsc), "traced +30")
-    return fs if horizons else fs30
+    for leg in range(1, legs + 1):
+        js, jt = je.run(steps, js)
+        fs, ft = fe.run(steps, fs)
+        assert_traces_equal(jt, ft, "reference", f"port-fused leg {leg}")
+        assert_states_equal(js, port_as_jax(fs, tsc), f"+{steps * leg}")
+        if leg == 1:
+            assert_states_equal(js, port_as_jax(fe.run_quiet(steps), tsc),
+                                "run_quiet")
+    return fs
 
 
 def test_gossip_wave():
     """Burst gossip on the quantized lognormal link, through ramp-up,
     peak and quiescence: the kernel's float path."""
-    fs = check(lambda g, p: gossip_wave(g), qlognormal, (1, 2, 5, 20, 60),
-               window="auto")
+    fs = check(lambda g, p: gossip_wave(g), qlognormal, 2, window="auto")
     assert int(fs.delivered) > N
 
 
 def test_praos():
     """Praos: needs_key leadership draws, payload width 2, slot timers and
     diffusion bursts under an 8 ms window."""
-    fs = check(lambda g, p: praos_slots(p), qlognormal, (1, 3, 15, 50),
-               window="auto")
+    fs = check(lambda g, p: praos_slots(p), qlognormal, 2, window="auto")
     assert int(fs.delivered) > N
     assert int(fs.states["slot"].min()) >= 2
 
@@ -112,19 +113,18 @@ def test_praos():
 def test_seeded_hash_8192():
     check(lambda g, p: gossip_wave(g, 8192, fanout=4, think_us=700,
                                    end_us=400_000, mailbox_cap=8),
-          lambda m: m.SeededHashUniform(3_000, 9_000, 7), (1, 4, 40),
-          window=3_000)
+          lambda m: m.SeededHashUniform(3_000, 9_000, 7), 2, window=3_000)
 
 
 def test_window_1_wide_outbox():
     check(lambda g, p: gossip_wave(g, fanout=4, think_us=700,
                                    end_us=300_000, mailbox_cap=8),
-          lambda m: m.UniformDelay(2_000, 9_000), (1, 5, 40), window=1)
+          lambda m: m.UniformDelay(2_000, 9_000), 2, window=1)
 
 
 def test_overflow_cap_2():
     fs = check(lambda g, p: gossip_wave(g, end_us=1_000_000, mailbox_cap=2),
-               quniform, (1, 4, 30), window="auto")
+               quniform, 2, window="auto")
     assert int(fs.overflow) > 0
 
 
@@ -132,7 +132,7 @@ def test_max_batch_drops_equal_reference_fused():
     """``max_batch=128``: 16 senders a superstep; the rest are dropped
     whole, by id, exactly as the reference's fused engine drops them."""
     fs = check(lambda g, p: gossip_wave(g, end_us=1_000_000), quniform,
-               (4, 36), ref="fused", window="auto", max_batch=128)
+               2, ref="fused", window="auto", max_batch=128)
     assert int(fs.route_drop) > 0
 
 
@@ -148,7 +148,7 @@ def test_beyond_the_tpu_limits(case):
     sc = case["scenario"]
     with pytest.raises(ValueError, match=case["refused"]):
         JFused(sc(jg, jp), quniform(jd), window="auto", max_batch=1 << 20)
-    check(sc, quniform, (), window="auto", max_batch=1 << 20)
+    check(sc, quniform, 1, steps=16, window="auto", max_batch=1 << 20)
 
 
 def test_scope_guards():

@@ -16,17 +16,18 @@
 // plus start/cnt and the gathered batch entries. At 2^17 nodes, K = 16,
 // P = 1 that is ~37 MB, ~11 us at 3.35 TB/s.
 //
-// Design: one thread per node column walks its K rows, so each plane
-// access is a coalesced 128-byte warp transaction; only the batch
-// gathers are scattered, and they touch at most cnt[d] entries. The TPU
-// kernel's double-buffered VMEM blocks, lane-partial folds and 8-row
-// tiling have no counterpart: the overflow is a warp reduction plus one
-// integer atomicAdd per warp, exact in any order. Outputs are separate
-// buffers, never the inputs.
+// Design: one thread per node column walks its K rows (insert_column.cuh,
+// shared with K3), so each plane access is a coalesced 128-byte warp
+// transaction; only the batch gathers are scattered, and they touch at
+// most cnt[d] entries. The TPU kernel's double-buffered VMEM blocks,
+// lane-partial folds and 8-row tiling have no counterpart: the overflow is
+// a warp reduction plus one integer atomicAdd per warp, exact in any
+// order. Outputs are separate buffers, never the inputs.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "insert_column.cuh"
 
 namespace {
 
@@ -46,41 +47,16 @@ __global__ void insert_kernel(const int32_t* __restrict__ start,
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
   int ovf = 0;
   if (d < n) {
-    const int st = start[d];
     const int c = cnt[d];
-    const int base = counts != nullptr ? counts[d] : 0;
-    int holes = 0;
-    for (int k = 0; k < K; ++k) {
-      const int64_t at = (int64_t)k * n + d;
-      const int rel = mb_rel[at];
-      int r;  // this row's rank among d's new messages, -1 = keep
-      if (counts != nullptr) {
-        r = k - base;
-      } else {
-        const bool hole = rel == INT_MAX;
-        r = hole ? holes : -1;
-        holes += hole;
-      }
-      if (r >= 0 && r < c) {
-        const int j = st + r;
-        o_rel[at] = drel[j];
-        if (src != nullptr) o_src[at] = src[j];
-        for (int p = 0; p < P; ++p)
-          o_pay[((int64_t)k * P + p) * n + d] = pay[(int64_t)p * S + j];
-      } else {
-        o_rel[at] = rel;
-        if (src != nullptr) o_src[at] = mb_src[at];
-        for (int p = 0; p < P; ++p) {
-          const int64_t q = ((int64_t)k * P + p) * n + d;
-          o_pay[q] = mb_pay[q];
-        }
-      }
-    }
-    const int room = counts != nullptr ? K - base : holes;
+    const int room = tw::insert_column(
+        d, n, K, P, S, start[d], c, counts != nullptr ? counts[d] : -1,
+        [&](int j) {
+          return tw::Entry{drel[j], src != nullptr ? src[j] : 0};
+        },
+        pay, mb_rel, mb_src, mb_pay, o_rel, o_src, o_pay);
     ovf = c > room ? c - room : 0;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ovf += __shfl_down_sync(0xffffffffu, ovf, o);
+  ovf = tw::warp_sum(ovf);
   if ((threadIdx.x & 31) == 0 && ovf != 0) atomicAdd(overflow, ovf);
 }
 

@@ -29,21 +29,25 @@
 //
 // What bounds it on an H100: memory traffic — each mailbox plane is read
 // once and written once (K * (1 + P [+ 1 src]) int32 planes of N), plus
-// start/cnt and (3 + P) words per valid batch entry. At 2^20 nodes,
-// K = 16, P = 2 with 5M messages that is ~512 MB, ~150 us at 3.35 TB/s;
-// the threefry chain (~400 operations a message) takes a fifth of that
-// even at the float32 rate.
+// start/cnt, woff and smrank of every valid batch entry and the payload
+// of each entry that finds a hole (the dst column is not read: start/cnt
+// stand in for it). At 2^20 nodes, K = 16, P = 2 with 5M messages that is
+// ~490 MB, ~146 us at 3.35 TB/s; the threefry chain (~400 operations a
+// message) takes a fifth of that even at the float32 rate.
 //
 // Design: one thread per node column walks its K rows (coalesced plane
-// accesses), draws each message of its own bucket when it meets a hole,
-// then draws the bucket's remaining messages for the counters only. Each
-// entry belongs to exactly one bucket, so there are no atomics on data
-// and no scratch. The counters are warp sums plus one integer atomicAdd
-// each per warp, exact in any order. Outputs are separate buffers.
+// accesses; K1's walk, insert_column.cuh), draws each message of its own
+// bucket when it meets a hole, then draws the bucket's remaining messages
+// for the counters only. Each entry belongs to exactly one bucket, so
+// there are no atomics on data and no scratch. The counters are warp sums
+// plus one integer atomicAdd each per warp, exact in any order. Outputs
+// are separate buffers.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "insert_column.cuh"
 
 namespace {
 
@@ -118,13 +122,8 @@ __device__ __forceinline__ uint32_t draw_delay(const Link& L, uint32_t dst,
   return d;
 }
 
-struct Drawn {
-  int32_t drel;
-  int32_t src;
-};
-
 // Draw batch entry j (destination d) and count it.
-__device__ __forceinline__ Drawn draw(int j, uint32_t d,
+__device__ __forceinline__ tw::Entry draw(int j, uint32_t d,
                                       const int32_t* __restrict__ woff,
                                       const int32_t* __restrict__ smrank,
                                       uint32_t tl, uint32_t th, const Link& L,
@@ -147,13 +146,7 @@ __device__ __forceinline__ Drawn draw(int j, uint32_t d,
   const uint32_t dsum = wo + flight;
   bad += dsum > kDrelMax ? 1 : 0;
   shrt += (W > 1u && flight < W) ? 1 : 0;
-  return Drawn{static_cast<int32_t>(min(dsum, kDrelMax)), src};
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+  return tw::Entry{static_cast<int32_t>(min(dsum, kDrelMax)), src};
 }
 
 __global__ void sample_insert_kernel(
@@ -173,39 +166,20 @@ __global__ void sample_insert_kernel(
     const uint32_t th = static_cast<uint32_t>(t >> 32);
     const int st = start[d];
     const int c = cnt[d];
-    int holes = 0;
-    for (int k = 0; k < K; ++k) {
-      const int64_t at = static_cast<int64_t>(k) * n + d;
-      const int rel = mb_rel[at];
-      const bool hole = rel == INT_MAX;
-      if (hole && holes < c) {
-        const int j = st + holes;
-        const Drawn m = draw(j, static_cast<uint32_t>(d), woff, smrank, tl, th,
-                             L, s0, s1, M, W, bad, shrt);
-        o_rel[at] = m.drel;
-        if (o_src != nullptr) o_src[at] = m.src;
-        for (int p = 0; p < P; ++p)
-          o_pay[(static_cast<int64_t>(k) * P + p) * n + d] =
-              pay[static_cast<int64_t>(p) * S + j];
-      } else {
-        o_rel[at] = rel;
-        if (o_src != nullptr) o_src[at] = mb_src[at];
-        for (int p = 0; p < P; ++p) {
-          const int64_t q = (static_cast<int64_t>(k) * P + p) * n + d;
-          o_pay[q] = mb_pay[q];
-        }
-      }
-      holes += hole ? 1 : 0;
-    }
+    const auto entry = [&](int j) {
+      return draw(j, static_cast<uint32_t>(d), woff, smrank, tl, th, L, s0,
+                  s1, M, W, bad, shrt);
+    };
+    const int holes = tw::insert_column(d, n, K, P, S, st, c, -1, entry, pay,
+                                        mb_rel, mb_src, mb_pay, o_rel, o_src,
+                                        o_pay);
     // the messages that found no hole: drawn for the counters only
-    for (int r = holes; r < c; ++r)
-      draw(st + r, static_cast<uint32_t>(d), woff, smrank, tl, th, L, s0, s1,
-           M, W, bad, shrt);
+    for (int r = holes; r < c; ++r) entry(st + r);
     ovf = c > holes ? c - holes : 0;
   }
-  ovf = warp_sum(ovf);
-  bad = warp_sum(bad);
-  shrt = warp_sum(shrt);
+  ovf = tw::warp_sum(ovf);
+  bad = tw::warp_sum(bad);
+  shrt = tw::warp_sum(shrt);
   if ((threadIdx.x & 31) == 0) {
     if (ovf != 0) atomicAdd(counters + 0, ovf);
     if (bad != 0) atomicAdd(counters + 1, bad);

@@ -156,34 +156,41 @@ class TorchEngine:
                  seed: int = 0, window=1,
                  insert_cap: Optional[int] = None,
                  device=None, **unported) -> None:
-        for k, v in unported.items():
-            if k not in _UNPORTED:
-                raise TypeError(f"TorchEngine got an unexpected keyword "
-                                f"argument {k!r}")
-            if v != _UNPORTED[k]:
-                raise ValueError(f"TorchEngine: {k}={v!r} is not yet "
-                                 "ported (run JaxEngine)")
-        self.device = resolve_device(device)
+        self._hold(scenario, link, seed, device, unported)
         sc = scenario
-        if sc.n_nodes * sc.max_out >= 2**31:
-            raise ValueError(
-                "n_nodes * max_out must fit int32 (sender-major rank)")
         if link.can_drop:
             raise ValueError(
                 "TorchEngine: links that can drop take the reference's "
                 "eager routing path, which is not yet ported")
-        window = resolve_window(window, link)
-        if not (window > 1 or sc.max_out > 1):
+        self.window = resolve_window(window, link)
+        if not (self.window > 1 or sc.max_out > 1):
             raise ValueError(
                 "TorchEngine: window=1 with max_out=1 takes the reference's "
                 "eager routing path, which is not yet ported")
+        self.stage = InsertStage(sc, sc.n_nodes, window=self.window,
+                                 insert_cap=insert_cap)
+
+    def _hold(self, sc: Scenario, link: LinkModel, seed: int, device,
+              unported: dict) -> None:
+        """What every engine of this package checks and holds, before its
+        own regime guards: the unported options, the device, the seed
+        words and the node axis."""
+        name = type(self).__name__
+        for k, v in unported.items():
+            if k not in _UNPORTED:
+                raise TypeError(f"{name} got an unexpected keyword "
+                                f"argument {k!r}")
+            if v != _UNPORTED[k]:
+                raise ValueError(f"{name}: {k}={v!r} is not yet "
+                                 "ported (run JaxEngine)")
+        self.device = resolve_device(device)
+        if sc.n_nodes * sc.max_out >= 2**31:
+            raise ValueError(
+                "n_nodes * max_out must fit int32 (sender-major rank)")
         self.scenario, self.link = sc, link
-        self.window = window
         self.s0, self.s1 = seed_words(seed)
         self.comm = LocalComm(sc.n_nodes, self.device)
         self._node_ids = self.comm.node_ids()
-        self.stage = InsertStage(sc, sc.n_nodes, window=self.window,
-                                 insert_cap=insert_cap)
 
     # -- state -------------------------------------------------------------
 
@@ -218,14 +225,6 @@ class TorchEngine:
 
     # -- one superstep -----------------------------------------------------
 
-    def _sample_nodrop(self, src, dst, tmsg, slot, woff, ok):
-        """Link sampling for the no-drop routing path: per-message
-        entropy, the ``>= 1 µs`` flight clamp, the epoch-relative deliver
-        time saturated to int32, and the ``bad_delay``/``short_delay``
-        counts (cuda_insert.sample_nodrop)."""
-        return sample_nodrop(self.link, self.s0, self.s1, self.window, src,
-                             dst, tmsg, slot, woff, ok)
-
     def _premask(self, out, out_valid):
         """The outbox's destinations with invalid and out-of-range
         messages as -1 (``pdst`` int32 ``[M, N]``), and the count of
@@ -254,8 +253,9 @@ class TorchEngine:
         ok_s = sd < n
         src_s = torch.div(smrank_s, M, rounding_mode="floor")
         tmsg_s = t + woff_s.long()
-        flight_s, drel_s, bad_delay_step, short_step = self._sample_nodrop(
-            src_s, sd, tmsg_s, smrank_s - src_s * M, woff_s, ok_s)
+        flight_s, drel_s, bad_delay_step, short_step = sample_nodrop(
+            self.link, self.s0, self.s1, self.window, src_s, sd, tmsg_s,
+            smrank_s - src_s * M, woff_s, ok_s)
         mrel, msrc, mpay, overflow_step = self.stage.insert(
             sd, drel_s, src_s, pay_s.contiguous(), mb_rel, mb_src,
             mb_payload, counts)

@@ -31,7 +31,8 @@ import torch
 from ...core.scenario import Scenario
 from ...net.delays import (FixedDelay, LinkModel, LogNormalDelay, Quantize,
                            SeededHashUniform, UniformDelay)
-from .cuda_insert import LoweredLink, bucket_bounds, sample_insert
+from .cuda_insert import (LoweredLink, bucket_bounds, sample_insert,
+                          sample_nodrop)
 from .engine import TorchEngine, resolve_window, sent_digest, sort_batch
 
 __all__ = ["FusedSparseEngine", "lower_link"]
@@ -99,11 +100,13 @@ class FusedSparseEngine(TorchEngine):
                  seed: int = 0, window=1, max_batch: int = 1 << 16,
                  device=None, **unported) -> None:
         sc = scenario
+        # TorchEngine's holdings, not its K2/K1 stage: _route replaces it
+        self._hold(sc, link, seed, device, unported)
         if link.can_drop:
             raise ValueError(
                 "FusedSparseEngine requires a drop-free link (message "
                 "validity must not depend on the sample)")
-        window = resolve_window(window, link)
+        self.window = window = resolve_window(window, link)
         if not (window > 1 or sc.max_out > 1):
             raise ValueError(
                 "FusedSparseEngine serves the windowed / wide-outbox "
@@ -117,8 +120,6 @@ class FusedSparseEngine(TorchEngine):
         if self.lowered.max_delay_us + window >= 2**32:
             raise ValueError("max link delay + window must fit the "
                              "kernel's uint32 deliver arithmetic")
-        super().__init__(sc, link, seed=seed, window=window,
-                         insert_cap=None, device=device, **unported)
         #: live senders per superstep that fit the batch
         self.A = min(sc.n_nodes, max(1, int(max_batch) // sc.max_out))
 
@@ -169,9 +170,9 @@ class FusedSparseEngine(TorchEngine):
             ok_s = sd < n
             src_s = torch.div(smrank_s, M, rounding_mode="floor")
             tmsg_s = t + woff_s.long()
-            flight_s = self._sample_nodrop(src_s, sd, tmsg_s,
-                                           smrank_s - src_s * M, woff_s,
-                                           ok_s)[0]
+            flight_s = sample_nodrop(self.link, self.s0, self.s1,
+                                     self.window, src_s, sd, tmsg_s,
+                                     smrank_s - src_s * M, woff_s, ok_s)[0]
             sent_hash = sent_digest(ok_s, src_s, sd, tmsg_s, flight_s,
                                     pay_s[0])
         return (mrel, msrc, mpay, overflow_step, bad_dst_step,

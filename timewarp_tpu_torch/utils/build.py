@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Nothing outside the repo is
 compiled. The libraries go to ``build/timewarp_tpu_torch/`` beside the
-package, named by a digest of source and flags, so an edited source is
-rebuilt and an unchanged one reused. All sources build in parallel, one
+package, named by a digest of source, the shared ``csrc/*.cuh`` headers
+and flags, so an edited source is rebuilt and an unchanged one reused. All sources build in parallel, one
 ``nvcc`` each, at first use.
 """
 
@@ -53,6 +53,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
