@@ -48,7 +48,27 @@ nodes):
 12. the gossip wave of phase 4 through ``FusedSparseEngine``: the same
     supersteps, delivered count and final state as phase 4;
 13. K3's time, its plain version's time and its bound;
-14. where the Praos path's time goes, as phase 7.
+14. where the Praos path's time goes, as phase 7;
+
+then the static-topology slice (kernel K4, the dense token ring at 2^20):
+
+15. the dense-ring superstep kernel (K4) against its plain version at
+    2^20 nodes on seeded planes: dense, sparse, one forcing overflow, one
+    past ``end_us`` (alive 0), and at 2^20 + 3 nodes;
+16. the main path: the dense ring of ``bench.py`` ``_dense_ring(2^20)``
+    (every node holds a token, think 0, ``FixedDelay(500)``, cap 2)
+    through ``FusedRingEngine.run_quiet``, 16 warm then 8192 timed
+    supersteps: overflow 0, ``(supersteps - 1) * n`` delivered, K4
+    launched once per superstep and K1-K3 not at all;
+17. fused = edge at 2^20: ``EdgeEngine.run_quiet`` against
+    ``FusedRingEngine`` through ``to_edge_state``, every leaf, at 12 and
+    64 supersteps of the dense ring, and on a sparse ring;
+18. the edge engine on the card against the CPU at 2^14: ``run`` on a
+    ``UniformDelay`` sparse ring and on a permutation (gather) topology,
+    equal traces and final states;
+19. K4's time, its plain version's time and its bound;
+20. where the dense ring's time goes, on ``FusedRingEngine`` and on
+    ``EdgeEngine``, as phase 7.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -72,6 +92,9 @@ K3_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:259"
 # the fused slice: Praos at 2^20 stake nodes, payload 2, fanout 8
 PRAOS_N, PRAOS_P, PRAOS_S = 1 << 20, 2, (1 << 20) * SLICE_M
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
+# the static-topology slice: the dense token ring at 2^20 nodes
+RING_N = 1 << 20
+K4_REPLACES = "timewarp_tpu/interp/jax_engine/fused_ring.py:468"
 # K3's operations per drawn message: three 20-round Threefry-2x32 blocks
 # (about 120 integer operations each) and the lognormal's float arithmetic
 K3_OPS_PER_MSG = 400
@@ -249,10 +272,14 @@ def _require_all(what, checks) -> None:
 
 
 def _states_equal(what, a, b, sc=None) -> None:
-    """Every ``EngineState`` leaf of ``a`` and ``b`` equal (any devices)."""
-    from timewarp_tpu_torch.interp.torch_engine.state_io import \
-        state_to_numpy
-    sa, sb = state_to_numpy(a, sc), state_to_numpy(b, sc)
+    """Every leaf of two ``EngineState``s or ``EdgeState``s equal (any
+    devices)."""
+    from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeState
+    from timewarp_tpu_torch.interp.torch_engine.state_io import (
+        edge_state_to_numpy, state_to_numpy)
+    to_numpy = edge_state_to_numpy if isinstance(a, EdgeState) \
+        else state_to_numpy
+    sa, sb = to_numpy(a, sc), to_numpy(b, sc)
     for name in sa:
         x, y = sa[name], sb[name]
         same = all(np.array_equal(x[k], y[k]) for k in x) \
@@ -606,6 +633,204 @@ def phase_time_k3(device, t):
     return r
 
 
+# -- the static-topology slice: K4 and the dense ring at 2^20 --------------
+
+def dense_ring(n, **kw):
+    """bench.py _dense_ring: every node holds a token, think 0, 500 µs
+    links, no deadline within reach; ``kw`` overrides."""
+    from timewarp_tpu_torch.models.token_ring import token_ring
+    from timewarp_tpu_torch.net.delays import FixedDelay
+    args = dict(n_tokens=n, think_us=0, bootstrap_us=1_000, end_us=1 << 50,
+                with_observer=False, mailbox_cap=4)
+    args.update(kw)
+    return token_ring(n, **args), FixedDelay(500)
+
+
+def ring_planes(device, n, seed, fire, full, t0=3):
+    """Seeded ``[10, n]`` K4 planes whose minimum is ``t0``: a ``fire``
+    share of the nodes wakes at ``t0`` (holding tokens, the timer due), a
+    ``full`` share has both queue slots taken and kept, and every slot
+    holds random (stale) payload words."""
+    import torch
+    rng = np.random.default_rng(seed)
+    I32MAX = 2**31 - 1
+
+    def share(p, a, b):
+        return np.where(rng.random(n) < p, a, b)
+    slot_rel = share(0.2, t0, rng.integers(t0 + 1, t0 + 9, n))
+    planes = np.stack([
+        share(full, slot_rel, share(0.3, slot_rel, I32MAX)),
+        share(full, rng.integers(t0 + 1, t0 + 9, n), I32MAX),
+        rng.integers(-2**20, 2**20, n), rng.integers(-2**20, 2**20, n),
+        rng.integers(0, 2, n), rng.integers(0, 2, n),
+        share(fire, t0, share(0.5, rng.integers(t0 + 1, t0 + 9, n),
+                              I32MAX)),
+        share(fire, rng.integers(1, 3, n), rng.integers(0, 3, n)),
+        rng.integers(-2**20, 2**20, n),
+        share(fire, rng.integers(0, t0 + 1, n),
+              share(0.5, I32MAX, rng.integers(t0, t0 + 9, n))),
+    ]).astype(np.int32)
+    planes[6, 0] = t0                      # the minimum is t0
+    return torch.from_numpy(planes).to(device)
+
+
+def phase_fused_ring_kernel(device, n=RING_N):
+    """K4 against its plain version, bit for bit (planes and counts)."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_ring as cr
+    err = 0
+    for tag, nn, fire, full, alive, seed in (
+            ("dense", n, 0.95, 0.0, True, 15),
+            ("sparse", n, 0.02, 0.0, True, 16),
+            ("overflow", n, 0.9, 0.5, True, 17),
+            ("alive 0", n, 0.95, 0.2, False, 18),
+            ("n = 2^20 + 3", n + 3, 0.5, 0.2, True, 19)):
+        planes = ring_planes(device, nn, seed, fire, full)
+        got, acc = cr.fused_ring(planes, 3, alive, 0, 500)
+        want, counts = cr.fused_ring_plain(planes, 3, alive, 0, 500)
+        torch.cuda.synchronize()
+        err = max(err, _equal(f"K4 {tag}", (got, acc), (want, counts)))
+        delivered, overflow = (int(x) for x in acc)
+        say(f"K4 {tag}: n={nn} alive={alive} delivered={delivered} "
+            f"overflow={overflow} bit-equal")
+        _require_all(f"K4 {tag}", {
+            "delivered > 0": delivered > 0,
+            "overflow > 0 iff forced": (overflow > 0) == (tag == "overflow")
+            or tag.startswith("n =")})
+    return err
+
+
+def phase_ring_main_path(device, n=RING_N, warm=16, steps=8192):
+    """The slice's main path: the dense ring through ``run_quiet``."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.fused_ring import \
+        FusedRingEngine
+    sc, link = dense_ring(n)
+    eng = FusedRingEngine(sc, link, device=device)
+    ci.reset_launches()
+    mid = eng.run_quiet(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin = eng.run_quiet(steps, mid)
+    wall = time.perf_counter() - t0           # run_quiet ends in a sync
+    launches = dict(ci.LAUNCHES)
+    total = int(fin.steps)
+    delivered = int(fin.delivered) - int(mid.delivered)
+    checks = {
+        "overflow == 0": int(fin.overflow) == 0,
+        "all supersteps ran": total == warm + steps,
+        "delivered == (supersteps - 1) * n":
+            int(fin.delivered) == (total - 1) * n,
+        "fused_ring launched once per superstep":
+            launches["fused_ring"] == total,
+        "no K1/K2/K3 launch": launches["fire_compact"]
+            == launches["mailbox_insert"] == launches["sample_insert"] == 0}
+    _require_all("ring main path", checks)
+    say(f"ring main path: dense token ring n={n} supersteps={total} "
+        f"(timed {steps}) delivered={delivered} overflow="
+        f"{int(fin.overflow)} virtual_us={int(fin.base)} wall_s={wall} "
+        f"delivered_msgs_per_s={delivered / wall} "
+        f"wall_ms_per_superstep={wall / steps * 1e3} launches={launches}")
+    return launches, eng, fin
+
+
+def phase_fused_ring_equals_edge(device, n=RING_N):
+    from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
+    from timewarp_tpu_torch.interp.torch_engine.fused_ring import \
+        FusedRingEngine
+    from timewarp_tpu_torch.net.delays import FixedDelay
+    for tag, (sc, link), horizons in (
+            ("dense", dense_ring(n), (12, 52)),
+            ("sparse", (dense_ring(n, n_tokens=n // 64, think_us=1_700,
+                                   bootstrap_us=900, end_us=80_000)[0],
+                        FixedDelay(700)), (12, 52, 200))):
+        edge = EdgeEngine(sc, link, device=device)
+        fused = FusedRingEngine(sc, link, device=device)
+        es, fs = edge.init_state(), fused.init_state()
+        for k in horizons:
+            es, fs = edge.run_quiet(k, es), fused.run_quiet(k, fs)
+            _states_equal(f"fused vs edge, {tag} at {int(es.steps)}",
+                               fused.to_edge_state(fs), es)
+        say(f"fused ring = edge: {tag} ring n={n} supersteps="
+            f"{int(es.steps)} delivered={int(es.delivered)} overflow="
+            f"{int(es.overflow)} every leaf equal")
+
+
+def perm_scatter(n, seed):
+    """A static permutation topology (the edge engine's gather path):
+    node i sends a running counter to perm[i] every 1 ms until 50 ms;
+    receivers sum what they get."""
+    import torch
+    from timewarp_tpu_torch.core.scenario import NEVER, Outbox, Scenario
+    perm = np.random.default_rng(seed).permutation(n).astype(np.int32)
+
+    def step(state, inbox, now, i, key):
+        got = torch.where(inbox.valid, inbox.payload[:, 0, :], 0).sum(
+            dim=0, dtype=torch.int32)
+        alive = now < 50_000
+        sent = state["sent"]
+        out = Outbox(valid=alive[None],
+                     dst=torch.from_numpy(perm).to(i.device)[i.long()][None],
+                     payload=torch.stack([sent + 1,
+                                          torch.zeros_like(sent)])[None])
+        return {"seen": state["seen"] + got, "sent": sent + 1}, out, \
+            torch.where(alive, now + 1_000, NEVER)
+
+    def init_batched(nn, device):
+        z = torch.zeros(nn, dtype=torch.int32, device=device)
+        return {"seen": z, "sent": z.clone()}, \
+            torch.zeros(nn, dtype=torch.int64, device=device)
+
+    return Scenario(name="perm-scatter", n_nodes=n, step=step,
+                    init_batched=init_batched, payload_width=2, max_out=1,
+                    mailbox_cap=8, static_dst=perm.reshape(n, 1),
+                    commutative_inbox=True)
+
+
+def phase_edge_card_vs_cpu(device, n=1 << 14):
+    from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
+    from timewarp_tpu_torch.models.token_ring import token_ring
+    from timewarp_tpu_torch.net.delays import UniformDelay
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    for tag, sc, link, cap, steps in (
+            ("uniform sparse ring",
+             token_ring(n, n_tokens=64, think_us=10_000, bootstrap_us=1_000,
+                        end_us=2_000_000, with_observer=False),
+             UniformDelay(1_000, 5_000), 2, 600),
+            ("permutation (gather)", perm_scatter(n, 7),
+             UniformDelay(100, 2_500), 8, 300)):
+        runs = [EdgeEngine(sc, link, seed=11, cap=cap, device=dev).run(steps)
+                for dev in (device, "cpu")]
+        (sa, ta), (sb, tb) = runs
+        assert_traces_equal(ta, tb, str(device), "cpu")
+        _states_equal(f"edge card vs CPU, {tag}", sa, sb)
+        say(f"edge card vs CPU: {tag} n={n} supersteps={len(ta)} "
+            f"delivered={int(sa.delivered)} overflow={int(sa.overflow)} "
+            "traces and states equal")
+
+
+def phase_time_k4(device, planes):
+    """K4's time on the main path's planes, against 80 B a node."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_ring as cr
+    n = planes.shape[1]
+    out = torch.empty_like(planes)
+    acc = torch.zeros(2, dtype=torch.int64, device=device)
+    t = int(torch.minimum(planes[:2].amin(), planes[cr.WAKE].amin()))
+    k4_bytes = 2 * planes.numel() * 4          # ten planes in, ten out
+    r = dict(ms=_time_ms(lambda: cr.fused_ring(planes, t, True, 0, 500,
+                                               out=out, acc=acc)),
+             plain_ms=_time_ms(lambda: cr.fused_ring_plain(planes, t, True,
+                                                           0, 500)),
+             bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bytes=k4_bytes)
+    say(f"time fused_ring: n={n} kernel_ms={r['ms']} plain_ms="
+        f"{r['plain_ms']} bound_ms={r['bound_ms']} (bytes {k4_bytes} over "
+        "3.35 TB/s; no single PyTorch call computes this function: "
+        "library_ms null)")
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -651,6 +876,19 @@ def main() -> int:
     phase_where_time_goes("praos (FusedSparseEngine)", praos_eng, warm=16,
                           steps=32)
 
+    err_k4 = phase_fused_ring_kernel(device)
+    ring_launches, ring_eng, ring_fin = phase_ring_main_path(device)
+    launches["fused_ring"] = ring_launches["fused_ring"]
+    phase_fused_ring_equals_edge(device)
+    phase_edge_card_vs_cpu(device)
+    k4 = phase_time_k4(device, ring_fin.planes)
+    from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
+    phase_where_time_goes("dense ring (FusedRingEngine)", ring_eng, warm=16,
+                          steps=256)
+    phase_where_time_goes("dense ring (EdgeEngine)",
+                          EdgeEngine(*dense_ring(RING_N), device=device),
+                          warm=16, steps=32)
+
     kernels = []
     for name, src, repl, err, r in (
             ("fire_compact", "timewarp_tpu_torch/csrc/fire_compact.cu",
@@ -658,7 +896,9 @@ def main() -> int:
             ("mailbox_insert", "timewarp_tpu_torch/csrc/mailbox_insert.cu",
              K1_REPLACES, err_k1, k1),
             ("sample_insert", "timewarp_tpu_torch/csrc/sample_insert.cu",
-             K3_REPLACES, err_k3, k3)):
+             K3_REPLACES, err_k3, k3),
+            ("fused_ring", "timewarp_tpu_torch/csrc/fused_ring.cu",
+             K4_REPLACES, err_k4, k4)):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name], "max_abs_err": err,

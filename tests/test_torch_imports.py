@@ -1,9 +1,10 @@
 """The port stands alone: importing ``timewarp_tpu_torch`` (every module
 of it) in a fresh interpreter leaves ``jax`` and the reference package
 ``timewarp_tpu`` out of ``sys.modules``; no source file of the port, nor
-``chip_smoke.py``, imports either; and ``TorchEngine`` and
-``FusedSparseEngine`` run on the card by default, raising on a machine
-without CUDA unless the caller passes ``device="cpu"``.
+``chip_smoke.py``, imports either; and every engine (``TorchEngine``,
+``FusedSparseEngine``, ``EdgeEngine``, ``FusedRingEngine``) runs on the
+card by default, raising on a machine without CUDA unless the caller
+passes ``device="cpu"``.
 
 Tolerance: exact (membership and source checks).
 """
@@ -90,3 +91,15 @@ def test_engine_raises_without_cuda_unless_cpu_requested():
         FusedSparseEngine(sc, FixedDelay(5_000), window="auto")
     assert FusedSparseEngine(sc, FixedDelay(5_000), window="auto",
                              device="cpu").device.type == "cpu"
+    from timewarp_tpu_torch.interp.torch_engine.edge_engine import \
+        EdgeEngine
+    from timewarp_tpu_torch.interp.torch_engine.fused_ring import \
+        FusedRingEngine
+    from timewarp_tpu_torch.models.token_ring import token_ring
+    ring = token_ring(64, n_tokens=64, think_us=0, with_observer=False)
+    for cls in (EdgeEngine, FusedRingEngine):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(ring, FixedDelay(500))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(ring, FixedDelay(500), device="cuda")
+        assert cls(ring, FixedDelay(500), device="cpu").device.type == "cpu"

@@ -1,9 +1,10 @@
 """The port's scenario steps against the reference's, leaf for leaf: one
 gossip step (burst and paced), one Praos step (burst and paced, with
 stake weights and random firing entropy) and one token-ring step (with
-the observer, the ordered-inbox scenario, and the static ring without it)
-on random inboxes and states made with numpy from a seed, plus the
-initial states (Praos' per-node ``init`` too).
+the observer, the ordered-inbox scenario, and the static ring without it,
+whose ``static_dst`` is held too) on random inboxes and states made with
+numpy from a seed, plus the initial states (the per-node ``init`` of
+Praos and of the token ring too).
 The reference step is ``vmap``-ed exactly as ``JaxEngine`` does (inbox
 and outbox node axis minor); the port's step is batched by hand.
 
@@ -117,6 +118,12 @@ def test_token_ring_step_equal(with_observer):
     jsc, tsc = jring(n_ring, **kw), tring(n_ring, **kw)
     assert (tsc.commutative_inbox, tsc.max_out, tsc.payload_width) == \
         (jsc.commutative_inbox, jsc.max_out, jsc.payload_width)
+    # the lean ring declares its successor table; the observer's does not
+    if with_observer:
+        assert tsc.static_dst is None and jsc.static_dst is None
+    else:
+        assert tsc.static_dst.dtype == np.int32
+        np.testing.assert_array_equal(tsc.static_dst, jsc.static_dst)
     n = jsc.n_nodes
     rng = np.random.default_rng(13 + with_observer)
     states = dict(
@@ -200,3 +207,12 @@ def test_init_states_equal(which):
     for k in js:
         assert ts[k].dtype == getattr(torch, str(np.asarray(js[k]).dtype))
         np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]))
+    if which == "token_ring":
+        # the per-node init: holders, non-holders and the observer (id 99)
+        for i in (0, 6, 7, 98, 99):
+            (jst, jwi), (tst, twi) = jsc.init(i), tsc.init(i)
+            assert int(jwi) == int(twi) and set(jst) == set(tst)
+            for k in jst:
+                assert tst[k].dtype == getattr(
+                    torch, str(np.asarray(jst[k]).dtype)), (i, k)
+                assert int(tst[k]) == int(jst[k]), (i, k)

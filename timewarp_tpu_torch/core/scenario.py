@@ -23,6 +23,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
+
 from .time import FOREVER, Microsecond
 
 __all__ = ["NEVER", "Inbox", "Outbox", "Scenario", "StepFn",
@@ -83,6 +85,11 @@ class Scenario:
     #: init(node_id) -> (dict of 0-d tensors, first wake µs): one node's
     #: initial state on the CPU, the reference's per-node ``init``
     init: Optional[InitFn] = None
+    #: static communication graph: int32 numpy ``[N, M]``, the destination
+    #: of each outbox slot (-1 = slot never used), for scenarios that only
+    #: ever send along fixed edges; it enables the edge engine
+    #: (interp/torch_engine/edge_engine.py)
+    static_dst: Optional[np.ndarray] = None
     meta: dict = field(default_factory=dict)
 
     def __post_init__(self) -> None:
@@ -92,3 +99,12 @@ class Scenario:
                 raise ValueError(
                     f"scenario {self.name!r}: {attr} must be an int >= 1, "
                     f"got {v!r}")
+        if self.static_dst is not None:
+            shape = tuple(np.shape(self.static_dst))
+            want = (self.n_nodes, self.max_out)
+            if shape != want:
+                raise ValueError(
+                    f"scenario {self.name!r}: static_dst shape {shape} "
+                    f"must be [n_nodes, max_out] = {list(want)} — one "
+                    "destination per outbox slot per node (-1 = slot "
+                    "never used)")

@@ -8,7 +8,7 @@ import time
 
 import torch
 
-__all__ = ["LocalComm", "init_states_wake", "run_stats"]
+__all__ = ["LocalComm", "init_states_wake", "refuse_unported", "run_stats"]
 
 
 class LocalComm:
@@ -31,6 +31,18 @@ def init_states_wake(scenario, device: torch.device):
     """The scenario's stacked initial ``(states, wake)`` on ``device``."""
     states, wake = scenario.init_batched(scenario.n_nodes, device)
     return states, wake.to(torch.int64)
+
+
+def refuse_unported(who: str, unported: dict, off: dict, ref: str) -> None:
+    """Refuse, by name, a reference option the port does not carry:
+    ``off`` maps each such option to the value that means "off"; any
+    other value raises ValueError, an unknown name TypeError."""
+    for k, v in unported.items():
+        if k not in off:
+            raise TypeError(f"{who} got an unexpected keyword argument {k!r}")
+        if v != off[k]:
+            raise ValueError(f"{who}: {k}={v!r} is not yet ported "
+                             f"(run {ref})")
 
 
 def run_stats(t0: float, steps_before: int, steps_after: int) -> dict:

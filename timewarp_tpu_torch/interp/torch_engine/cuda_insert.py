@@ -37,8 +37,10 @@ __all__ = ["LAUNCHES", "reset_launches", "fire_compact",
 #: the compaction order's segment width (one CTA per segment on the card)
 LANES = 1024
 
-#: kernel launches on the card since the last reset, by kernel name
-LAUNCHES = {"fire_compact": 0, "mailbox_insert": 0, "sample_insert": 0}
+#: kernel launches on the card since the last reset, by kernel name (K4,
+#: ``fused_ring``, has its wrapper in cuda_ring.py)
+LAUNCHES = {"fire_compact": 0, "mailbox_insert": 0, "sample_insert": 0,
+            "fused_ring": 0}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,459 @@
+"""The edge engine on PyTorch (port of
+``timewarp_tpu/interp/jax_engine/edge_engine.py``): batched execution
+for static topologies, with no sort on the routing path and no scatter.
+
+When every outbox slot always targets the same destination
+(``Scenario.static_dst``), routing needs no batch:
+
+- the graph is inverted on the host into per-node in-edge tables
+  (:class:`EdgeTopology`);
+- per-edge bounded queues hold in-flight messages in ``[E, C, N]``
+  layout (node axis minor), deliver times int32 relative to the epoch
+  (``I32MAX`` = empty slot);
+- delivery moves each sender's outbox slot to its receiver's edge queue
+  by a static index map: ``torch.roll`` for pure-shift edges (the ring:
+  ``dst = (i + 1) mod N``), a gather through ``in_flat`` otherwise;
+- insertion fills the first free slot of the capacity axis ``C``, one
+  elementwise pass per edge.
+
+Capacity is per edge (``cap`` messages in flight per (src, slot) → dst
+edge), not the general engine's per-node ``mailbox_cap``; overflow is
+counted and dropped, never silent (and a run that overflows warns, as
+the reference does). Ordered inboxes are sorted by ``(deliver time,
+insert step, src, slot)``; commutative ones are presented unsorted.
+
+The trace and every state leaf equal the reference's bit for bit
+(tests/test_torch_edge_engine.py). Every superstep is classic W=1: all
+nodes due at the global minimum fire at that instant. The reference's
+faults, telemetry, controller, integrity and flight-recorder planes are
+not ported and are refused at construction.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from typing import Any, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...core.rng import fire_bits, msg_bits, seed_words
+from ...core.scenario import NEVER, Inbox, Scenario
+from ...net.delays import LinkModel
+from ...ops.numeric import I32MAX, thi, tlo, u32sum
+from ...trace.events import SuperstepTrace
+from ...trace.hashing import FIRED, RECV, SENT, mix32
+from .common import LocalComm, init_states_wake, refuse_unported, run_stats
+from .engine import _sort_rows, resolve_device
+
+__all__ = ["EdgeEngine", "EdgeState", "EdgeTopology"]
+
+
+class EdgeTopology(NamedTuple):
+    """Host-side inversion of ``Scenario.static_dst`` (int32 ``[N, M]``,
+    -1 = unused slot) into receiver-centric in-edge tables, numpy
+    throughout (the reference's own, field for field).
+
+    Edge order per node is arbitrary: the inbox order owed by ordered
+    scenarios comes from explicit sort keys, never from the edge index."""
+    n_edges: int               # E = max in-degree
+    in_valid: np.ndarray       # bool [E, N] — edge exists
+    in_src: np.ndarray         # int32 [E, N] — sender (0 where invalid)
+    in_slot: np.ndarray        # int32 [E, N] — sender's outbox slot
+    in_flat: np.ndarray        # int32 [E, N] — slot*N + src, for 1D gather
+    shift: List[Optional[Tuple[int, int]]]  # per edge: (roll, slot) or None
+
+    @staticmethod
+    def build(static_dst: np.ndarray, n: int) -> "EdgeTopology":
+        sd = np.asarray(static_dst, np.int32)
+        if sd.shape[0] != n:
+            raise ValueError(f"static_dst rows {sd.shape[0]} != n_nodes {n}")
+        if n * sd.shape[1] >= 2**31:
+            raise ValueError(
+                "n_nodes * max_out must fit int32 (in_flat gather index)")
+        used = sd >= 0
+        if np.any(sd[used] >= n):
+            raise ValueError("static_dst contains out-of-range destination")
+        M = sd.shape[1]
+        # slot-major fast path: when every declared outbox column is a
+        # uniform ring shift, each column is one shift edge
+        ids64 = np.arange(n, dtype=np.int64)
+        col_shift: List[Optional[int]] = []
+        for k in range(M):
+            col = sd[:, k]
+            if (col < 0).all():
+                col_shift.append(-1)        # unused column: skip
+            elif (col >= 0).all():
+                d = (col.astype(np.int64) - ids64) % n
+                col_shift.append(int(d[0]) if (d == d[0]).all() else None)
+            else:
+                col_shift.append(None)      # partially declared
+        if all(s is not None for s in col_shift) \
+                and any(s != -1 for s in col_shift):
+            cols = [k for k in range(M) if col_shift[k] != -1]
+            E = len(cols)
+            in_valid = np.ones((E, n), bool)
+            in_src = np.stack([
+                ((ids64 - col_shift[k]) % n).astype(np.int32)
+                for k in cols])
+            in_slot = np.stack([np.full(n, k, np.int32) for k in cols])
+            in_flat = in_slot * np.int32(n) + in_src
+            shift = [(int(col_shift[k]), k) for k in cols]
+            return EdgeTopology(E, in_valid, in_src, in_slot, in_flat,
+                                shift)
+        # graph inversion: flatten (src, slot) pairs, order by (dst, src,
+        # slot) — sender-major within each receiver
+        flat = sd.ravel()
+        srcs = np.repeat(np.arange(n, dtype=np.int32), M)
+        slots = np.tile(np.arange(M, dtype=np.int32), n)
+        mask = flat >= 0
+        d, s, sl = flat[mask], srcs[mask], slots[mask]
+        if d.size == 0:
+            raise ValueError("static_dst declares no edges")
+        o = np.lexsort((sl, s, d))
+        d, s, sl = d[o], s[o], sl[o]
+        starts = np.searchsorted(d, np.arange(n, dtype=np.int32))
+        e_idx = np.arange(d.size, dtype=np.int64) - starts[d]
+        E = int(e_idx.max()) + 1
+        in_valid = np.zeros((E, n), bool)
+        in_src = np.zeros((E, n), np.int32)
+        in_slot = np.zeros((E, n), np.int32)
+        in_valid[e_idx, d] = True
+        in_src[e_idx, d] = s
+        in_slot[e_idx, d] = sl
+        in_flat = in_slot * np.int32(n) + in_src
+        # pure-shift detection: edge e is src = (i - s) mod N for all i
+        shift: List[Optional[Tuple[int, int]]] = []
+        for e in range(E):
+            if in_valid[e].all() and (in_slot[e] == in_slot[e, 0]).all():
+                d = (ids64 - in_src[e]) % n
+                if (d == d[0]).all():
+                    shift.append((int(d[0]), int(in_slot[e, 0])))
+                    continue
+            shift.append(None)
+        return EdgeTopology(E, in_valid, in_src, in_slot, in_flat, shift)
+
+
+class EdgeState(NamedTuple):
+    """The complete simulation state — the reference's ``EdgeState`` leaf
+    for leaf, same dtypes and ``[E, C, N]`` queue layout (so states carry
+    across, state_io.py). Scalars are 0-d tensors on the engine's
+    device."""
+    states: Any                  # dict of [N, ...] tensors
+    wake: torch.Tensor           # int64[N]
+    #: int32[E, C, N] deliver time minus ``time``; I32MAX = empty slot
+    q_rel: torch.Tensor
+    #: int32[E, C, N] insertion superstep (C is 0 for commutative inboxes:
+    #: the table only feeds the ordered inbox's sort)
+    q_step: torch.Tensor
+    q_pay: torch.Tensor          # int32[E, C, P, N]
+    overflow: torch.Tensor       # int32[]
+    unrouted: torch.Tensor       # int32[] — valid sends on undeclared slots
+    misrouted: torch.Tensor      # int32[] — out.dst != static_dst
+    bad_delay: torch.Tensor      # int32[] — delays >= 2^31 - 1 µs, clamped
+    delivered: torch.Tensor      # int64[]
+    steps: torch.Tensor          # int64[]
+    time: torch.Tensor           # int64[] — current virtual time == epoch
+    fault_dropped: torch.Tensor  # int32[] — faults are not ported: 0
+    restart_done: torch.Tensor   # bool[0]
+
+
+#: the reference edge engine's options this port does not carry, with the
+#: value that means "off"
+_UNPORTED = {"faults": None, "telemetry": "off", "controller": None,
+             "verify": "off", "record": "off", "record_cap": None}
+
+
+class EdgeEngine:
+    """Batched engine for static-topology scenarios (module docstring):
+    ``run`` (traced, one row per superstep) and ``run_quiet``. ``cap`` is
+    the per-edge queue capacity; ``device`` defaults to the card. After a
+    run, ``last_run_stats`` holds the call's supersteps, wall seconds and
+    compiles (0)."""
+
+    last_run_stats = None
+
+    def __init__(self, scenario: Scenario, link: LinkModel, *,
+                 seed: int = 0, cap: int = 2, device=None,
+                 **unported) -> None:
+        name = type(self).__name__
+        refuse_unported(name, unported, _UNPORTED, "the JAX EdgeEngine")
+        if scenario.static_dst is None:
+            raise ValueError(
+                f"scenario {scenario.name!r} declares no static_dst; "
+                "use the general TorchEngine")
+        self.device = dev = resolve_device(device, name)
+        self.scenario, self.link = scenario, link
+        self.s0, self.s1 = seed_words(seed)
+        self.cap = int(cap)
+        n = scenario.n_nodes
+        self.topo = topo = EdgeTopology.build(scenario.static_dst, n)
+        self.comm = LocalComm(n, dev)
+        self._node_ids = ids = self.comm.node_ids()
+
+        def tab(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        # per edge: its senders (elementwise for shift edges), their
+        # outbox slots and, for gather edges, the static index map
+        self._src_rows = torch.stack([
+            torch.remainder(ids - sh[0], n).to(torch.int32)
+            if sh is not None else tab(topo.in_src[e])
+            for e, sh in enumerate(topo.shift)])                  # [E, N]
+        self._slot_rows = torch.stack([
+            torch.full((n,), sh[1], dtype=torch.int32, device=dev)
+            if sh is not None else tab(topo.in_slot[e])
+            for e, sh in enumerate(topo.shift)])                  # [E, N]
+        self._gather = [None if sh is not None else
+                        (tab(topo.in_flat[e]).long(), tab(topo.in_valid[e]))
+                        for e, sh in enumerate(topo.shift)]
+        self._sd = tab(np.asarray(scenario.static_dst, np.int32).T)  # [M, N]
+
+    # -- state -------------------------------------------------------------
+
+    def init_state(self) -> EdgeState:
+        sc, dev = self.scenario, self.device
+        n, E, C, P = sc.n_nodes, self.topo.n_edges, self.cap, \
+            sc.payload_width
+        states, wake = init_states_wake(sc, dev)
+        # q_step orders same-deliver-time messages for the ordered inbox's
+        # sort; a commutative inbox never sorts, so it has width 0
+        C_step = 0 if sc.commutative_inbox else C
+
+        def scalar(dtype):
+            return torch.zeros((), dtype=dtype, device=dev)
+        return EdgeState(
+            states=states, wake=wake,
+            q_rel=torch.full((E, C, n), I32MAX, dtype=torch.int32,
+                             device=dev),
+            q_step=torch.zeros((E, C_step, n), dtype=torch.int32, device=dev),
+            q_pay=torch.zeros((E, C, P, n), dtype=torch.int32, device=dev),
+            overflow=scalar(torch.int32), unrouted=scalar(torch.int32),
+            misrouted=scalar(torch.int32), bad_delay=scalar(torch.int32),
+            delivered=scalar(torch.int64), steps=scalar(torch.int64),
+            time=scalar(torch.int64), fault_dropped=scalar(torch.int32),
+            restart_done=torch.zeros((0,), dtype=torch.bool, device=dev))
+
+    def _next_event(self, st: EdgeState) -> torch.Tensor:
+        """The next event time (NEVER = quiesced), an int64 0-d tensor."""
+        qmin = st.q_rel.min()
+        return torch.minimum(
+            st.wake.min(),
+            torch.where(qmin < I32MAX, st.time + qmin.long(), NEVER))
+
+    # -- one superstep -----------------------------------------------------
+
+    def _inbox(self, st: EdgeState, deliver, base):
+        """Step 3: the ``[W, N]`` inbox (W = E·C), sorted by ``(deliver
+        time, insert step, src, slot)`` for ordered inboxes."""
+        sc = self.scenario
+        E, C, P = self.topo.n_edges, self.cap, sc.payload_width
+        n = self.comm.n_local
+        W = E * C
+        iv = deliver.reshape(W, n)
+        rel = torch.where(iv, st.q_rel.reshape(W, n), I32MAX)
+        isrc = self._src_rows[:, None, :].expand(E, C, n).reshape(W, n)
+        ipay = st.q_pay.reshape(W, P, n)
+        if not sc.commutative_inbox:
+            # the reference's five-key sort (~valid, rel, step, src, slot)
+            # as two stable sorts: (step, src·M + slot) packed into one
+            # int64, then (~valid, rel). Ties remain only among invalid
+            # rows, which are masked below, so stability makes it exact.
+            islot = self._slot_rows[:, None, :].expand(E, C, n).reshape(W, n)
+            istep = st.q_step.reshape(W, n)
+            minor = ((istep.long() + 2**31) << 31) \
+                | (isrc.long() * sc.max_out + islot.long())
+            o1 = _sort_rows(minor)
+            major = ((~iv).long() << 32) | rel.long()
+            order = o1.gather(0, _sort_rows(major.gather(0, o1)))
+            iv, rel, isrc = (x.gather(0, order) for x in (iv, rel, isrc))
+            ipay = ipay.gather(0, order[:, None, :].expand(W, P, n))
+        return Inbox(
+            valid=iv,
+            src=torch.where(iv, isrc, 0) if sc.inbox_src
+            else torch.zeros_like(isrc),
+            time=torch.where(iv, base + rel.long(), NEVER),
+            payload=torch.where(iv[:, None, :], ipay, 0))
+
+    def _superstep(self, st: EdgeState, with_trace: bool
+                   ) -> Optional[Tuple[EdgeState, Optional[torch.Tensor]]]:
+        """One superstep: ``(new_state, trace_row)`` — the row an int64
+        ``[8]`` tensor when ``with_trace`` — or None once quiesced."""
+        sc, topo = self.scenario, self.topo
+        E, C, P = topo.n_edges, self.cap, sc.payload_width
+        n = self.comm.n_local
+        node_ids = self._node_ids
+        base = st.time
+        q_live = st.q_rel < I32MAX                           # [E, C, N]
+
+        # 1. global next event time (the batched "pop min")
+        nnr = st.q_rel.amin(dim=(0, 1))
+        node_next = torch.minimum(
+            st.wake, torch.where(nnr == I32MAX, NEVER, base + nnr.long()))
+        t = node_next.min()
+        if int(t) >= NEVER:        # the loop's one host sync per superstep
+            return None
+        fire = node_next == t
+
+        # 2. deliverable messages: every queued one due at a fired node
+        shift32 = torch.clamp(t - base, max=I32MAX - 1).to(torch.int32)
+        deliver = q_live & (st.q_rel <= shift32) & fire
+
+        # 3-4. inbox, then fire every node at t; mask the non-fired
+        inbox = self._inbox(st, deliver, base)
+        now = t.expand(n)
+        bits = fire_bits(self.s0, self.s1, node_ids, now) \
+            if sc.needs_key else None
+        new_states, out, new_wake = sc.step(st.states, inbox, now,
+                                            node_ids, bits)
+        states = {k: torch.where(
+            fire.view((n,) + (1,) * (v.dim() - 1)), new_states[k], v)
+            for k, v in st.states.items()}
+        new_wake = torch.where(new_wake >= NEVER, NEVER,
+                               torch.maximum(new_wake, t + 1))  # contract #5
+        wake = torch.where(fire, new_wake, st.wake)
+        out_valid = out.valid & fire[None, :]                # [M, N]
+        out_pay = out.payload.to(torch.int32)                # [M, P, N]
+        # never silent: a valid send on an undeclared slot (static_dst -1)
+        # has nowhere to go, and one whose dst disagrees with the
+        # declaration is routed by the table — both counted
+        declared = self._sd >= 0
+        unrouted_step = (out_valid & ~declared).sum(dtype=torch.int32)
+        misrouted_step = (out_valid & declared & (out.dst != self._sd)
+                          ).sum(dtype=torch.int32)
+
+        # 5. rebase surviving queue entries to the new epoch t
+        keep = q_live & ~deliver
+        q_rel = torch.where(keep, st.q_rel - shift32, I32MAX)
+
+        # 6-7. route and enqueue, one static in-edge at a time
+        step32 = st.steps.to(torch.int32)
+        cids = torch.arange(C, dtype=torch.int32, device=self.device)[:, None]
+        rel_rows, step_rows, pay_rows = [], [], []
+        overflow_step = bad_delay_step = sent_count = torch.zeros(
+            (), dtype=torch.int32, device=self.device)
+        sent_hash = None
+        for e, sh in enumerate(topo.shift):
+            if sh is not None:
+                s, slot = sh
+                arr_v = torch.roll(out_valid[slot], s)
+                arr_p = torch.roll(out_pay[slot], s, dims=1)     # [P, N]
+                slot_e = slot
+            else:
+                flat_idx, in_valid = self._gather[e]
+                arr_v = out_valid.reshape(-1)[flat_idx] & in_valid
+                arr_p = out_pay.transpose(0, 1).reshape(P, -1)[:, flat_idx]
+                slot_e = self._slot_rows[e]
+            src_e = self._src_rows[e]
+            mb = msg_bits(self.s0, self.s1, src_e, node_ids, t, slot_e) \
+                if self.link.needs_key else None
+            delay, drop = self.link.sample(src_e, node_ids, t, mb)
+            ok = arr_v & ~drop
+            flight = torch.clamp(delay, min=1)                 # contract #4
+            # queue times are int32-relative: a delay >= 2^31 - 1 µs is
+            # clamped and counted, never wrapped
+            bad_delay_step = bad_delay_step + (
+                ok & (flight > I32MAX - 1)).sum(dtype=torch.int32)
+            drel = torch.clamp(flight, max=I32MAX - 1).to(torch.int32)
+            if with_trace:
+                dt_abs = t + flight
+                smix = mix32(SENT, src_e, node_ids, tlo(dt_abs), thi(dt_abs),
+                             arr_p[0])
+                h = u32sum(torch.where(ok, smix, 0))
+                sent_hash = h if sent_hash is None else sent_hash + h
+                sent_count = sent_count + ok.sum(dtype=torch.int32)
+            # first-free-slot insert over the static C axis
+            free = q_rel[e] == I32MAX                          # [C, N]
+            ff = torch.where(free, cids, C).amin(dim=0)        # [N]
+            ins = ok[None, :] & (cids == ff)                   # [C, N]
+            rel_rows.append(torch.where(ins, drel, q_rel[e]))
+            if not sc.commutative_inbox:
+                step_rows.append(torch.where(ins, step32, st.q_step[e]))
+            pay_rows.append(torch.where(ins[:, None, :], arr_p[None],
+                                        st.q_pay[e]))
+            overflow_step = overflow_step + (ok & (ff == C)).sum(
+                dtype=torch.int32)
+
+        recv_count = deliver.sum(dtype=torch.int32)
+        new_st = EdgeState(
+            states=states, wake=wake,
+            q_rel=torch.stack(rel_rows),
+            q_step=st.q_step if sc.commutative_inbox
+            else torch.stack(step_rows),
+            q_pay=torch.stack(pay_rows),
+            overflow=st.overflow + overflow_step,
+            unrouted=st.unrouted + unrouted_step,
+            misrouted=st.misrouted + misrouted_step,
+            bad_delay=st.bad_delay + bad_delay_step,
+            delivered=st.delivered + recv_count.long(),
+            steps=st.steps + 1,
+            time=t,
+            fault_dropped=st.fault_dropped,
+            restart_done=st.restart_done)
+        if not with_trace:
+            return new_st, None
+
+        # 8. trace digests (order-independent): from the pre-sort mask
+        fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0))
+        d_abs = base + torch.where(deliver, st.q_rel, 0).long()
+        rsrc = self._src_rows[:, None, :].expand(E, C, n) if sc.inbox_src \
+            else torch.zeros((E, C, n), dtype=torch.int32, device=self.device)
+        rmix = mix32(RECV, node_ids.expand(E, C, n), rsrc, tlo(d_abs),
+                     thi(d_abs), st.q_pay[:, :, 0, :])
+        recv_hash = u32sum(torch.where(deliver, rmix, 0))
+        row = torch.stack([
+            t, fire.sum().long(), fired_hash, recv_count.long(), recv_hash,
+            sent_count.long(), sent_hash & 0xFFFFFFFF, overflow_step.long()])
+        return new_st, row
+
+    # -- run loops ---------------------------------------------------------
+
+    def _warn_on_overflow(self, final: EdgeState) -> None:
+        """Per-edge capacity (``cap``) is not the per-node ``mailbox_cap``
+        of the general engine and the oracle: once anything overflows,
+        which message is dropped legitimately differs, so such a run is
+        not trace-comparable to them — said out loud, not silently."""
+        ovf = int(final.overflow)
+        if ovf > 0:
+            warnings.warn(
+                f"edge engine counted {ovf} overflowed messages; per-edge "
+                "capacity semantics diverge from the per-node-capacity "
+                "oracle under overflow — raise cap=, or use the general "
+                "TorchEngine for overflow-exact parity",
+                RuntimeWarning, stacklevel=3)
+
+    def run(self, max_steps: int, state: Optional[EdgeState] = None
+            ) -> Tuple[EdgeState, SuperstepTrace]:
+        """Execute up to ``max_steps`` supersteps (stopping early once
+        quiesced); returns the final state and the trace of the
+        supersteps that fired."""
+        st = self.init_state() if state is None else state
+        steps0 = int(st.steps)
+        t0 = time.perf_counter()
+        rows = []
+        for _ in range(max_steps):
+            res = self._superstep(st, True)
+            if res is None:
+                break
+            st, row = res
+            rows.append(row)
+        cols = torch.stack(rows).cpu().numpy().T if rows else [[]] * 8
+        self.last_run_stats = run_stats(t0, steps0, int(st.steps))
+        self._warn_on_overflow(st)
+        return st, SuperstepTrace.from_columns(cols)
+
+    def run_quiet(self, max_steps: int,
+                  state: Optional[EdgeState] = None) -> EdgeState:
+        """Traceless run: no digest work. Stops at quiescence or after
+        ``max_steps`` supersteps."""
+        st = self.init_state() if state is None else state
+        steps0 = int(st.steps)
+        t0 = time.perf_counter()
+        for _ in range(max_steps):
+            res = self._superstep(st, False)
+            if res is None:
+                break
+            st = res[0]
+        # int() waits for the device, so the wall time covers the work
+        self.last_run_stats = run_stats(t0, steps0, int(st.steps))
+        return st

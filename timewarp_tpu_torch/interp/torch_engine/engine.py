@@ -37,7 +37,7 @@ from ...net.delays import LinkModel
 from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...trace.hashing import FIRED, RECV, SENT, mix32
-from .common import LocalComm, init_states_wake, run_stats
+from .common import LocalComm, init_states_wake, refuse_unported, run_stats
 from .cuda_insert import InsertStage, sample_nodrop
 
 __all__ = ["TorchEngine", "EngineState", "resolve_device", "resolve_window",
@@ -76,14 +76,14 @@ _UNPORTED = {"route_cap": None, "record_events": 0, "batch": None,
              "verify": "off", "record": "off", "speculate": "off"}
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, who: str = "TorchEngine") -> torch.device:
     """The engine's device: the card unless the caller asks for another.
     Without CUDA, a caller that did not pass ``device="cpu"`` gets an
     error, never a silent move to the CPU."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "TorchEngine runs on the CUDA device by default and none "
+                f"{who} runs on the CUDA device by default and none "
                 "is available; pass device='cpu' to run the kernels' plain "
                 "versions on the CPU")
         return torch.device("cuda")
@@ -176,14 +176,8 @@ class TorchEngine:
         own regime guards: the unported options, the device, the seed
         words and the node axis."""
         name = type(self).__name__
-        for k, v in unported.items():
-            if k not in _UNPORTED:
-                raise TypeError(f"{name} got an unexpected keyword "
-                                f"argument {k!r}")
-            if v != _UNPORTED[k]:
-                raise ValueError(f"{name}: {k}={v!r} is not yet "
-                                 "ported (run JaxEngine)")
-        self.device = resolve_device(device)
+        refuse_unported(name, unported, _UNPORTED, "JaxEngine")
+        self.device = resolve_device(device, name)
         if sc.n_nodes * sc.max_out >= 2**31:
             raise ValueError(
                 "n_nodes * max_out must fit int32 (sender-major rank)")

@@ -6,10 +6,16 @@ observer (node ``n_ring``, 0-latency link) and, after a think time,
 forwards ``v+1`` to its successor; the observer checks values arrive
 monotonically *in inbox order* — the ordered-inbox scenario (``max_out=2``,
 ``payload_width=2``, not commutative). Payload layout: ``[value, kind]``.
+
+Without the observer (``with_observer=False``) the ring is lean: one
+outbox slot to the fixed successor, declared as ``static_dst``, and a
+commutative inbox — the dense-ring regime of the edge and fused-ring
+engines.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.scenario import NEVER, Inbox, Outbox, Scenario
@@ -91,6 +97,17 @@ def token_ring(n_ring: int, *,
         wake = torch.where(is_obs, NEVER, send_at2)
         return new_state, out, wake
 
+    def init(i: int):
+        holds = i < n_ring and i < n_tokens
+        send_at = bootstrap_us if holds else NEVER
+        st = {"cnt": torch.tensor(int(holds), dtype=torch.int32),
+              "val": torch.tensor(0, dtype=torch.int32),
+              "send_at": torch.tensor(send_at, dtype=torch.int64)}
+        if with_observer:
+            st["prev"] = torch.tensor(0, dtype=torch.int32)
+            st["errs"] = torch.tensor(0, dtype=torch.int32)
+        return st, send_at
+
     def init_batched(n: int, device):
         ids = torch.arange(n, dtype=torch.int32, device=device)
         holds = (ids < n_ring) & (ids < n_tokens)
@@ -105,14 +122,21 @@ def token_ring(n_ring: int, *,
             states["errs"] = torch.zeros(n, dtype=torch.int32, device=device)
         return states, send_at
 
+    # the lean ring only ever sends to its successor: a static topology
+    # (the edge engine's); the observer's hub has in-degree N
+    static_dst = None if with_observer else (
+        (np.arange(n_ring, dtype=np.int32) + 1) % n_ring).reshape(n_ring, 1)
+
     return Scenario(
         name=f"token-ring-{n_ring}",
         n_nodes=n_nodes,
         step=step,
+        init=init,
         init_batched=init_batched,
         payload_width=2,
         max_out=2 if with_observer else 1,
         mailbox_cap=mailbox_cap,
+        static_dst=static_dst,
         commutative_inbox=not with_observer,
         meta={"n_ring": n_ring, "obs_id": obs_id if with_observer else None,
               "think_us": think_us, "end_us": end_us},
