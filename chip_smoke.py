@@ -10,7 +10,9 @@ first use). Phases, each of which fails the script on any mismatch:
    library paths, ptxas register counts);
 2. the fire-compaction kernel (K2) against its plain version at the
    slice shape (2^17 nodes, max_out 8, payload 1, window 8000, batch
-   2^18): a sparse outbox, one dense enough to drop, and window 1;
+   2^18): a sparse outbox, one dense enough to drop, and window 1; then
+   n = 1000 and 5000, 2^20 nodes, S just below the fired count, a long
+   sentinel tail, and two calls in a row;
 3. the mailbox-insertion kernel (K1) against its plain version: the
    slice shape (K 16, P 1, no src, commutative) on a batch that
    overfills some mailboxes, and the ordered mode with src (K 8, P 2);
@@ -34,6 +36,9 @@ nodes):
    lowered link kind: Fixed, Uniform, SeededHashUniform and
    Quantize(LogNormal), a FixedDelay shorter than the window
    (``short_delay > 0``) and an epoch just below 2^32 µs (the carry);
+   then the edges of its tiles: 2^20 + 3 nodes, one node with 8192
+   entries after one with none, an empty batch, K 1, 40 and 130, P 0, 3
+   and 7, with and without the inbox src plane;
 9. the main path: Praos at 2^20 (``bench.py`` ``bench_praos_1m_fused``'s
    configuration, ``max_batch = n * max_out``) through
    ``FusedSparseEngine.run_quiet``, 16 warm supersteps then 256 timed,
@@ -47,7 +52,9 @@ nodes):
     through ``run`` to quiescence, equal traces and final states;
 12. the gossip wave of phase 4 through ``FusedSparseEngine``: the same
     supersteps, delivered count and final state as phase 4;
-13. K3's time, its plain version's time and its bound;
+13. K3's time, its plain version's time and its bound: bytes over
+    3.35 TB/s, or the draws' SASS instructions (``cuobjdump``) over the
+    card's issue rates, whichever is longer;
 14. where the Praos path's time goes, as phase 7;
 
 then the static-topology slice (kernel K4, the dense token ring at 2^20):
@@ -77,6 +84,8 @@ Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -91,13 +100,23 @@ K1_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:465"
 K3_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:259"
 # the fused slice: Praos at 2^20 stake nodes, payload 2, fanout 8
 PRAOS_N, PRAOS_P, PRAOS_S = 1 << 20, 2, (1 << 20) * SLICE_M
-FP32_OPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
 # the static-topology slice: the dense token ring at 2^20 nodes
 RING_N = 1 << 20
 K4_REPLACES = "timewarp_tpu/interp/jax_engine/fused_ring.py:468"
-# K3's operations per drawn message: three 20-round Threefry-2x32 blocks
-# (about 120 integer operations each) and the lognormal's float arithmetic
-K3_OPS_PER_MSG = 400
+# the port's kernels as the profiler names them
+PORT_KERNELS = ("fire_compact_kernel", "insert_kernel", "fused_ring_kernel")
+# Instructions per clock of one SM of compute capability 9.0, by pipe (the
+# CUDA C++ Programming Guide's arithmetic-instruction throughput table):
+# 32-bit integer add, multiply-add, shift, compare and logic 64; float32
+# add, multiply and FMA 128; special functions and conversions 16; and at
+# most 128 instructions of any kind issued (4 schedulers of 32 lanes).
+SM90_PER_CLOCK = {"int": 64, "fp32": 128, "mufu": 16, "any": 128}
+SASS_INT = {"IADD3", "IADD", "IMAD", "IMUL", "IMNMX", "VIMNMX", "VIADD",
+            "ISETP", "LOP3", "LOP", "SHF", "SHL", "SHR", "SEL", "LEA",
+            "IABS", "POPC", "FLO", "PRMT", "BMSK", "SGXT", "BREV", "ISCADD"}
+SASS_FP32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET",
+             "FCHK", "FSWZADD"}
+SASS_MUFU = {"MUFU", "F2I", "I2F", "F2F", "I2I", "FRND", "I2FP", "F2IP"}
 
 
 def nvidia_smi() -> str:
@@ -183,22 +202,50 @@ def insert_args(t, n):
 # -- phases ---------------------------------------------------------------
 
 def phase_compact(device, n=SLICE_N, S=SLICE_S):
+    """K2 against its plain version: the slice shape (sparse, dense enough
+    to drop, window 1), then the edges of the one-launch design: n below
+    one segment, n = 5000 (blocks of one row), 2^20 nodes (more units a
+    CTA than one batch of loads), S just below the fired count (the write
+    order decides the drops), a long sentinel tail, and two calls in a
+    row on different inputs."""
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
     err = 0
+
+    def check(tag, pdst, w, pay, S, want_drops):
+        nonlocal err
+        got = ci.fire_compact(pdst, w, pay, S)
+        want = ci.fire_compact_plain(pdst, w, pay, S)
+        err = max(err, _equal(f"K2 {tag}", got, want))
+        drops = int(got[4])
+        if want_drops != (drops > 0):
+            raise AssertionError(f"K2 {tag}: drops={drops}")
+        say(f"K2 {tag}: n={pdst.shape[1]} fired={int((pdst >= 0).sum())} "
+            f"S={S} drops={drops} bit-equal")
+        return got
+
     for tag, frac, window1, seed in (("sparse", 0.2, False, 1),
                                      ("dense", 0.6, False, 2),
                                      ("window 1", 0.2, True, 3)):
         pdst, woff, pay = compact_inputs(device, n, SLICE_M, SLICE_P, frac,
                                          seed)
-        w = None if window1 else woff
-        got = ci.fire_compact(pdst, w, pay, S)
-        want = ci.fire_compact_plain(pdst, w, pay, S)
-        err = max(err, _equal(f"K2 {tag}", got, want))
-        drops = int(got[4])
-        if (tag == "dense") != (drops > 0):
-            raise AssertionError(f"K2 {tag}: drops={drops}")
-        say(f"K2 {tag}: fired={int((pdst >= 0).sum())} S={S} "
-            f"drops={drops} bit-equal")
+        check(tag, pdst, None if window1 else woff, pay, S, tag == "dense")
+    for tag, nn, P, frac, SS, drops, seed in (
+            ("n 1000 < one segment, payload 3", 1000, 3, 0.3, 4096, False,
+             20),
+            ("n 5000 (RW 1)", 5000, SLICE_P, 0.3, 1 << 14, False, 21),
+            ("n 2^20", 1 << 20, SLICE_P, 0.2, 1 << 21, False, 22),
+            ("S just below fired", n, SLICE_P, 0.2, None, True, 23),
+            ("long tail, payload 0", n, 0, 0.02, S, False, 24)):
+        pdst, woff, pay = compact_inputs(device, nn, SLICE_M, P, frac, seed)
+        if SS is None:
+            SS = int((pdst >= 0).sum()) - 1000
+        check(tag, pdst, woff, pay, SS, drops)
+    a, b = (compact_inputs(device, n, SLICE_M, SLICE_P, f, sd)
+            for f, sd in ((0.3, 25), (0.1, 26)))
+    first = ci.fire_compact(a[0], a[1], a[2], S)
+    check("two calls in a row, the second", b[0], b[1], b[2], S, False)
+    err = max(err, _equal("K2 two calls in a row, the first", first,
+                          ci.fire_compact_plain(a[0], a[1], a[2], S)))
     return err
 
 
@@ -361,9 +408,13 @@ def phase_where_time_goes(tag, eng, warm, steps):
         f"device_ms_per_superstep={dev_us / steps / 1e3} "
         f"device_idle_share={1 - dev_us / 1e6 / wall} "
         f"device_launches_per_superstep={launches / steps}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        say(f"  device_us_per_superstep={e.self_device_time_total / steps} "
-            f"launches_per_superstep={e.count / steps} {e.key[:90]}")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the eight longest, and the port's own kernels wherever they rank
+    for i, e in enumerate(ranked):
+        if i < 8 or any(k in e.key for k in PORT_KERNELS):
+            say(f"  device_us_per_superstep={e.self_device_time_total / steps}"
+                f" launches_per_superstep={e.count / steps} rank={i + 1} "
+                f"{e.key[:90]}")
 
 
 def phase_times(device):
@@ -391,6 +442,10 @@ def phase_times(device):
     k1 = dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
               plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args)),
               bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes)
+    units = ci.compact_scratch_words(SLICE_N, SLICE_M) // 9
+    say(f"fire_compact grid: {ci.fire_compact_grid(device)} CTAs of 256 "
+        f"threads resident at once, {units} units of 256 lanes at the slice "
+        "shape")
     for name, r in (("fire_compact", k2), ("mailbox_insert", k1)):
         say(f"time {name}: kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
             f"bound_ms={r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s; "
@@ -418,25 +473,35 @@ def praos_consensus(n):
 
 
 def sample_inputs(device, n=PRAOS_N, K=SLICE_K, P=PRAOS_P, S=PRAOS_S,
-                  seed=8):
+                  seed=8, frac=0.6, hot=True, extra=(), src=False):
     """A mailbox half full and a batch of width ``S`` sorted by ``(dst,
-    woff, smrank)``, 60% valid, whose 64 hot destinations overfill their
-    mailboxes; made with numpy from ``seed``, sorted on ``device``."""
+    woff, smrank)``, a ``frac`` share valid, whose 64 hot destinations
+    overfill their mailboxes (unless not ``hot``); ``extra`` adds
+    ``(node, count)`` messages after removing that node's own (a count
+    of 0 leaves the node none); ``src`` gives the inbox a src
+    plane. Made with numpy from ``seed``, sorted on ``device``."""
     import torch
     from timewarp_tpu_torch.interp.torch_engine.cuda_insert import \
         bucket_bounds
     from timewarp_tpu_torch.interp.torch_engine.engine import sort_batch
     rng = np.random.default_rng(seed)
     I32MAX = 2**31 - 1
-    n_msgs = int(S * 0.6)
+    n_msgs = int(S * frac)
 
     def dev(a):
         return torch.from_numpy(a).to(device)
-    dst = dev(np.concatenate([rng.integers(0, n, n_msgs - 64 * 24),
-                              np.repeat(rng.integers(0, n, 64), 24)]
-                             ).astype(np.int32))
+    parts = [rng.integers(0, n, n_msgs - 64 * 24 if hot else n_msgs)]
+    if hot:
+        parts.append(np.repeat(rng.integers(0, n, 64), 24))
+    dst = np.concatenate(parts)
+    for node, count in extra:
+        dst = np.concatenate([dst[dst != node], np.full(count, node)])
+    n_msgs = dst.size
+    dst = dev(dst.astype(np.int32))
     woff = dev(rng.integers(0, SLICE_W, n_msgs).astype(np.int32))
-    smrank = dev(rng.permutation(n * SLICE_M)[:n_msgs].astype(np.int32))
+    smrank = rng.permutation(n * SLICE_M)[:n_msgs] if n_msgs <= n * SLICE_M \
+        else rng.integers(0, n * SLICE_M, n_msgs)
+    smrank = dev(smrank.astype(np.int32))
     perm = sort_batch(dst, woff, smrank)
 
     def col(x, fill):
@@ -445,7 +510,7 @@ def sample_inputs(device, n=PRAOS_N, K=SLICE_K, P=PRAOS_P, S=PRAOS_S,
         return out
     sd = col(dst, n)
     start, cnt = bucket_bounds(sd, n)
-    return dict(
+    t = dict(
         start=start, cnt=cnt, sd=sd, woff=col(woff, 0),
         smrank=col(smrank, 0),
         pay=dev(rng.integers(-2**31, I32MAX, (P, S)).astype(np.int32)),
@@ -454,7 +519,11 @@ def sample_inputs(device, n=PRAOS_N, K=SLICE_K, P=PRAOS_P, S=PRAOS_S,
                             I32MAX).astype(np.int32)),
         mb_src=torch.zeros((K, n), dtype=torch.int32, device=device),
         mb_payload=dev(rng.integers(-2**31, I32MAX, (K, P, n)).astype(
-            np.int32)))
+            np.int32)),
+        inbox_src=src)
+    if src:
+        t["mb_src"] = dev(rng.integers(0, n, (K, n)).astype(np.int32))
+    return t
 
 
 def k3_call(fn, t, tt, link, s0=0x1234, s1=0x5678):
@@ -463,7 +532,7 @@ def k3_call(fn, t, tt, link, s0=0x1234, s1=0x5678):
     return fn(t["start"], t["cnt"], t["sd"], t["woff"], t["smrank"],
               t["pay"], tt, t["mb_rel"], t["mb_src"], t["mb_payload"],
               link=link, s0=s0, s1=s1, M=SLICE_M, W=SLICE_W,
-              inbox_src=False)
+              inbox_src=t["inbox_src"])
 
 
 def k3_links():
@@ -504,6 +573,48 @@ def phase_sample_insert(device, t):
             "overflow > 0": ovf > 0,
             "short_delay > 0 iff the delay is below W":
                 (short > 0) == tag.startswith("short")})
+    return max(err, phase_sample_insert_edges(device))
+
+
+def phase_sample_insert_edges(device, n=PRAOS_N, ns=1 << 18):
+    """K3 against its plain version at the edges of the tiled design
+    (tiles of 256 nodes, 16 rows of a column staged in shared memory,
+    an entry buffer of 8 entries a node before a tile chunks), on the Praos link; ``ns`` nodes
+    where K or P is large."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        lower_link
+    link = lower_link(praos_link())
+    tt = torch.tensor(1 << 36, dtype=torch.int64, device=device)
+    err = 0
+    for tag, kw in (
+            ("n + 3 nodes, not a multiple of the tile",
+             dict(n=n + 3, S=4 * n, seed=30)),
+            ("node 257 gets 8192 entries (> 256 x 16), node 256 none",
+             dict(n=n, S=4 * n, frac=0.5, seed=31,
+                  extra=((256, 0), (257, 8192)))),
+            ("empty batch", dict(n=n, S=n, frac=0.0, hot=False, seed=32)),
+            ("K 1, P 3, src", dict(n=ns, K=1, P=3, S=4 * ns, src=True,
+                                   seed=33)),
+            ("K 40, P 0 (rows past the staged 16; tiles chunk)",
+             dict(n=ns, K=40, P=0, S=32 * ns, frac=0.9, seed=34)),
+            ("K 130, P 3, src (tiles chunk)",
+             dict(n=ns, K=130, P=3, S=32 * ns, frac=0.9, src=True,
+                  seed=35)),
+            ("K 16, P 7, src (an entry buffer above 48 KB)",
+             dict(n=ns, K=16, P=7, S=8 * ns, src=True, seed=36))):
+        t = sample_inputs(device, **kw)
+        got = k3_call(ci.sample_insert, t, tt, link)
+        want = k3_call(ci.sample_insert_plain, t, tt, link)
+        torch.cuda.synchronize()
+        err = max(err, _equal(f"K3 {tag}", got, want))
+        valid = int(t["cnt"].sum())
+        say(f"K3 {tag}: n={t['cnt'].numel()} K={t['mb_rel'].shape[0]} "
+            f"P={t['pay'].shape[0]} src={t['inbox_src']} valid={valid} "
+            f"overflow={int(got[3])} bit-equal")
+        if (valid == 0) != tag.startswith("empty"):
+            raise AssertionError(f"K3 {tag}: valid={valid}")
     return err
 
 
@@ -600,6 +711,31 @@ def phase_fused_gossip(device, general, n=SLICE_N):
         f"{eng.last_run_stats['wall_seconds']}: phase 4's counts and state")
 
 
+def sass_draw_counts(lib):
+    """Instructions of one K3 draw on the main path's link, by pipe: the
+    SASS of ``tw_k3_draw_probe`` (one Quantize(LogNormal) draw with its
+    threefry chain, between one load pair and one store) up to its first
+    EXIT. The slow paths of logf/cosf that the compiler places after it
+    are not counted: no draw of this link takes them."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    body = sass.split("Function : tw_k3_draw_probe", 1)[1]
+    body = body.split("Function : ", 1)[0]
+    counts = {"int": 0, "fp32": 0, "mufu": 0, "other": 0}
+    for pred, op in re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body):
+        if op == "NOP":
+            continue
+        kind = "int" if op in SASS_INT else "fp32" if op in SASS_FP32 \
+            else "mufu" if op in SASS_MUFU else "other"
+        counts[kind] += 1
+        if op == "EXIT" and not pred:
+            break
+    counts["any"] = sum(counts.values())
+    return counts
+
+
 def phase_time_k3(device, t):
     import torch
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
@@ -618,7 +754,16 @@ def phase_time_k3(device, t):
     k3_bytes = 2 * planes * 4 + (t["start"].numel() + t["cnt"].numel()) * 4 \
         + valid * 2 * 4 + inserted * PRAOS_P * 4
     bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = valid * K3_OPS_PER_MSG / FP32_OPS_PER_S * 1e3
+    # every valid entry is drawn once; the pipe that takes longest bounds
+    from timewarp_tpu_torch.utils import build
+    per_draw = sass_draw_counts(build.build_all()["sample_insert"].path)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    clocks = max(per_draw[k] / SM90_PER_CLOCK[k] for k in SM90_PER_CLOCK)
+    ops_ms = valid * clocks / (sms * mhz * 1e6) * 1e3
     r = dict(ms=_time_ms(lambda: k3_call(ci.sample_insert, t, tt, link)),
              plain_ms=_time_ms(lambda: k3_call(ci.sample_insert_plain, t, tt,
                                                link)),
@@ -626,10 +771,12 @@ def phase_time_k3(device, t):
              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
              bytes=k3_bytes)
     say(f"time sample_insert: kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
-        f"bound_ms={r['bound_ms']} (bytes {k3_bytes} over 3.35 TB/s: "
-        f"{bytes_ms} ms; {valid} draws x {K3_OPS_PER_MSG} operations over "
-        f"67 TFLOP/s: {ops_ms} ms; no single PyTorch call computes this "
-        "function: library_ms null)")
+        f"bound_ms={r['bound_ms']} bound_by={r['bound_by']} (bytes "
+        f"{k3_bytes} over 3.35 TB/s: {bytes_ms} ms; {valid} draws of "
+        f"{per_draw} SASS instructions, {clocks} SM clocks a draw at "
+        f"{SM90_PER_CLOCK} a clock, {sms} SMs at {mhz} MHz: {ops_ms} ms; "
+        f"{nvidia_smi()}; no single PyTorch call computes this function: "
+        "library_ms null)")
     return r
 
 

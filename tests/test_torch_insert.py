@@ -165,17 +165,47 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,window1", [(1 << 15, False), (5000, True)])
-def test_fire_compact_kernel_equals_plain(cuda_device, n, window1):
+@pytest.mark.parametrize("n,M,P,frac,S,window1", [
+    (1 << 15, 8, 1, 0.3, 1 << 14, False),   # S below the fired count
+    (5000, 8, 1, 0.3, 1 << 14, True),       # blocks of one row, window 1
+    (1000, 8, 3, 0.3, 4096, False),         # under one segment, P 3
+    (1 << 20, 8, 1, 0.2, 1 << 21, False),   # more units than one batch
+    (1 << 17, 8, 0, 0.02, 1 << 18, False),  # a long sentinel tail, P 0
+], ids=["32768-False", "5000-True", "n1000-P3", "n2^20", "long-tail-P0"])
+def test_fire_compact_kernel_equals_plain(cuda_device, n, M, P, frac, S,
+                                          window1):
     rng = np.random.default_rng(n)
     pdst, woff, pay = (torch.from_numpy(a).to(cuda_device)
-                       for a in _outbox(rng, n, 8, 1, 0.3, 8_000))
-    S = 1 << 14
+                       for a in _outbox(rng, n, M, P, frac, 8_000))
     w = None if window1 else woff
     got = ci.fire_compact(pdst, w, pay, S)
     want = ci.fire_compact_plain(pdst, w, pay, S)
     for g, x in zip(got, want):
         assert torch.equal(g, x)
+    assert (int(got[4]) > 0) == (n == 1 << 15)
+
+
+@pytest.mark.cuda
+def test_fire_compact_kernel_two_calls(cuda_device):
+    """Two calls in a row on different inputs: each call has its own
+    scratch, so the second does not disturb the first's result."""
+    rng = np.random.default_rng(9)
+    a, b = ([torch.from_numpy(x).to(cuda_device)
+             for x in _outbox(rng, 1 << 16, 8, 1, f, 8_000)]
+            for f in (0.3, 0.1))
+    first = ci.fire_compact(*a, 1 << 17)
+    second = ci.fire_compact(*b, 1 << 17)
+    for got, x in ((first, a), (second, b)):
+        for g, w in zip(got, ci.fire_compact_plain(*x, 1 << 17)):
+            assert torch.equal(g, w)
+
+
+def test_compact_scratch_words():
+    """K2's scratch: 8 warp counts and one CTA total per 256-lane unit
+    (4 units a 1024-lane segment, segments = node rows x max_out)."""
+    assert ci.compact_scratch_words(1 << 17, 8) == 128 * 8 * 4 * 9
+    assert ci.compact_scratch_words(1000, 8) == 1 * 8 * 4 * 9
+    assert ci.compact_scratch_words(5000, 3) == 5 * 3 * 4 * 9
 
 
 @pytest.mark.cuda

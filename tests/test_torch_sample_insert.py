@@ -61,15 +61,22 @@ LINKS = {
 }
 
 
-def make_batch(rng, n, K, S, t, src=False):
+def make_batch(rng, n, K, S, t, src=False, P=P, frac=0.6, extra=()):
     """A mailbox half full and a batch sorted by ``(dst, woff, smrank)``
-    (sentinel ``n`` past the valid entries) in which 16 hot destinations
-    receive K + 6 messages each, as numpy arrays."""
-    n_msgs = int(S * 0.6)
-    dst = np.concatenate([rng.integers(0, n, n_msgs - 16 * (K + 6)),
-                          np.repeat(rng.integers(0, n, 16), K + 6)])
+    (sentinel ``n`` past the valid entries), a ``frac`` share valid, in
+    which 16 hot destinations receive K + 6 messages each (when the batch
+    has room for them), as numpy arrays. ``extra`` replaces the messages
+    of each ``(node, count)`` by ``count`` new ones."""
+    n_msgs = int(S * frac)
+    n_hot = 16 if n_msgs >= 16 * (K + 6) else 0
+    dst = np.concatenate([rng.integers(0, n, n_msgs - n_hot * (K + 6)),
+                          np.repeat(rng.integers(0, n, n_hot), K + 6)])
+    for node, count in extra:
+        dst = np.concatenate([dst[dst != node], np.full(count, node)])
+    n_msgs = dst.size
     woff = rng.integers(0, W, n_msgs)
-    smrank = rng.choice(n * M, n_msgs, replace=False)
+    smrank = rng.choice(n * M, n_msgs, replace=False) if n_msgs <= n * M \
+        else rng.integers(0, n * M, n_msgs)
     order = np.lexsort((smrank, woff, dst))
     sd = np.full(S, n, np.int32)
     sd[:n_msgs] = dst[order]
@@ -189,14 +196,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: the kernel's cases on the card: every link kind at n = 50 000, then the
+#: edges of its tiles (256 nodes, 16 rows of a column staged in shared
+#: memory, an entry buffer of 8 entries a node before a tile chunks)
+CARD_CASES = {name: dict(link=name) for name in sorted(LINKS)}
+CARD_CASES.update({
+    "n-not-tile-multiple": dict(n=5 * 256 + 3, S=1 << 13),
+    "hot-node-past-tile": dict(S=1 << 15, frac=0.3,
+                               extra=((256, 0), (257, 256 * 16 + 100))),
+    "empty-batch": dict(S=1 << 12, frac=0.0),
+    "K1-P3-src": dict(n=5000, K=1, P=3, S=1 << 14, src=True),
+    "K40-P0": dict(n=5000, K=40, P=0, S=1 << 17),
+    "K130-P3-src": dict(n=5000, K=130, P=3, S=1 << 17, src=True),
+    "K16-P0-src": dict(n=5000, P=0, S=1 << 15, src=True),
+})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(LINKS))
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
 def test_sample_insert_kernel_equals_plain(cuda_device, name):
-    n, K = 50_000, 16
+    case = CARD_CASES[name]
+    n, K = case.get("n", 50_000), case.get("K", 16)
+    link_name = case.get("link", "quantized-lognormal")
     rng = np.random.default_rng(len(name))
-    b = make_batch(rng, n, K, 1 << 17, 2**32 - 3_000, src=name == "uniform")
+    b = make_batch(rng, n, K, case.get("S", 1 << 17), 2**32 - 3_000,
+                   src=case.get("src", name == "uniform"),
+                   P=case.get("P", P), frac=case.get("frac", 0.6),
+                   extra=case.get("extra", ()))
     s0, s1 = seed_words(5)
-    link = LINKS[name](td)
+    link = LINKS[link_name](td)
     got = plain(b, link, s0, s1, cuda_device)
     t = {k: torch.from_numpy(v).to(cuda_device) for k, v in b.items()
          if isinstance(v, np.ndarray)}
@@ -208,3 +236,4 @@ def test_sample_insert_kernel_equals_plain(cuda_device, name):
         M=M, W=W, inbox_src=b["src"])
     for g, x in zip(got, want):
         assert torch.equal(g, x)
+    assert (int(cnt.sum()) == 0) == (name == "empty-batch")

@@ -12,28 +12,64 @@
 // the batch holds the sentinel dst = n (woff, smrank, payload 0).
 // Messages beyond S are counted as drops: max(total - S, 0).
 //
-// What bounds it on an H100: memory traffic. It reads the M dst planes
-// (twice: count, then scatter), the woff plane and the payload of the
-// valid lanes, and writes the batch — a few MB per superstep at 2^17
-// nodes, a few microseconds at 3.35 TB/s. There is no arithmetic to
-// speak of.
+// What bounds it on an H100: memory traffic. It reads the M dst planes,
+// the woff plane and the payload of the valid lanes, and writes the batch:
+// about 10 MB at 2^17 nodes, M = 8, P = 1, S = 2^18, under 3 us at
+// 3.35 TB/s. There is no arithmetic to speak of, so the fixed costs of a
+// launch and of every step that waits on memory or on other CTAs weigh as
+// much as the bytes.
 //
-// Design: the TPU kernel walked the blocks in order on one core,
-// carrying the running write base, and built prefix sums from lane
-// rolls. Here one CTA of 1024 threads owns one segment (block, slot,
-// row), so every read is coalesced: (1) each CTA counts its valid lanes
-// with __syncthreads_count; (2) one CTA scans the segment counts into
-// write bases (the sequential carry of the TPU grid becomes this scan);
-// (3) each CTA writes its lanes at base + in-segment prefix (warp ballot
-// + popc, then a scan of the 32 warp counts) and fills its share of the
-// sentinel tail. Nothing is atomic, so the result is deterministic.
+// Design: the TPU kernel walked the blocks in order on one core, carrying
+// the running write base. Here one cooperative launch of a persistent
+// grid, as many 256-thread CTAs as the card holds at once (the occupancy
+// query runs once per device), does the count, the scan and the scatter,
+// with one grid.sync() between them. The write order is cut into units
+// of 256 lanes (a quarter segment), and each CTA takes a contiguous range
+// of units in that order:
+//   1. it loads its units' dst lanes into registers, eight units at a
+//      time, and stages their woff and first payload words in shared
+//      memory by cp.async, not waited for until step 3; it writes each
+//      warp's valid count per unit to scratch, and its own total;
+//   2. grid.sync(); each CTA loads every CTA total at once and sums those
+//      before it (its write base) and all (the fired count);
+//   3. it writes its lanes at base + the unit's warp prefix + the ballot
+//      prefix inside the warp, unit after unit (units past the first
+//      eight are loaded again, from L2), and its share of the sentinel
+//      tail; the last CTA writes drops.
+// Every load of a step is issued before the first that waits on it, and
+// no unit index is divided per unit (UnitPos steps through them). Nothing
+// is atomic, so the result is deterministic. The scratch is the caller's,
+// fresh each call: wcnt int32[units * 8], then ctatot int32[grid].
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "copy_async.cuh"
+
+namespace cg = cooperative_groups;
+using tw::copy_async;
+using tw::copy_wait;
+
 namespace {
 
-constexpr int kLanes = 1024;
+constexpr int kLanes = 1024;              // the reference's segment width
+constexpr int kT = 256;                   // threads a CTA = lanes a unit
+constexpr int kUnitsPerSeg = kLanes / kT;
+constexpr int kWarps = kT / 32;
+// Tuning knobs (tools/torch_kernel_variants.py builds and times others):
+// units a thread loads together, and CTAs that must fit on an SM at once
+// (so at most 65536 / (256 * TW_K2_MIN_BLOCKS) registers a thread).
+#ifndef TW_K2_BATCH
+#define TW_K2_BATCH 8
+#endif
+#ifndef TW_K2_MIN_BLOCKS
+#define TW_K2_MIN_BLOCKS 4
+#endif
+constexpr int kBatch = TW_K2_BATCH;       // units loaded together
+constexpr int kPayEarly = 1;              // payload words a lane stages early
+constexpr int kTotals = 8;                // CTA totals a thread loads at once
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void segment_coords(int seg, int M, int RW,
                                                int* row, int* slot) {
@@ -43,108 +79,230 @@ __device__ __forceinline__ void segment_coords(int seg, int M, int RW,
   *row = (bm / M) * RW + r;
 }
 
-__global__ void count_kernel(const int32_t* __restrict__ pdst, int n,
-                             int M, int RW, int32_t* __restrict__ seg_count) {
-  int row, slot;
-  segment_coords(blockIdx.x, M, RW, &row, &slot);
-  const int node = row * kLanes + threadIdx.x;
-  const bool v = node < n && pdst[(int64_t)slot * n + node] >= 0;
-  const int c = __syncthreads_count(v);
-  if (threadIdx.x == 0) seg_count[blockIdx.x] = c;
+// A unit's place in the write order: quarter q of the segment at row r
+// of block blk, outbox slot `slot`. It starts from unit u with the only
+// divisions and steps one unit at a time.
+struct UnitPos {
+  int q, r, slot, blk;
+  __device__ __forceinline__ UnitPos(int u, int M, int RW) {
+    int row;
+    segment_coords(u / kUnitsPerSeg, M, RW, &row, &slot);
+    q = u % kUnitsPerSeg;
+    r = row % RW;
+    blk = row / RW;
+  }
+  __device__ __forceinline__ void next(int M, int RW) {
+    if (++q < kUnitsPerSeg) return;
+    q = 0;
+    if (++r < RW) return;
+    r = 0;
+    if (++slot < M) return;
+    slot = 0;
+    ++blk;
+  }
+  // this thread's node
+  __device__ __forceinline__ int node(int RW) const {
+    return (blk * RW + r) * kLanes + q * kT + threadIdx.x;
+  }
+};
+
+// Sum of v over the warp, in every lane.
+__device__ __forceinline__ int warp_total(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-// One CTA of 1024 threads: exclusive scan of seg[0..nseg) in place;
-// seg[nseg] = total; drops = max(total - S, 0).
-__global__ void scan_kernel(int32_t* __restrict__ seg, int nseg, int S,
-                            int32_t* __restrict__ drops) {
-  __shared__ int32_t warp_tot[32];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int per = (nseg + blockDim.x - 1) / blockDim.x;
-  const int lo = min(tid * per, nseg), hi = min(lo + per, nseg);
-  int local = 0;
-  for (int i = lo; i < hi; ++i) local += seg[i];
-  int x = local;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < (int)(blockDim.x >> 5) ? warp_tot[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_tot[lane] = w;  // inclusive over warps
-  }
-  __syncthreads();
-  int run = x - local + (warp > 0 ? warp_tot[warp - 1] : 0);
-  for (int i = lo; i < hi; ++i) {
-    const int c = seg[i];
-    seg[i] = run;
-    run += c;
-  }
-  if (tid == (int)blockDim.x - 1) {
-    seg[nseg] = run;
-    *drops = run > S ? run - S : 0;
-  }
-}
+__global__ void __launch_bounds__(kT, TW_K2_MIN_BLOCKS) fire_compact_kernel(
+    const int32_t* __restrict__ pdst, const int32_t* __restrict__ woff_n,
+    const int32_t* __restrict__ payload, int n, int M, int P, int RW, int S,
+    int Q, int32_t* __restrict__ wcnt, int32_t* __restrict__ ctatot,
+    int32_t* __restrict__ out_dst, int32_t* __restrict__ out_woff,
+    int32_t* __restrict__ out_smrank, int32_t* __restrict__ out_pay,
+    int32_t* __restrict__ drops) {
+  __shared__ int32_t red[kWarps], red2[kWarps];
+  __shared__ int32_t s_w[kBatch][kT];                // woff
+  __shared__ int32_t s_p[kPayEarly][kBatch][kT];     // payload words
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = gridDim.x, b = blockIdx.x;
+  const int u0 = static_cast<int>(static_cast<int64_t>(Q) * b / G);
+  const int nu = static_cast<int>(static_cast<int64_t>(Q) * (b + 1) / G) - u0;
 
-__global__ void scatter_kernel(const int32_t* __restrict__ pdst,
-                               const int32_t* __restrict__ woff_n,
-                               const int32_t* __restrict__ payload,
-                               int n, int M, int P, int RW, int S, int nseg,
-                               const int32_t* __restrict__ seg_base,
-                               int32_t* __restrict__ out_dst,
-                               int32_t* __restrict__ out_woff,
-                               int32_t* __restrict__ out_smrank,
-                               int32_t* __restrict__ out_pay) {
-  __shared__ int32_t warp_base[32];
-  int row, slot;
-  segment_coords(blockIdx.x, M, RW, &row, &slot);
-  const int node = row * kLanes + threadIdx.x;
-  const int d = node < n ? pdst[(int64_t)slot * n + node] : -1;
-  const bool v = d >= 0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, v);
-  const int in_warp = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) warp_base[warp] = __popc(ballot);
-  __syncthreads();
-  if (warp == 0) {
-    const int c = warp_base[lane];
-    int x = c;
+  // A lane's dst in units i0 .. i0 + kBatch - 1 (-1 past the units or
+  // past n), from position `at`; with `all`, its woff and first payload
+  // words go to shared memory by asynchronous copy, not waited for here.
+  // They do not wait for the dst: at the densities that matter each
+  // 32-byte sector of them holds some message, so reading it whole costs
+  // no extra sectors.
+  const auto stage = [&](int i0, UnitPos at, int* dv, bool all) {
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
+    for (int i = 0; i < kBatch; ++i, at.next(M, RW)) {
+      dv[i] = -1;
+      const int node = at.node(RW);
+      if (i0 + i >= nu || node >= n) continue;
+      dv[i] = pdst[static_cast<int64_t>(at.slot) * n + node];
+      if (!all) continue;
+      if (woff_n != nullptr) copy_async(&s_w[i][tid], woff_n + node);
+#pragma unroll
+      for (int p = 0; p < kPayEarly; ++p)
+        if (p < P)
+          copy_async(&s_p[p][i][tid],
+                     payload + (static_cast<int64_t>(at.slot) * P + p) * n +
+                         node);
     }
-    warp_base[lane] = x - c;  // exclusive
+  };
+  // each warp's valid count in units i0 .. i0 + kBatch - 1, and its sum
+  int mine = 0;
+  const auto count = [&](int i0, const int* dv) {
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int c = __popc(__ballot_sync(0xffffffffu, dv[i] >= 0));
+      if (lane == 0 && i0 + i < nu)
+        wcnt[static_cast<int64_t>(u0 + i0 + i) * kWarps + warp] = c;
+      mine += c;
+    }
+  };
+
+  // 1. load (the first batch kept: dst in registers, the rest staged)
+  // and count
+  UnitPos at(u0, M, RW);
+  int kd[kBatch];
+  stage(0, at, kd, true);
+  count(0, kd);
+  for (int i0 = kBatch; i0 < nu; i0 += kBatch) {
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) at.next(M, RW);
+    int dv[kBatch];
+    stage(i0, at, dv, false);
+    count(i0, dv);
+  }
+  if (lane == 0) red[warp] = mine;
+  __syncthreads();
+  if (tid == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += red[w];
+    ctatot[b] = sum;
+  }
+  cg::this_grid().sync();
+
+  // 2. this CTA's write base and the fired count: the CTA totals are
+  // loaded all at once (kTotals a thread covers every grid the card can
+  // hold), then summed over the CTA
+  int before = 0, all = 0;
+  {
+    int v[kTotals];
+#pragma unroll
+    for (int i = 0; i < kTotals; ++i)
+      v[i] = tid + i * kT < G ? ctatot[tid + i * kT] : 0;
+#pragma unroll
+    for (int i = 0; i < kTotals; ++i) {
+      all += v[i];
+      before += tid + i * kT < b ? v[i] : 0;
+    }
+    for (int c = tid + kTotals * kT; c < G; c += kT) {
+      const int x = ctatot[c];
+      all += x;
+      before += c < b ? x : 0;
+    }
+  }
+  before = warp_total(before);
+  all = warp_total(all);
+  if (lane == 0) {
+    red[warp] = before;
+    red2[warp] = all;
   }
   __syncthreads();
-  const int pos = seg_base[blockIdx.x] + warp_base[warp] + in_warp;
-  if (v && pos < S) {
-    out_dst[pos] = d;
-    out_woff[pos] = woff_n != nullptr ? woff_n[node] : 0;
-    out_smrank[pos] = node * M + slot;
-    for (int p = 0; p < P; ++p)
-      out_pay[(int64_t)p * S + pos] =
-          payload[((int64_t)slot * P + p) * n + node];
+  int base = 0;
+  all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    base += red[w];
+    all += red2[w];
   }
+
+  // 3. scatter, unit after unit in write order
+  const unsigned below = (1u << lane) - 1u;
+  at = UnitPos(u0, M, RW);
+  const auto scatter = [&](int i0, const int* dv) {
+    int wc[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      wc[i] = i0 + i < nu && lane < kWarps
+                  ? wcnt[static_cast<int64_t>(u0 + i0 + i) * kWarps + lane]
+                  : 0;
+    copy_wait();
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i, at.next(M, RW)) {
+      int x = wc[i];  // inclusive scan over the unit's warp counts
+#pragma unroll
+      for (int o = 1; o < kWarps; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      const int unit_total = __shfl_sync(0xffffffffu, x, kWarps - 1);
+      const int warp_base =
+          __shfl_sync(0xffffffffu, x, warp > 0 ? warp - 1 : 0);
+      const int d = dv[i];
+      const unsigned ballot = __ballot_sync(0xffffffffu, d >= 0);
+      const int pos = base + (warp > 0 ? warp_base : 0) +
+                      __popc(ballot & below);
+      if (d >= 0 && pos < S) {
+        const int node = at.node(RW), slot = at.slot;
+        out_dst[pos] = d;
+        out_woff[pos] = woff_n != nullptr ? s_w[i][tid] : 0;
+        out_smrank[pos] = node * M + slot;
+#pragma unroll
+        for (int p = 0; p < kPayEarly; ++p)
+          if (p < P)
+            out_pay[static_cast<int64_t>(p) * S + pos] = s_p[p][i][tid];
+        for (int p = kPayEarly; p < P; ++p)
+          out_pay[static_cast<int64_t>(p) * S + pos] =
+              payload[(static_cast<int64_t>(slot) * P + p) * n + node];
+      }
+      base += unit_total;
+    }
+  };
+  scatter(0, kd);
+  for (int i0 = kBatch; i0 < nu; i0 += kBatch) {
+    int dv[kBatch];
+    stage(i0, at, dv, true);
+    scatter(i0, dv);
+  }
+
   // this CTA's share of the sentinel tail [min(total, S), S)
-  const int fired = min(seg_base[nseg], S);
-  const int chunk = (S + gridDim.x - 1) / gridDim.x;
-  const int t0 = max((int)blockIdx.x * chunk, fired);
-  const int t1 = min((int)(blockIdx.x + 1) * chunk, S);
-  for (int q = t0 + threadIdx.x; q < t1; q += blockDim.x) {
+  const int fired = min(all, S);
+  for (int64_t q = fired + static_cast<int64_t>(b) * kT + tid; q < S;
+       q += static_cast<int64_t>(G) * kT) {
     out_dst[q] = n;
     out_woff[q] = 0;
     out_smrank[q] = 0;
-    for (int p = 0; p < P; ++p) out_pay[(int64_t)p * S + q] = 0;
+    for (int p = 0; p < P; ++p) out_pay[static_cast<int64_t>(p) * S + q] = 0;
   }
+  if (b == G - 1 && tid == 0) *drops = all > S ? all - S : 0;
+}
+
+// The most CTAs of fire_compact_kernel the device holds at once: queried
+// once per device.
+cudaError_t resident_ctas(int* out) {
+  static int cache[kMaxDevices] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cache[dev] > 0) {
+    *out = cache[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fire_compact_kernel, kT, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (dev < kMaxDevices) cache[dev] = per_sm * sms;
+  *out = per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -153,10 +311,14 @@ extern "C" const char* tw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The cooperative grid's size cap on this device (CTAs resident at once).
+extern "C" int tw_fire_compact_grid(int* ctas) { return resident_ctas(ctas); }
+
 // pdst int32[M, n], woff_n int32[n] or null (window 1), payload
-// int32[M, P, n]; scratch int32[ceil(n/1024)*M + 1]; outputs dst, woff,
-// smrank int32[S], pay int32[P, S], drops int32[1]. Returns the CUDA
-// error of the launches (0 = launched).
+// int32[M, P, n]; scratch int32[units * 9] with units = ceil(n / 1024) *
+// M * 4; outputs dst, woff, smrank int32[S], pay int32[P, S], drops
+// int32[1]. One cooperative launch; returns its CUDA error (0 =
+// launched).
 extern "C" int tw_fire_compact(const int32_t* pdst, const int32_t* woff_n,
                                const int32_t* payload, int n, int M, int P,
                                int S, int32_t* scratch, int32_t* out_dst,
@@ -164,17 +326,18 @@ extern "C" int tw_fire_compact(const int32_t* pdst, const int32_t* woff_n,
                                int32_t* out_pay, int32_t* drops,
                                void* stream) {
   const int NR = (n + kLanes - 1) / kLanes;
-  const int RW = NR % 8 == 0 ? 8 : 1;
-  const int nseg = NR * M;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  count_kernel<<<nseg, kLanes, 0, s>>>(pdst, n, M, RW, scratch);
-  cudaError_t err = cudaGetLastError();
+  int RW = NR % 8 == 0 ? 8 : 1;
+  int Q = NR * M * kUnitsPerSeg;
+  int ctas = 0;
+  const cudaError_t err = resident_ctas(&ctas);
   if (err != cudaSuccess) return err;
-  scan_kernel<<<1, 1024, 0, s>>>(scratch, nseg, S, drops);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scatter_kernel<<<nseg, kLanes, 0, s>>>(pdst, woff_n, payload, n, M, P, RW,
-                                         S, nseg, scratch, out_dst, out_woff,
-                                         out_smrank, out_pay);
-  return cudaGetLastError();
+  const int grid = ctas < Q ? ctas : Q;
+  int32_t* wcnt = scratch;
+  int32_t* ctatot = scratch + static_cast<int64_t>(Q) * kWarps;
+  void* args[] = {&pdst, &woff_n, &payload, &n, &M, &P, &RW, &S, &Q,
+                  &wcnt, &ctatot, &out_dst, &out_woff, &out_smrank,
+                  &out_pay, &drops};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&fire_compact_kernel), grid, kT, args, 0,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
-// The insertion walk shared by K1 (mailbox_insert.cu) and K3
-// (sample_insert.cu), as the reference shares _build_kernel between its
-// "drel" and "sample" modes.
+// The insertion walk of K1 (mailbox_insert.cu), as the reference's
+// _build_kernel walks its "drel" mode. The row walk is K1's alone: K3
+// (sample_insert.cu) walks a tile at a time (tile_insert.cuh), which
+// shares only Entry and warp_sum from here.
 //
 // One thread owns node column d and walks its K mailbox rows, so each
 // plane access is a coalesced 128-byte warp transaction. Node d's new

@@ -16,9 +16,8 @@
 // plus start/cnt and the gathered batch entries. At 2^17 nodes, K = 16,
 // P = 1 that is ~37 MB, ~11 us at 3.35 TB/s.
 //
-// Design: one thread per node column walks its K rows (insert_column.cuh,
-// shared with K3), so each plane access is a coalesced 128-byte warp
-// transaction; only the batch gathers are scattered, and they touch at
+// Design: one thread per node column walks its K rows (insert_column.cuh),
+// so each plane access is a coalesced 128-byte warp transaction; only the batch gathers are scattered, and they touch at
 // most cnt[d] entries. The TPU kernel's double-buffered VMEM blocks,
 // lane-partial folds and 8-row tiling have no counterpart: the overflow is
 // a warp reduction plus one integer atomicAdd per warp, exact in any

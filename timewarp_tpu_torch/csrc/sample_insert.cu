@@ -27,27 +27,37 @@
 // clipping as fminf(fmaxf(.)), and rintf (round half to even, as
 // torch.round). No fast-math.
 //
-// What bounds it on an H100: memory traffic — each mailbox plane is read
+// What bounds it on an H100: memory traffic. Each mailbox plane is read
 // once and written once (K * (1 + P [+ 1 src]) int32 planes of N), plus
 // start/cnt, woff and smrank of every valid batch entry and the payload
 // of each entry that finds a hole (the dst column is not read: start/cnt
 // stand in for it). At 2^20 nodes, K = 16, P = 2 with 5M messages that is
-// ~490 MB, ~146 us at 3.35 TB/s; the threefry chain (~400 operations a
-// message) takes a fifth of that even at the float32 rate.
+// ~490 MB, ~146 us at 3.35 TB/s. The draws come next: three threefry
+// blocks and the lognormal a message, integer work at half the float32
+// issue rate (chip_smoke counts the instructions in this library's SASS,
+// tw_k3_draw_probe).
 //
-// Design: one thread per node column walks its K rows (coalesced plane
-// accesses; K1's walk, insert_column.cuh), draws each message of its own
-// bucket when it meets a hole, then draws the bucket's remaining messages
-// for the counters only. Each entry belongs to exactly one bucket, so
-// there are no atomics on data and no scratch. The counters are warp sums
-// plus one integer atomicAdd each per warp, exact in any order. Outputs
-// are separate buffers.
+// Design: one CTA per tile of 256 consecutive nodes (tile_insert.cuh).
+// A thread that owns one node column and draws its whole bucket serially
+// between its row loads (the TPU kernel's walk carried over) keeps few
+// loads in flight, lets a warp run as long as its largest bucket, and
+// reads the batch columns a bucket apart across the warp: 3.4x its byte
+// bound. Here the tile's entries, one contiguous range of the sorted
+// batch, are drawn by all of the CTA's threads in turn, with coalesced
+// batch loads, each entry once; the columns' rows, the kept entries'
+// payloads and the copied-through planes move between global and shared
+// memory by cp.async, so no register waits on them and a thread needs at
+// most 48 registers (five CTAs an SM); then each thread writes its
+// column's rows once. The counters are warp sums plus one integer
+// atomicAdd each per warp, exact in any order. Outputs are separate
+// buffers.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "insert_column.cuh"
+#include "tile_insert.cuh"
 
 namespace {
 
@@ -122,15 +132,14 @@ __device__ __forceinline__ uint32_t draw_delay(const Link& L, uint32_t dst,
   return d;
 }
 
-// Draw batch entry j (destination d) and count it.
-__device__ __forceinline__ tw::Entry draw(int j, uint32_t d,
-                                      const int32_t* __restrict__ woff,
-                                      const int32_t* __restrict__ smrank,
-                                      uint32_t tl, uint32_t th, const Link& L,
-                                      uint32_t s0, uint32_t s1, int M,
-                                      uint32_t W, int& bad, int& shrt) {
-  const uint32_t wo = static_cast<uint32_t>(woff[j]);
-  const int32_t sm = smrank[j];
+// Draw the batch entry sent at t + wo by smrank sm to destination d, and
+// count it.
+__device__ __forceinline__ tw::Entry draw(int32_t wo_, int32_t sm,
+                                          uint32_t d, uint32_t tl,
+                                          uint32_t th, const Link& L,
+                                          uint32_t s0, uint32_t s1, int M,
+                                          uint32_t W, int& bad, int& shrt) {
+  const uint32_t wo = static_cast<uint32_t>(wo_);
   const int32_t src = sm / M;  // smrank >= 0
   const uint32_t slot = static_cast<uint32_t>(sm - src * M);
   // send instant t + woff as two words with an explicit carry
@@ -149,34 +158,35 @@ __device__ __forceinline__ tw::Entry draw(int j, uint32_t d,
   return tw::Entry{static_cast<int32_t>(min(dsum, kDrelMax)), src};
 }
 
-__global__ void sample_insert_kernel(
+// Tuning knob (tools/torch_kernel_variants.py builds and times others):
+// CTAs that must fit on an SM at once, so at most 65536 / (256 *
+// TW_K3_MIN_BLOCKS) registers a thread.
+#ifndef TW_K3_MIN_BLOCKS
+#define TW_K3_MIN_BLOCKS 5
+#endif
+__global__ void __launch_bounds__(tw::kTile, TW_K3_MIN_BLOCKS)
+    sample_insert_kernel(
     const int32_t* __restrict__ start, const int32_t* __restrict__ cnt,
     const int32_t* __restrict__ woff, const int32_t* __restrict__ smrank,
     const int32_t* __restrict__ pay, int S, const int64_t* __restrict__ tp,
     Link L, uint32_t s0, uint32_t s1, int M, uint32_t W,
     const int32_t* __restrict__ mb_rel, const int32_t* __restrict__ mb_src,
-    const int32_t* __restrict__ mb_pay, int n, int K, int P,
+    const int32_t* __restrict__ mb_pay, int n, int K, int P, int cap,
     int32_t* __restrict__ o_rel, int32_t* __restrict__ o_src,
     int32_t* __restrict__ o_pay, int32_t* __restrict__ counters) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  int ovf = 0, bad = 0, shrt = 0;
-  if (d < n) {
-    const uint64_t t = static_cast<uint64_t>(*tp);
-    const uint32_t tl = static_cast<uint32_t>(t);
-    const uint32_t th = static_cast<uint32_t>(t >> 32);
-    const int st = start[d];
-    const int c = cnt[d];
-    const auto entry = [&](int j) {
-      return draw(j, static_cast<uint32_t>(d), woff, smrank, tl, th, L, s0,
-                  s1, M, W, bad, shrt);
-    };
-    const int holes = tw::insert_column(d, n, K, P, S, st, c, -1, entry, pay,
-                                        mb_rel, mb_src, mb_pay, o_rel, o_src,
-                                        o_pay);
-    // the messages that found no hole: drawn for the counters only
-    for (int r = holes; r < c; ++r) entry(st + r);
-    ovf = c > holes ? c - holes : 0;
-  }
+  extern __shared__ int32_t smem[];
+  const uint64_t t = static_cast<uint64_t>(*tp);
+  const uint32_t tl = static_cast<uint32_t>(t);
+  const uint32_t th = static_cast<uint32_t>(t >> 32);
+  int bad = 0, shrt = 0;
+  int ovf = tw::insert_tile(
+      n, K, P, S, cap, start, cnt,
+      [&](int j) { return make_int2(woff[j], smrank[j]); },
+      [&](int2 raw, int d) {
+        return draw(raw.x, raw.y, static_cast<uint32_t>(d), tl, th, L, s0,
+                    s1, M, W, bad, shrt);
+      },
+      pay, mb_rel, mb_src, mb_pay, o_rel, o_src, o_pay, smem);
   ovf = tw::warp_sum(ovf);
   bad = tw::warp_sum(bad);
   shrt = tw::warp_sum(shrt);
@@ -211,11 +221,41 @@ extern "C" int tw_sample_insert(
     int32_t* o_rel, int32_t* o_src, int32_t* o_pay, int32_t* counters,
     void* stream) {
   const Link L{kind, quantum, needs_key, i0, i1, i2, i3, f0, f1, f2, f3};
-  constexpr int kThreads = 256;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  sample_insert_kernel<<<blocks, kThreads, 0,
+  // The entry buffer: room for 8 kept entries a node (a tile chunks past
+  // that), within 96 KB; a tile never keeps more than kTile * K.
+  constexpr int kKeptPerNode = 8;
+  constexpr int kBufferBytes = 96 * 1024;
+  const int words = tw::tile_entry_words(P, mb_src != nullptr);
+  const int cap = std::max(1, std::min(tw::kTile * std::min(K, kKeptPerNode),
+                                       kBufferBytes / (4 * words)));
+  const size_t smem =
+      (static_cast<size_t>(tw::kTileWords) + static_cast<size_t>(cap) * words)
+      * sizeof(int32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sample_insert_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (n + tw::kTile - 1) / tw::kTile;
+  sample_insert_kernel<<<blocks, tw::kTile, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       start, cnt, woff, smrank, pay, S, tp, L, s0, s1, M, W, mb_rel, mb_src,
-      mb_pay, n, K, P, o_rel, o_src, o_pay, counters);
+      mb_pay, n, K, P, cap, o_rel, o_src, o_pay, counters);
   return cudaGetLastError();
+}
+
+// One draw of the main path's link, Quantize(LogNormal) with the message
+// key, and nothing else around it but one load pair and one store:
+// chip_smoke counts its SASS instructions for K3's operations bound.
+// Never launched.
+extern "C" __global__ void tw_k3_draw_probe(
+    const int32_t* woff, const int32_t* smrank, uint32_t quantum, float f0,
+    float f1, float f2, float f3, uint32_t tl, uint32_t th, uint32_t s0,
+    uint32_t s1, int M, uint32_t W, int32_t* out) {
+  const Link L{kLogNormal, quantum, 1, 0u, 0u, 0u, 0u, f0, f1, f2, f3};
+  int bad = 0, shrt = 0;
+  const tw::Entry e = draw(woff[threadIdx.x], smrank[threadIdx.x], 0u, tl,
+                           th, L, s0, s1, M, W, bad, shrt);
+  out[threadIdx.x] = e.drel + e.src + bad + shrt;
 }

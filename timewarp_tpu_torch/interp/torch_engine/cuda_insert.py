@@ -32,6 +32,7 @@ from ...utils import build
 __all__ = ["LAUNCHES", "reset_launches", "fire_compact",
            "fire_compact_plain", "mailbox_insert", "mailbox_insert_plain",
            "bucket_bounds", "InsertStage", "LANES", "sample_nodrop",
+           "compact_scratch_words", "fire_compact_grid",
            "LoweredLink", "sample_insert", "sample_insert_plain"]
 
 #: the compaction order's segment width (one CTA per segment on the card)
@@ -116,6 +117,17 @@ def _compact_layout(n: int):
     return NR, RW
 
 
+def compact_scratch_words(n: int, M: int) -> int:
+    """int32 words of K2's scratch, allocated fresh for each call (so no
+    two calls, engines or streams share it): one valid count per warp of
+    each 256-lane unit of the write order (8 warps, 4 units a segment of
+    LANES), then one total per CTA of the cooperative grid, which never
+    has more CTAs than units."""
+    NR, _ = _compact_layout(n)
+    units = NR * M * (LANES // 256)
+    return units * 8 + units
+
+
 def fire_compact_plain(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
                        payload: torch.Tensor, S: int):
     """Plain version of K2. ``pdst`` int32 ``[M, N]`` (-1 = no message),
@@ -165,7 +177,8 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     """K2: stream compaction of the raw outbox planes into the fired
     batch of static width ``S`` (see :func:`fire_compact_plain` for the
     function). CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/fire_compact.cu``."""
+    ``csrc/fire_compact.cu``: one cooperative launch of a grid that is
+    resident all at once, so a refused launch raises."""
     if not _on_card(pdst, "fire_compact"):
         return fire_compact_plain(pdst, woff_n, payload, S)
     M, n = pdst.shape
@@ -175,8 +188,8 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     _require("payload", payload, (M, P, n), dev)
     if woff_n is not None:
         _require("woff_n", woff_n, (n,), dev)
-    NR, _ = _compact_layout(n)
-    scratch = torch.empty(NR * M + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(compact_scratch_words(n, M), dtype=torch.int32,
+                          device=dev)
     out_dst = torch.empty(S, dtype=torch.int32, device=dev)
     out_woff = torch.empty(S, dtype=torch.int32, device=dev)
     out_smrank = torch.empty(S, dtype=torch.int32, device=dev)
@@ -192,6 +205,19 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     _check_launch("fire_compact", rc)
     LAUNCHES["fire_compact"] += 1
     return out_dst, out_woff, out_smrank, out_pay, drops
+
+
+def fire_compact_grid(device) -> int:
+    """K2's grid cap on ``device``: the CTAs of 256 threads the card
+    holds at once (queried once per device). A call's grid is the smaller
+    of this and its 256-lane units of work."""
+    fn = _kernel("fire_compact", "tw_fire_compact_grid",
+                 (ctypes.POINTER(_I),))
+    out = _I(0)
+    with torch.cuda.device(device):
+        rc = fn(ctypes.byref(out))
+    _check_launch("fire_compact", rc)
+    return out.value
 
 
 # ----------------------------------------------------------------------
@@ -426,8 +452,10 @@ def sample_insert(start, cnt, sd, woff, smrank, pay, t, mb_rel, mb_src,
                   M: int, W: int, inbox_src: bool):
     """K3: see :func:`sample_insert_plain` for the function. CPU tensors
     take the plain version; CUDA tensors launch
-    ``csrc/sample_insert.cu`` (one thread per node column samples its
-    whole bucket and fills the node's holes; outputs freshly allocated).
+    ``csrc/sample_insert.cu`` (one CTA per tile of 256 nodes draws the
+    tile's entries in turn and fills its nodes' holes; outputs freshly
+    allocated). The buckets must be contiguous in node order, as
+    :func:`bucket_bounds` gives them.
     ``sd`` is read only by the plain version: the kernel finds each
     node's entries through ``start``/``cnt``."""
     if not _on_card(mb_rel, "sample_insert"):
