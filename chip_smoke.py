@@ -12,7 +12,8 @@ first use). Phases, each of which fails the script on any mismatch:
    slice shape (2^17 nodes, max_out 8, payload 1, window 8000, batch
    2^18): a sparse outbox, one dense enough to drop, and window 1; then
    n = 1000 and 5000, 2^20 nodes, S just below the fired count, a long
-   sentinel tail, and two calls in a row;
+   sentinel tail, payload 7 (its staging above 48 KB of shared memory),
+   and two calls in a row;
 3. the mailbox-insertion kernel (K1) against its plain version: the
    slice shape (K 16, P 1, no src, commutative) on a batch that
    overfills some mailboxes, and the ordered mode with src (K 8, P 2);
@@ -22,8 +23,9 @@ first use). Phases, each of which fails the script on any mismatch:
    kernels launched once per superstep;
 5. card against CPU: an integer-link gossip wave at 2^14 nodes through
    ``run`` on both devices — equal traces and final states;
-6. each kernel's time (CUDA events, cold L2), its plain version's time
-   and its bound (bytes over 3.35 TB/s);
+6. each kernel's time (CUDA events, cold L2, its launches queued before
+   the start event fires), its plain version's time and its bound (bytes
+   over 3.35 TB/s); the timing floor, one empty launch;
 7. where the main path's time goes: wall time per superstep against the
    device's kernel time under ``torch.profiler`` (the idle share);
 
@@ -93,6 +95,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+SPIN_CYCLES = 2_000_000       # _time_ms's device-side wait, ~1 ms at 1980 MHz
 SLICE_N, SLICE_M, SLICE_P, SLICE_W, SLICE_S = 1 << 17, 8, 1, 8_000, 1 << 18
 SLICE_K = 16
 K2_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:656"
@@ -235,7 +238,8 @@ def phase_compact(device, n=SLICE_N, S=SLICE_S):
             ("n 5000 (RW 1)", 5000, SLICE_P, 0.3, 1 << 14, False, 21),
             ("n 2^20", 1 << 20, SLICE_P, 0.2, 1 << 21, False, 22),
             ("S just below fired", n, SLICE_P, 0.2, None, True, 23),
-            ("long tail, payload 0", n, 0, 0.02, S, False, 24)):
+            ("long tail, payload 0", n, 0, 0.02, S, False, 24),
+            ("payload 7, staging above 48 KB", n, 7, 0.2, S, False, 27)):
         pdst, woff, pay = compact_inputs(device, nn, SLICE_M, P, frac, seed)
         if SS is None:
             SS = int((pdst >= 0).sum()) - 1000
@@ -360,25 +364,40 @@ def phase_card_vs_cpu(device, n=1 << 14):
         "traces and states equal")
 
 
-def _time_ms(fn, reps=20):
-    """Mean ms of ``fn`` on the card: CUDA events around each call, with
-    a 1 GiB write before every call. The write flushes the 50 MB L2, and
-    its device time (~0.3 ms) outlasts the wrapper's host time, so the
-    start event fires only once the call's launches are queued: the
-    events time the device, not the host."""
+def _time_ms(fn, reps=20, queued=True):
+    """Mean ms of ``fn`` on the card: CUDA events around each call. Before
+    every call a 1 GiB write flushes the 50 MB L2, then the device waits
+    ``SPIN_CYCLES`` clocks (``torch.cuda._sleep``) before the start event,
+    so that the host has queued all of the call's launches by the time
+    the start event fires and the events time the device, not the host.
+    With ``queued`` (a kernel's wrapper, which never waits on the
+    device) that is checked: a call whose start event had already fired
+    when its end event was queued is timed again with a wait twice as
+    long, and after six such tries the timing fails. The plain versions
+    pass ``queued=False``: some read a result back to the host, so their
+    times include host time."""
     import torch
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
-    total = 0.0
+    total, spin = 0.0, SPIN_CYCLES
     for _ in range(reps):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
+        for _ in range(6):
+            flush.zero_()
+            torch.cuda._sleep(spin)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            late = queued and a.query()
+            b.synchronize()
+            if not late:
+                break
+            spin *= 2
+        else:
+            raise RuntimeError("timing: the host did not queue the call "
+                               f"within {spin // 2} device clocks")
         total += a.elapsed_time(b)
     return total / reps
 
@@ -427,7 +446,7 @@ def phase_times(device):
         + (3 + SLICE_P) * SLICE_S * 4
     k2 = dict(ms=_time_ms(lambda: ci.fire_compact(pdst, woff, pay, SLICE_S)),
               plain_ms=_time_ms(lambda: ci.fire_compact_plain(
-                  pdst, woff, pay, SLICE_S)),
+                  pdst, woff, pay, SLICE_S), queued=False),
               bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3, bytes=k2_bytes)
     t = insert_inputs(device, SLICE_N, SLICE_K, SLICE_P, SLICE_S, False,
                       False, 4)
@@ -440,12 +459,11 @@ def phase_times(device):
     k1_bytes = 2 * planes * 4 + (start.numel() + cnt.numel()) * 4 \
         + gathered * (1 + SLICE_P) * 4
     k1 = dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
-              plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args)),
+              plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args),
+                                queued=False),
               bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes)
-    units = ci.compact_scratch_words(SLICE_N, SLICE_M) // 9
-    say(f"fire_compact grid: {ci.fire_compact_grid(device)} CTAs of 256 "
-        f"threads resident at once, {units} units of 256 lanes at the slice "
-        "shape")
+    say(f"timing floor: one empty launch between the events, ms="
+        f"{_time_ms(lambda: torch.cuda._sleep(0))}")
     for name, r in (("fire_compact", k2), ("mailbox_insert", k1)):
         say(f"time {name}: kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
             f"bound_ms={r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s; "
@@ -766,7 +784,7 @@ def phase_time_k3(device, t):
     ops_ms = valid * clocks / (sms * mhz * 1e6) * 1e3
     r = dict(ms=_time_ms(lambda: k3_call(ci.sample_insert, t, tt, link)),
              plain_ms=_time_ms(lambda: k3_call(ci.sample_insert_plain, t, tt,
-                                               link)),
+                                               link), queued=False),
              bound_ms=max(bytes_ms, ops_ms),
              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
              bytes=k3_bytes)
@@ -969,7 +987,8 @@ def phase_time_k4(device, planes):
     r = dict(ms=_time_ms(lambda: cr.fused_ring(planes, t, True, 0, 500,
                                                out=out, acc=acc)),
              plain_ms=_time_ms(lambda: cr.fused_ring_plain(planes, t, True,
-                                                           0, 500)),
+                                                           0, 500),
+                               queued=False),
              bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bytes=k4_bytes)
     say(f"time fused_ring: n={n} kernel_ms={r['ms']} plain_ms="
         f"{r['plain_ms']} bound_ms={r['bound_ms']} (bytes {k4_bytes} over "

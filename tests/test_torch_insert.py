@@ -171,7 +171,9 @@ def cuda_device():
     (1000, 8, 3, 0.3, 4096, False),         # under one segment, P 3
     (1 << 20, 8, 1, 0.2, 1 << 21, False),   # more units than one batch
     (1 << 17, 8, 0, 0.02, 1 << 18, False),  # a long sentinel tail, P 0
-], ids=["32768-False", "5000-True", "n1000-P3", "n2^20", "long-tail-P0"])
+    (1 << 14, 8, 7, 0.3, 1 << 16, False),   # staging above 48 KB, P 7
+], ids=["32768-False", "5000-True", "n1000-P3", "n2^20", "long-tail-P0",
+        "P7-shared-above-48KB"])
 def test_fire_compact_kernel_equals_plain(cuda_device, n, M, P, frac, S,
                                           window1):
     rng = np.random.default_rng(n)
@@ -198,6 +200,17 @@ def test_fire_compact_kernel_two_calls(cuda_device):
     for got, x in ((first, a), (second, b)):
         for g, w in zip(got, ci.fire_compact_plain(*x, 1 << 17)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_fire_compact_kernel_refuses_too_wide_payload(cuda_device):
+    """K2 stages every payload word in shared memory: a payload wider
+    than a CTA's shared memory holds is refused at launch, loudly."""
+    rng = np.random.default_rng(10)
+    pdst, woff, pay = (torch.from_numpy(a).to(cuda_device)
+                       for a in _outbox(rng, 4096, 2, 40, 0.3, 8_000))
+    with pytest.raises(RuntimeError, match="fire_compact kernel launch"):
+        ci.fire_compact(pdst, woff, pay, 1 << 13)
 
 
 def test_compact_scratch_words():

@@ -22,20 +22,29 @@
 // Design: the TPU kernel walked the blocks in order on one core, carrying
 // the running write base. Here one cooperative launch of a persistent
 // grid, as many 256-thread CTAs as the card holds at once (the occupancy
-// query runs once per device), does the count, the scan and the scatter,
-// with one grid.sync() between them. The write order is cut into units
+// query runs once per device and payload width), does the count, the
+// scan and the scatter, with one grid.sync() between them. The sync is
+// this design's own cost: no CTA writes before every CTA has read. The write order is cut into units
 // of 256 lanes (a quarter segment), and each CTA takes a contiguous range
 // of units in that order:
 //   1. it loads its units' dst lanes into registers, eight units at a
-//      time, and stages their woff and first payload words in shared
-//      memory by cp.async, not waited for until step 3; it writes each
-//      warp's valid count per unit to scratch, and its own total;
+//      time, and stages their woff and payload words in shared memory by
+//      cp.async, not waited for until step 3; it writes each warp's
+//      valid count per unit to scratch, and its own total;
 //   2. grid.sync(); each CTA loads every CTA total at once and sums those
 //      before it (its write base) and all (the fired count);
 //   3. it writes its lanes at base + the unit's warp prefix + the ballot
 //      prefix inside the warp, unit after unit (units past the first
 //      eight are loaded again, from L2), and its share of the sentinel
 //      tail; the last CTA writes drops.
+// Reading the payload words in step 3 instead, straight from global
+// memory, put a memory latency after the grid sync: 2.6 us more at the
+// slice shape. The loops over the P payload words run outside the
+// unrolled loops over a batch's units (a loop inside each unit measured
+// 0.9 us slower). The staging takes 8 KB of shared memory a CTA per
+// staged word (woff and P payload words), so an H100 (227 KB a CTA)
+// takes P up to 27; a wider payload's launch is refused, and the wrapper
+// raises.
 // Every load of a step is issued before the first that waits on it, and
 // no unit index is divided per unit (UnitPos steps through them). Nothing
 // is atomic, so the result is deterministic. The scratch is the caller's,
@@ -57,17 +66,9 @@ constexpr int kLanes = 1024;              // the reference's segment width
 constexpr int kT = 256;                   // threads a CTA = lanes a unit
 constexpr int kUnitsPerSeg = kLanes / kT;
 constexpr int kWarps = kT / 32;
-// Tuning knobs (tools/torch_kernel_variants.py builds and times others):
-// units a thread loads together, and CTAs that must fit on an SM at once
-// (so at most 65536 / (256 * TW_K2_MIN_BLOCKS) registers a thread).
-#ifndef TW_K2_BATCH
-#define TW_K2_BATCH 8
-#endif
-#ifndef TW_K2_MIN_BLOCKS
-#define TW_K2_MIN_BLOCKS 4
-#endif
-constexpr int kBatch = TW_K2_BATCH;       // units loaded together
-constexpr int kPayEarly = 1;              // payload words a lane stages early
+constexpr int kBatch = 8;                 // units a thread loads together
+// CTAs that must fit on an SM at once: at most 64 registers a thread
+constexpr int kMinBlocks = 4;
 constexpr int kTotals = 8;                // CTA totals a thread loads at once
 constexpr int kMaxDevices = 64;
 
@@ -113,7 +114,7 @@ __device__ __forceinline__ int warp_total(int v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kT, TW_K2_MIN_BLOCKS) fire_compact_kernel(
+__global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
     const int32_t* __restrict__ pdst, const int32_t* __restrict__ woff_n,
     const int32_t* __restrict__ payload, int n, int M, int P, int RW, int S,
     int Q, int32_t* __restrict__ wcnt, int32_t* __restrict__ ctatot,
@@ -121,35 +122,39 @@ __global__ void __launch_bounds__(kT, TW_K2_MIN_BLOCKS) fire_compact_kernel(
     int32_t* __restrict__ out_smrank, int32_t* __restrict__ out_pay,
     int32_t* __restrict__ drops) {
   __shared__ int32_t red[kWarps], red2[kWarps];
-  __shared__ int32_t s_w[kBatch][kT];                // woff
-  __shared__ int32_t s_p[kPayEarly][kBatch][kT];     // payload words
+  // staged words [1 + P][kBatch][kT]: woff, then the payload words
+  extern __shared__ int32_t s_w[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, b = blockIdx.x;
   const int u0 = static_cast<int>(static_cast<int64_t>(Q) * b / G);
   const int nu = static_cast<int>(static_cast<int64_t>(Q) * (b + 1) / G) - u0;
 
   // A lane's dst in units i0 .. i0 + kBatch - 1 (-1 past the units or
-  // past n), from position `at`; with `all`, its woff and first payload
-  // words go to shared memory by asynchronous copy, not waited for here.
-  // They do not wait for the dst: at the densities that matter each
-  // 32-byte sector of them holds some message, so reading it whole costs
-  // no extra sectors.
+  // past n), from position `at`; with `all`, its woff and payload words
+  // go to shared memory by asynchronous copy, not waited for here. They
+  // do not wait for the dst: at the densities that matter each 32-byte
+  // sector of them holds some message, so reading it whole costs no
+  // extra sectors.
   const auto stage = [&](int i0, UnitPos at, int* dv, bool all) {
+    const int32_t* src[kBatch];  // a lane's payload word 0, or null
 #pragma unroll
     for (int i = 0; i < kBatch; ++i, at.next(M, RW)) {
       dv[i] = -1;
+      src[i] = nullptr;
       const int node = at.node(RW);
       if (i0 + i >= nu || node >= n) continue;
       dv[i] = pdst[static_cast<int64_t>(at.slot) * n + node];
       if (!all) continue;
-      if (woff_n != nullptr) copy_async(&s_w[i][tid], woff_n + node);
-#pragma unroll
-      for (int p = 0; p < kPayEarly; ++p)
-        if (p < P)
-          copy_async(&s_p[p][i][tid],
-                     payload + (static_cast<int64_t>(at.slot) * P + p) * n +
-                         node);
+      if (woff_n != nullptr) copy_async(&s_w[i * kT + tid], woff_n + node);
+      src[i] = payload + static_cast<int64_t>(at.slot) * P * n + node;
     }
+    if (!all) return;
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (src[i] != nullptr)
+          copy_async(&s_w[((1 + p) * kBatch + i) * kT + tid],
+                     src[i] + static_cast<int64_t>(p) * n);
   };
   // each warp's valid count in units i0 .. i0 + kBatch - 1, and its sum
   int mine = 0;
@@ -232,6 +237,7 @@ __global__ void __launch_bounds__(kT, TW_K2_MIN_BLOCKS) fire_compact_kernel(
                   ? wcnt[static_cast<int64_t>(u0 + i0 + i) * kWarps + lane]
                   : 0;
     copy_wait();
+    int at_pos[kBatch];  // where a lane's message goes, or -1
 #pragma unroll
     for (int i = 0; i < kBatch; ++i, at.next(M, RW)) {
       int x = wc[i];  // inclusive scan over the unit's warp counts
@@ -247,21 +253,22 @@ __global__ void __launch_bounds__(kT, TW_K2_MIN_BLOCKS) fire_compact_kernel(
       const unsigned ballot = __ballot_sync(0xffffffffu, d >= 0);
       const int pos = base + (warp > 0 ? warp_base : 0) +
                       __popc(ballot & below);
+      at_pos[i] = -1;
       if (d >= 0 && pos < S) {
         const int node = at.node(RW), slot = at.slot;
         out_dst[pos] = d;
-        out_woff[pos] = woff_n != nullptr ? s_w[i][tid] : 0;
+        out_woff[pos] = woff_n != nullptr ? s_w[i * kT + tid] : 0;
         out_smrank[pos] = node * M + slot;
-#pragma unroll
-        for (int p = 0; p < kPayEarly; ++p)
-          if (p < P)
-            out_pay[static_cast<int64_t>(p) * S + pos] = s_p[p][i][tid];
-        for (int p = kPayEarly; p < P; ++p)
-          out_pay[static_cast<int64_t>(p) * S + pos] =
-              payload[(static_cast<int64_t>(slot) * P + p) * n + node];
+        at_pos[i] = pos;
       }
       base += unit_total;
     }
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (at_pos[i] >= 0)
+          out_pay[static_cast<int64_t>(p) * S + at_pos[i]] =
+              s_w[((1 + p) * kBatch + i) * kT + tid];
   };
   scatter(0, kd);
   for (int i0 = kBatch; i0 < nu; i0 += kBatch) {
@@ -282,25 +289,31 @@ __global__ void __launch_bounds__(kT, TW_K2_MIN_BLOCKS) fire_compact_kernel(
   if (b == G - 1 && tid == 0) *drops = all > S ? all - S : 0;
 }
 
-// The most CTAs of fire_compact_kernel the device holds at once: queried
-// once per device.
-cudaError_t resident_ctas(int* out) {
-  static int cache[kMaxDevices] = {0};
+// Dynamic shared memory of a CTA: the staged words.
+int staged_bytes(int P) { return (1 + P) * kBatch * kT * 4; }
+
+// The most CTAs of fire_compact_kernel the device holds at once with P
+// payload words staged: queried once per device and P (the cache holds
+// every P whose staging fits a CTA).
+cudaError_t resident_ctas(int P, int* out) {
+  constexpr int kCachedP = 32;
+  static int cache[kMaxDevices][kCachedP] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && cache[dev] > 0) {
-    *out = cache[dev];
+  const bool cached = dev < kMaxDevices && P < kCachedP;
+  if (cached && cache[dev][P] > 0) {
+    *out = cache[dev][P];
     return cudaSuccess;
   }
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fire_compact_kernel, kT, 0);
+      &per_sm, fire_compact_kernel, kT, staged_bytes(P));
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (per_sm * sms < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if (dev < kMaxDevices) cache[dev] = per_sm * sms;
+  if (cached) cache[dev][P] = per_sm * sms;
   *out = per_sm * sms;
   return cudaSuccess;
 }
@@ -310,9 +323,6 @@ cudaError_t resident_ctas(int* out) {
 extern "C" const char* tw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-// The cooperative grid's size cap on this device (CTAs resident at once).
-extern "C" int tw_fire_compact_grid(int* ctas) { return resident_ctas(ctas); }
 
 // pdst int32[M, n], woff_n int32[n] or null (window 1), payload
 // int32[M, P, n]; scratch int32[units * 9] with units = ceil(n / 1024) *
@@ -328,8 +338,16 @@ extern "C" int tw_fire_compact(const int32_t* pdst, const int32_t* woff_n,
   const int NR = (n + kLanes - 1) / kLanes;
   int RW = NR % 8 == 0 ? 8 : 1;
   int Q = NR * M * kUnitsPerSeg;
+  const int smem = staged_bytes(P);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {  // above the default cap: opt in, or fail here
+    err = cudaFuncSetAttribute(fire_compact_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+  }
   int ctas = 0;
-  const cudaError_t err = resident_ctas(&ctas);
+  err = resident_ctas(P, &ctas);
   if (err != cudaSuccess) return err;
   const int grid = ctas < Q ? ctas : Q;
   int32_t* wcnt = scratch;
@@ -338,6 +356,7 @@ extern "C" int tw_fire_compact(const int32_t* pdst, const int32_t* woff_n,
                   &wcnt, &ctatot, &out_dst, &out_woff, &out_smrank,
                   &out_pay, &drops};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&fire_compact_kernel), grid, kT, args, 0,
+      reinterpret_cast<const void*>(&fire_compact_kernel), grid, kT, args,
+      smem,
       static_cast<cudaStream_t>(stream));
 }

@@ -158,13 +158,10 @@ __device__ __forceinline__ tw::Entry draw(int32_t wo_, int32_t sm,
   return tw::Entry{static_cast<int32_t>(min(dsum, kDrelMax)), src};
 }
 
-// Tuning knob (tools/torch_kernel_variants.py builds and times others):
-// CTAs that must fit on an SM at once, so at most 65536 / (256 *
-// TW_K3_MIN_BLOCKS) registers a thread.
-#ifndef TW_K3_MIN_BLOCKS
-#define TW_K3_MIN_BLOCKS 5
-#endif
-__global__ void __launch_bounds__(tw::kTile, TW_K3_MIN_BLOCKS)
+// CTAs that must fit on an SM at once: at most 48 registers a thread
+constexpr int kMinBlocks = 5;
+
+__global__ void __launch_bounds__(tw::kTile, kMinBlocks)
     sample_insert_kernel(
     const int32_t* __restrict__ start, const int32_t* __restrict__ cnt,
     const int32_t* __restrict__ woff, const int32_t* __restrict__ smrank,

@@ -47,14 +47,9 @@
 
 namespace tw {
 
-// Tuning knob (tools/torch_kernel_variants.py builds and times others):
-// the entries a thread loads before it draws them.
-#ifndef TW_K3_BATCH
-#define TW_K3_BATCH 2
-#endif
 constexpr int kTile = 256;  // nodes of a tile = threads of its CTA
 constexpr int kRows = 16;   // rows of a column staged in shared memory
-constexpr int kBatch = TW_K3_BATCH;
+constexpr int kBatch = 2;   // entries a thread loads before it draws them
 static_assert(kRows <= 32, "the hole mask is one 32-bit word");
 // shared words besides the entry buffer: the staged rows, starts,
 // offsets (+1), the range's end, the scan's warp sums

@@ -32,7 +32,7 @@ from ...utils import build
 __all__ = ["LAUNCHES", "reset_launches", "fire_compact",
            "fire_compact_plain", "mailbox_insert", "mailbox_insert_plain",
            "bucket_bounds", "InsertStage", "LANES", "sample_nodrop",
-           "compact_scratch_words", "fire_compact_grid",
+           "compact_scratch_words",
            "LoweredLink", "sample_insert", "sample_insert_plain"]
 
 #: the compaction order's segment width (one CTA per segment on the card)
@@ -178,7 +178,9 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     batch of static width ``S`` (see :func:`fire_compact_plain` for the
     function). CPU tensors take the plain version; CUDA tensors launch
     ``csrc/fire_compact.cu``: one cooperative launch of a grid that is
-    resident all at once, so a refused launch raises."""
+    resident all at once, with every payload word staged in shared
+    memory (8 KB a CTA per word), so a refused launch — a payload too
+    wide for a CTA's shared memory among them — raises."""
     if not _on_card(pdst, "fire_compact"):
         return fire_compact_plain(pdst, woff_n, payload, S)
     M, n = pdst.shape
@@ -205,19 +207,6 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     _check_launch("fire_compact", rc)
     LAUNCHES["fire_compact"] += 1
     return out_dst, out_woff, out_smrank, out_pay, drops
-
-
-def fire_compact_grid(device) -> int:
-    """K2's grid cap on ``device``: the CTAs of 256 threads the card
-    holds at once (queried once per device). A call's grid is the smaller
-    of this and its 256-lane units of work."""
-    fn = _kernel("fire_compact", "tw_fire_compact_grid",
-                 (ctypes.POINTER(_I),))
-    out = _I(0)
-    with torch.cuda.device(device):
-        rc = fn(ctypes.byref(out))
-    _check_launch("fire_compact", rc)
-    return out.value
 
 
 # ----------------------------------------------------------------------
