@@ -7,7 +7,7 @@ Needs one CUDA device and ``nvcc`` (the kernels build from ``csrc/`` at
 first use). Phases, each of which fails the script on any mismatch:
 
 1. the card's name and power limit; the kernel build (nvcc seconds,
-   library paths, ptxas register counts);
+   library paths, ptxas registers and spills of every kernel);
 2. the fire-compaction kernel (K2) against its plain version at the
    slice shape (2^17 nodes, max_out 8, payload 1, window 8000, batch
    2^18): a sparse outbox, one dense enough to drop, and window 1; then
@@ -17,6 +17,10 @@ first use). Phases, each of which fails the script on any mismatch:
 3. the mailbox-insertion kernel (K1) against its plain version: the
    slice shape (K 16, P 1, no src, commutative) on a batch that
    overfills some mailboxes, and the ordered mode with src (K 8, P 2);
+   then the edges of its tiles in both modes: 2^17 + 3 nodes, a tile
+   that chunks with a node of 8192 entries after one with none, an empty
+   batch, K 1, 40 and 130, P 0, 3 and 7, with and without the inbox src
+   plane, and ordered with every ``counts`` at 0 and at K;
 4. the main path: the gossip wave at 2^17 nodes (``bench.py``
    ``gossip_100k_insert``'s configuration) to quiescence through
    ``TorchEngine.run_quiet``, with the wave-done invariants and both
@@ -25,7 +29,9 @@ first use). Phases, each of which fails the script on any mismatch:
    ``run`` on both devices — equal traces and final states;
 6. each kernel's time (CUDA events, cold L2, its launches queued before
    the start event fires), its plain version's time and its bound (bytes
-   over 3.35 TB/s); the timing floor, one empty launch;
+   over 3.35 TB/s), K1 also in the ordered mode with src, after a read
+   in place of the flush's write (L2 clean), and beside one device copy
+   of its planes' words; the timing floor, one empty launch;
 7. where the main path's time goes: wall time per superstep against the
    device's kernel time under ``torch.profiler`` (the idle share);
 
@@ -107,7 +113,8 @@ PRAOS_N, PRAOS_P, PRAOS_S = 1 << 20, 2, (1 << 20) * SLICE_M
 RING_N = 1 << 20
 K4_REPLACES = "timewarp_tpu/interp/jax_engine/fused_ring.py:468"
 # the port's kernels as the profiler names them
-PORT_KERNELS = ("fire_compact_kernel", "insert_kernel", "fused_ring_kernel")
+PORT_KERNELS = ("fire_compact_kernel", "mailbox_insert_kernel",
+                "sample_insert_kernel", "fused_ring_kernel")
 # Instructions per clock of one SM of compute capability 9.0, by pipe (the
 # CUDA C++ Programming Guide's arithmetic-instruction throughput table):
 # 32-bit integer add, multiply-add, shift, compare and logic 64; float32
@@ -161,30 +168,41 @@ def compact_inputs(device, n, M, P, frac, seed):
     return tuple(torch.from_numpy(a).to(device) for a in (pdst, woff, pay))
 
 
-def insert_inputs(device, n, K, P, S, ordered, with_src, seed):
-    """A mailbox half full and a destination-sorted batch whose hot
-    destinations overfill their mailboxes."""
+def insert_inputs(device, n, K, P, S, ordered, with_src, seed, frac=0.7,
+                  hot=True, extra=(), counts=None):
+    """A mailbox half full (ordered: each node's first ``counts[d]`` rows
+    kept, drawn at random unless ``counts`` gives one for every node) and
+    a destination-sorted batch of width ``S``, a ``frac`` share valid,
+    whose 64 hot destinations overfill their mailboxes (unless not
+    ``hot``); ``extra`` adds ``(node, count)`` messages after removing
+    that node's own (a count of 0 leaves the node none). Made with numpy
+    from ``seed``."""
     import torch
     rng = np.random.default_rng(seed)
     I32MAX = 2**31 - 1
     if ordered:
-        counts = rng.integers(0, K + 1, n).astype(np.int32)
-        mb_rel = np.where(np.arange(K)[:, None] < counts[None, :],
+        kept = rng.integers(0, K + 1, n).astype(np.int32)
+        if counts is not None:
+            kept[:] = counts
+        mb_rel = np.where(np.arange(K)[:, None] < kept[None, :],
                           rng.integers(0, 1 << 20, (K, n)),
                           I32MAX).astype(np.int32)
     else:
-        counts = None
+        kept = None
         mb_rel = np.where(rng.random((K, n)) < 0.5,
                           rng.integers(0, 1 << 20, (K, n)),
                           I32MAX).astype(np.int32)
-    n_msgs = int(S * 0.7)
-    hot = rng.integers(0, n, 64)
-    dst = np.concatenate([rng.integers(0, n, n_msgs - 64 * 24),
-                          np.repeat(hot, 24)])
+    n_msgs = int(S * frac)
+    hot_nodes = rng.integers(0, n, 64) if hot else None
+    dst = rng.integers(0, n, n_msgs - 64 * 24 if hot else n_msgs)
+    if hot:
+        dst = np.concatenate([dst, np.repeat(hot_nodes, 24)])
+    for node, count in extra:
+        dst = np.concatenate([dst[dst != node], np.full(count, node)])
     sd = np.full(S, n, np.int32)
-    sd[:n_msgs] = np.sort(dst)
+    sd[:dst.size] = np.sort(dst)
     arrs = dict(
-        sd=sd, counts=counts, mb_rel=mb_rel,
+        sd=sd, counts=kept, mb_rel=mb_rel,
         drel=rng.integers(0, 1 << 20, S).astype(np.int32),
         src=rng.integers(0, n, S).astype(np.int32) if with_src else None,
         pay=rng.integers(-2**31, 2**31 - 1, (P, S)).astype(np.int32),
@@ -253,21 +271,77 @@ def phase_compact(device, n=SLICE_N, S=SLICE_S):
     return err
 
 
-def phase_insert(device, n=SLICE_N, S=SLICE_S):
+def k1_cases(n=SLICE_N, S=SLICE_S, ns=1 << 16):
+    """K1's cases for phase 3: ``(tag, modes, insert_inputs keywords)``,
+    the slice shape first, then the edges of the tile walk (tiles of 256
+    nodes, 16 rows of a column staged in shared memory, an entry buffer of
+    8 entries a node before a tile chunks); ``ns`` nodes where K or P is
+    large."""
+    both = ("commutative", "ordered")
+    return [
+        ("slice shape K 16, P 1", ("commutative",),
+         dict(n=n, K=SLICE_K, P=SLICE_P, S=S, with_src=False, seed=4)),
+        ("K 8, P 2, src", ("ordered",),
+         dict(n=n, K=8, P=2, S=S, with_src=True, seed=5)),
+        ("n + 3 nodes, not a multiple of the tile", both,
+         dict(n=n + 3, K=SLICE_K, P=SLICE_P, S=S, with_src=False, seed=40)),
+        ("K 40, node 257 gets 8192 entries after node 256 none (tiles "
+         "chunk)", both,
+         dict(n=ns, K=40, P=1, S=32 * ns, with_src=True, seed=41, frac=0.9,
+              extra=((256, 0), (257, 8192)))),
+        ("empty batch", both,
+         dict(n=n, K=SLICE_K, P=SLICE_P, S=n, with_src=False, seed=42,
+              frac=0.0, hot=False)),
+        ("K 1, P 3, src", both,
+         dict(n=ns, K=1, P=3, S=4 * ns, with_src=True, seed=43)),
+        ("K 40, P 0 (rows past the staged 16; tiles chunk)", both,
+         dict(n=ns, K=40, P=0, S=32 * ns, with_src=False, seed=44,
+              frac=0.9)),
+        ("K 130, P 3, src, node 300 gets 200 entries (tiles chunk)", both,
+         dict(n=ns, K=130, P=3, S=32 * ns, with_src=True, seed=45,
+              frac=0.9, extra=((300, 200),))),
+        ("K 16, P 7, src (an entry buffer above 48 KB)", both,
+         dict(n=ns, K=SLICE_K, P=7, S=8 * ns, with_src=True, seed=46)),
+        ("every counts 0, K 16, P 1, src", ("ordered",),
+         dict(n=n, K=SLICE_K, P=SLICE_P, S=S, with_src=True, seed=47,
+              counts=0)),
+        ("every counts K, K 16, P 1, src", ("ordered",),
+         dict(n=n, K=SLICE_K, P=SLICE_P, S=S, with_src=True, seed=48,
+              counts=SLICE_K)),
+        ("every counts 0, K 40, P 1", ("ordered",),
+         dict(n=ns, K=40, P=1, S=32 * ns, with_src=False, seed=49,
+              frac=0.9, counts=0)),
+        ("every counts K, K 130, P 1", ("ordered",),
+         dict(n=ns, K=130, P=1, S=8 * ns, with_src=False, seed=50,
+              counts=130)),
+    ]
+
+
+def phase_insert(device, **sizes):
+    """K1 against its plain version, bit for bit, in every case of
+    :func:`k1_cases` (``sizes`` passed to it)."""
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
     err = 0
-    for tag, K, P, ordered, src, seed in (
-            ("commutative K16 P1", SLICE_K, SLICE_P, False, False, 4),
-            ("ordered K8 P2 src", 8, 2, True, True, 5)):
-        t = insert_inputs(device, n, K, P, S, ordered, src, seed)
-        args = insert_args(t, n)
-        got = ci.mailbox_insert(*args)
-        want = ci.mailbox_insert_plain(*args)
-        err = max(err, _equal(f"K1 {tag}", got, want))
-        ovf = int(got[3])
-        if ovf <= 0:
-            raise AssertionError(f"K1 {tag}: the batch did not overflow")
-        say(f"K1 {tag}: overflow={ovf} bit-equal")
+    for tag, modes, kw in k1_cases(**sizes):
+        for mode in modes:
+            t = insert_inputs(device, ordered=mode == "ordered", **kw)
+            n = kw["n"]
+            args = insert_args(t, n)
+            got = ci.mailbox_insert(*args)
+            want = ci.mailbox_insert_plain(*args)
+            err = max(err, _equal(f"K1 {mode} {tag}", got, want))
+            valid = int(args[1].sum())
+            ovf = int(got[3])
+            say(f"K1 {mode} {tag}: n={n} K={kw['K']} P={kw['P']} "
+                f"src={kw['with_src']} valid={valid} overflow={ovf} "
+                "bit-equal")
+            _require_all(f"K1 {mode} {tag}", {
+                "valid == 0 iff the batch is empty":
+                    (valid == 0) == tag.startswith("empty"),
+                "overflow > 0 unless the batch is empty":
+                    (ovf > 0) != tag.startswith("empty"),
+                "every message overflows when every counts is K":
+                    ovf == valid or "counts K," not in tag})
     return err
 
 
@@ -364,9 +438,11 @@ def phase_card_vs_cpu(device, n=1 << 14):
         "traces and states equal")
 
 
-def _time_ms(fn, reps=20, queued=True):
+def _time_ms(fn, reps=20, queued=True, clean=False):
     """Mean ms of ``fn`` on the card: CUDA events around each call. Before
-    every call a 1 GiB write flushes the 50 MB L2, then the device waits
+    every call a 1 GiB write flushes the 50 MB L2 (with ``clean`` a 1 GiB
+    read, which leaves L2 no dirty lines for the call to write back to
+    device memory), then the device waits
     ``SPIN_CYCLES`` clocks (``torch.cuda._sleep``) before the start event,
     so that the host has queued all of the call's launches by the time
     the start event fires and the events time the device, not the host.
@@ -383,7 +459,10 @@ def _time_ms(fn, reps=20, queued=True):
     total, spin = 0.0, SPIN_CYCLES
     for _ in range(reps):
         for _ in range(6):
-            flush.zero_()
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
             torch.cuda._sleep(spin)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -436,6 +515,40 @@ def phase_where_time_goes(tag, eng, warm, steps):
                 f"{e.key[:90]}")
 
 
+def time_k1(device, ordered, with_src, seed=4):
+    """K1's time at the slice shape (K 16, P 1), its plain version's time
+    and its bound: the planes read and written once, start/cnt (and
+    counts), and the deliver time, sender and payload of each entry that
+    finds a row (the others are not read)."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    t = insert_inputs(device, SLICE_N, SLICE_K, SLICE_P, SLICE_S, ordered,
+                      with_src, seed)
+    args = insert_args(t, SLICE_N)
+    start, cnt = args[0], args[1]
+    if ordered:
+        room = SLICE_K - t["counts"]
+    else:
+        room = (t["mb_rel"] == 2**31 - 1).sum(dim=0, dtype=torch.int32)
+    gathered = int(torch.minimum(cnt, room).sum())
+    planes = t["mb_rel"].numel() + t["mb_payload"].numel() \
+        + (t["mb_src"].numel() if with_src else 0)
+    k1_bytes = 2 * planes * 4 + (2 + ordered) * SLICE_N * 4 \
+        + gathered * (1 + with_src + SLICE_P) * 4
+    # a yardstick, not the function: one device copy of the planes' words
+    # into a fresh buffer, under the same timer
+    words = torch.empty(planes, dtype=torch.int32, device=device)
+    return dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
+                clean_ms=_time_ms(lambda: ci.mailbox_insert(*args),
+                                  clean=True),
+                copy_ms=_time_ms(lambda: torch.empty_like(words).copy_(words)),
+                copy_clean_ms=_time_ms(
+                    lambda: torch.empty_like(words).copy_(words), clean=True),
+                plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args),
+                                  queued=False),
+                bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes)
+
+
 def phase_times(device):
     import torch
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
@@ -448,24 +561,17 @@ def phase_times(device):
               plain_ms=_time_ms(lambda: ci.fire_compact_plain(
                   pdst, woff, pay, SLICE_S), queued=False),
               bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3, bytes=k2_bytes)
-    t = insert_inputs(device, SLICE_N, SLICE_K, SLICE_P, SLICE_S, False,
-                      False, 4)
-    args = insert_args(t, SLICE_N)
-    start, cnt = args[0], args[1]
-    # only the entries that find a hole are gathered
-    holes = (t["mb_rel"] == 2**31 - 1).sum(dim=0, dtype=torch.int32)
-    gathered = int(torch.minimum(cnt, holes).sum())
-    planes = t["mb_rel"].numel() + t["mb_payload"].numel()
-    k1_bytes = 2 * planes * 4 + (start.numel() + cnt.numel()) * 4 \
-        + gathered * (1 + SLICE_P) * 4
-    k1 = dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
-              plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args),
-                                queued=False),
-              bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes)
+    k1, k1_ordered = (time_k1(device, ordered, ordered)
+                      for ordered in (False, True))
     say(f"timing floor: one empty launch between the events, ms="
         f"{_time_ms(lambda: torch.cuda._sleep(0))}")
-    for name, r in (("fire_compact", k2), ("mailbox_insert", k1)):
-        say(f"time {name}: kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
+    for name, r in (("fire_compact", k2), ("mailbox_insert", k1),
+                    ("mailbox_insert ordered, src", k1_ordered)):
+        clean = (f" clean_l2_ms={r['clean_ms']} planes_copy_ms="
+                 f"{r['copy_ms']} planes_copy_clean_l2_ms="
+                 f"{r['copy_clean_ms']}") if "clean_ms" in r else ""
+        say(f"time {name}: kernel_ms={r['ms']}{clean} "
+            f"plain_ms={r['plain_ms']} "
             f"bound_ms={r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s; "
             "no single PyTorch call computes this function: library_ms "
             "null)")
@@ -1015,7 +1121,7 @@ def main() -> int:
     say(f"build: {time.perf_counter() - t0:.3f} s wall")
     for name, rec in records.items():
         regs = [ln.strip() for ln in rec.ptxas.splitlines()
-                if "registers" in ln]
+                if "registers" in ln or "spill" in ln]
         say(f"build {name}: nvcc_s={rec.seconds:.3f} lib={rec.path} "
             f"ptxas={regs}")
 

@@ -9,11 +9,14 @@ Pallas interpreter, built through ``PallasInsertStage`` with
   8192-node outbox where blocks hold 8 rows;
 - mailbox insertion (K1): the plain version equals ``stage.insert`` in
   the commutative (hole-ranked) and ordered (counts plane, with src)
-  modes, on batches that overflow.
+  modes, on batches that overflow: mailboxes nine tenths full under hot
+  nodes, K 40, and ordered inboxes whose kept rows are all 0, all K, or
+  0 or K at random.
 
 Tolerance: exact — every output column and counter, bit for bit. The
 CUDA kernels themselves run only on the card: the ``cuda``-marked tests
-below hold them against the plain versions there and skip elsewhere.
+below hold them against the plain versions there (K1 on the edges of its
+tile walk, in both modes) and skip elsewhere.
 """
 
 import numpy as np
@@ -94,27 +97,53 @@ def _batch(rng, n, K, P, S, src, hot_fill):
         pay=rng.integers(-2**31, I32MAX, (P, S)).astype(np.int32))
 
 
-@pytest.mark.parametrize("ordered", [False, True],
-                         ids=["commutative", "ordered-src"])
-def test_mailbox_insert_plain_equals_pallas(ordered):
+# (ordered, K, P, src, kept rows of an ordered inbox, share of a
+# commutative mailbox's rows live, messages to each of 16 hot nodes, seed)
+_INSERT_CASES = {
+    "commutative": (False, 16, 1, False, None, 0.5, 22, 21),
+    "ordered-src": (True, 8, 2, True, "random", None, 14, 22),
+    # a mailbox nine tenths full: the hot nodes get 3K messages, far past
+    # their few holes
+    "commutative-hot-past-holes": (False, 16, 1, True, None, 0.9, 48, 23),
+    "commutative-K40": (False, 40, 1, False, None, 0.5, 46, 24),
+    "ordered-counts-0-or-K": (True, 8, 2, True, "0-or-K", None, 14, 25),
+    "ordered-counts-all-0": (True, 16, 1, False, "0", None, 22, 26),
+    "ordered-counts-all-K": (True, 8, 1, True, "K", None, 14, 27),
+    "ordered-K40-counts-0-to-K": (True, 40, 1, False, "random", None, 46,
+                                  28),
+}
+
+
+def _kept_rows(rng, kind, K, n):
+    """An ordered inbox's kept rows per node: uniform in [0, K], 0 or K
+    each at random, or all 0 or all K."""
+    if kind == "random":
+        return rng.integers(0, K + 1, n).astype(np.int32)
+    if kind == "0-or-K":
+        return rng.choice(np.array([0, K], np.int32), n)
+    return np.full(n, 0 if kind == "0" else K, np.int32)
+
+
+@pytest.mark.parametrize("case", list(_INSERT_CASES))
+def test_mailbox_insert_plain_equals_pallas(case):
+    ordered, K, P, src, kept, live_share, hot_fill, seed = _INSERT_CASES[case]
     n, M = 1024, 4
-    K, P, src = (8, 2, True) if ordered else (16, 1, False)
     jsc, tsc = _scenarios(n, K, M, P, ordered, src)
     jstage = _jax_stage(jsc, n, 8_000, 2048)
     tstage = ci.InsertStage(tsc, n, window=8_000, insert_cap=2048)
     S = tstage.S
-    rng = np.random.default_rng(21 + ordered)
+    rng = np.random.default_rng(seed)
     if ordered:
-        counts = rng.integers(0, K + 1, n).astype(np.int32)
+        counts = _kept_rows(rng, kept, K, n)
         live = np.arange(K)[:, None] < counts[None, :]
     else:
         counts = None
-        live = rng.random((K, n)) < 0.5
+        live = rng.random((K, n)) < live_share
     mb_rel = np.where(live, rng.integers(0, 1 << 20, (K, n)),
                       I32MAX).astype(np.int32)
     mb_src = rng.integers(0, n, (K, n)).astype(np.int32)
     mb_pay = rng.integers(-2**31, I32MAX, (K, P, n)).astype(np.int32)
-    b = _batch(rng, n, K, P, S, src, hot_fill=K + 6)
+    b = _batch(rng, n, K, P, S, src, hot_fill=hot_fill)
     jr, js, jp, jovf = jstage.insert(
         jnp.asarray(b["sd"]), jnp.asarray(b["drel"]), jnp.asarray(b["src"]),
         tuple(jnp.asarray(p) for p in b["pay"]), jnp.asarray(mb_rel),
@@ -131,6 +160,8 @@ def test_mailbox_insert_plain_equals_pallas(ordered):
         np.testing.assert_array_equal(a.numpy(), np.asarray(r),
                                       err_msg=name)
     assert int(tovf) == int(jovf) > 0
+    if kept == "K":                      # no room: every message overflows
+        assert int(tovf) == int((b["sd"] < n).sum())
     for m, m0 in zip(mb, before):        # inputs are never written
         assert torch.equal(m, m0)
 
@@ -221,23 +252,77 @@ def test_compact_scratch_words():
     assert ci.compact_scratch_words(5000, 3) == 5 * 3 * 4 * 9
 
 
+# K1's tile edges, chip_smoke phase 3's cases at a smaller size: (modes, n,
+# K, P, src, S, share of S valid, messages to each of 16 hot nodes,
+# (node, count) messages replacing that node's own, ordered kept rows).
+# The tile walk has tiles of 256 nodes, stages 16 rows of a column and
+# buffers 8 kept entries a node before a tile chunks.
+_BOTH = ("commutative", "ordered")
+_K1_EDGES = {
+    "n5000-K8-P2-src": (_BOTH, 5000, 8, 2, True, 4096, 0.5, 11, (), None),
+    "n-not-a-tile-multiple": (_BOTH, 4099, 16, 1, False, 8192, 0.7, 24, (),
+                              None),
+    "chunked-hot-node-after-empty": (_BOTH, 4096, 40, 1, True, 1 << 17, 0.9,
+                                     24, ((256, 0), (257, 8192)), None),
+    "empty-batch": (_BOTH, 4096, 16, 1, False, 4096, 0.0, 0, (), None),
+    "K1-P3-src": (_BOTH, 4096, 1, 3, True, 1 << 14, 0.7, 24, (), None),
+    "K40-P0-chunked": (_BOTH, 4096, 40, 0, False, 1 << 17, 0.9, 24, (),
+                       None),
+    "K130-P3-src-chunked": (_BOTH, 4096, 130, 3, True, 1 << 17, 0.9, 24,
+                            ((300, 200),), None),
+    "K16-P7-src-buffer-above-48KB": (_BOTH, 4096, 16, 7, True, 1 << 15, 0.7,
+                                     24, (), None),
+    "counts-all-0": (("ordered",), 4096, 16, 1, True, 8192, 0.7, 24, (), 0),
+    "counts-all-K": (("ordered",), 4096, 16, 1, True, 8192, 0.7, 24, (),
+                     16),
+    "K40-counts-all-0": (("ordered",), 4096, 40, 1, False, 1 << 17, 0.9, 24,
+                         (), 0),
+    "K130-counts-all-K": (("ordered",), 4096, 130, 1, False, 1 << 15, 0.7,
+                          24, (), 130),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ordered", [False, True])
-def test_mailbox_insert_kernel_equals_plain(cuda_device, ordered):
-    n, K, P = 5000, 8, 2
-    rng = np.random.default_rng(5 + ordered)
-    b = _batch(rng, n, K, P, 4096, True, hot_fill=K + 3)
-    counts = torch.from_numpy(rng.integers(0, K + 1, n).astype(np.int32)) \
-        if ordered else None
-    mb_rel = np.where(rng.random((K, n)) < 0.5, 7, I32MAX).astype(np.int32)
+@pytest.mark.parametrize("case,mode", [
+    (case, mode) for case, spec in _K1_EDGES.items() for mode in spec[0]])
+def test_mailbox_insert_kernel_equals_plain(cuda_device, case, mode):
+    _, n, K, P, src, S, frac, hot_fill, extra, kept = _K1_EDGES[case]
+    ordered = mode == "ordered"
+    rng = np.random.default_rng(sum(map(ord, case)) + ordered)
+    n_msgs = int(S * frac)
+    dst = np.concatenate([rng.integers(0, n, n_msgs - 16 * hot_fill),
+                          np.repeat(rng.integers(0, n, 16), hot_fill)])
+    for node, count in extra:
+        dst = np.concatenate([dst[dst != node], np.full(count, node)])
+    sd = np.full(S, n, np.int32)
+    sd[:dst.size] = np.sort(dst)
+    if ordered:
+        counts = rng.integers(0, K + 1, n).astype(np.int32) if kept is None \
+            else np.full(n, kept, np.int32)
+        live = np.arange(K)[:, None] < counts[None, :]
+    else:
+        counts = None
+        live = rng.random((K, n)) < 0.5
+    mb_rel = np.where(live, 7, I32MAX).astype(np.int32)
     dev = cuda_device
-    t = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-    start, cnt = ci.bucket_bounds(t["sd"], n)
-    args = (start, cnt, None if counts is None else counts.to(dev),
-            t["drel"], t["src"], t["pay"], torch.from_numpy(mb_rel).to(dev),
-            torch.zeros((K, n), dtype=torch.int32, device=dev),
-            torch.zeros((K, P, n), dtype=torch.int32, device=dev))
+
+    def on(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+    sd_t = on(sd)
+    start, cnt = ci.bucket_bounds(sd_t, n)
+    args = (start, cnt, on(counts),
+            on(rng.integers(0, 1 << 20, S).astype(np.int32)),
+            on(rng.integers(0, n, S).astype(np.int32)) if src else None,
+            on(rng.integers(-2**31, I32MAX, (P, S)).astype(np.int32)),
+            on(mb_rel), on(rng.integers(0, n, (K, n)).astype(np.int32)),
+            on(rng.integers(-2**31, I32MAX, (K, P, n)).astype(np.int32)))
     got = ci.mailbox_insert(*args)
     want = ci.mailbox_insert_plain(*args)
+    torch.cuda.synchronize()
     for g, x in zip(got, want):
         assert torch.equal(g, x)
+    valid = int(cnt.sum())
+    assert (valid == 0) == (case == "empty-batch")
+    assert (int(got[3]) > 0) == (valid > 0)
+    if kept == K:                        # no room: every message overflows
+        assert int(got[3]) == valid

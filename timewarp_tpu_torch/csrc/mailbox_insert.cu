@@ -6,55 +6,61 @@
 //
 // What it computes: merges a destination-sorted, pre-sampled batch into
 // the [K, N] mailbox planes. Node d's messages are batch entries
-// start[d] .. start[d] + cnt[d] - 1. Commutative inbox: the r-th message
-// fills d's r-th empty slot (mb_rel == INT32_MAX), the hole rank being a
-// running count down the K rows. Ordered inbox: it fills row
-// counts[d] + r. Messages that find no slot are summed into overflow.
+// start[d] .. start[d] + cnt[d] - 1, the buckets contiguous in node
+// order. Commutative inbox: the r-th message fills d's r-th empty slot
+// (mb_rel == INT32_MAX). Ordered inbox: it fills row counts[d] + r.
+// Messages that find no slot are summed into overflow.
 //
 // What bounds it on an H100: memory traffic — every mailbox plane is
 // read once and written once (K * (1 + P [+ 1 src]) int32 planes of N),
 // plus start/cnt and the gathered batch entries. At 2^17 nodes, K = 16,
-// P = 1 that is ~37 MB, ~11 us at 3.35 TB/s.
+// P = 1 that is ~36 MB, ~11 us at 3.35 TB/s.
 //
-// Design: one thread per node column walks its K rows (insert_column.cuh),
-// so each plane access is a coalesced 128-byte warp transaction; only the batch gathers are scattered, and they touch at
-// most cnt[d] entries. The TPU kernel's double-buffered VMEM blocks,
-// lane-partial folds and 8-row tiling have no counterpart: the overflow is
-// a warp reduction plus one integer atomicAdd per warp, exact in any
-// order. Outputs are separate buffers, never the inputs.
+// Design: K3's tile walk (tile_insert.cuh), one CTA per tile of 256
+// consecutive nodes, with the entry's deliver time and sender read from
+// the batch instead of drawn, and the overflowing entries not read at
+// all. A thread that walks its own column row by row, gathering each
+// message as its row comes up, waits on a load before every store and
+// keeps few loads in flight: 3x the byte bound. Here the columns' rows
+// (a full tile's 16 bytes a copy, shared by its threads) and the kept
+// entries' payloads move by cp.async, all of a plane in flight before its
+// stores; the tile's entries are loaded by all of its threads in turn,
+// coalesced; each row is written once. An ordered node's fill rows are
+// counts[d] .. K - 1 instead of its holes. At 2^17 nodes the 512 tiles
+// run in one wave, every CTA in the same phase at once, so device memory
+// idles while the entries come back: on an H100, under chip_smoke's
+// timer, 2.4x the byte bound, where a launch of the grid with no work
+// takes 0.7x. The TPU kernel's double-buffered VMEM blocks, lane-partial
+// folds and 8-row tiling have no counterpart: the overflow is a warp
+// reduction plus one integer atomicAdd per warp, exact in any order.
+// Outputs are separate buffers, never the inputs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "insert_column.cuh"
+#include "tile_insert.cuh"
 
 namespace {
 
-__global__ void insert_kernel(const int32_t* __restrict__ start,
-                              const int32_t* __restrict__ cnt,
-                              const int32_t* __restrict__ counts,
-                              const int32_t* __restrict__ drel,
-                              const int32_t* __restrict__ src,
-                              const int32_t* __restrict__ pay, int S,
-                              const int32_t* __restrict__ mb_rel,
-                              const int32_t* __restrict__ mb_src,
-                              const int32_t* __restrict__ mb_pay, int n,
-                              int K, int P, int32_t* __restrict__ o_rel,
-                              int32_t* __restrict__ o_src,
-                              int32_t* __restrict__ o_pay,
-                              int32_t* __restrict__ overflow) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  int ovf = 0;
-  if (d < n) {
-    const int c = cnt[d];
-    const int room = tw::insert_column(
-        d, n, K, P, S, start[d], c, counts != nullptr ? counts[d] : -1,
-        [&](int j) {
-          return tw::Entry{drel[j], src != nullptr ? src[j] : 0};
-        },
-        pay, mb_rel, mb_src, mb_pay, o_rel, o_src, o_pay);
-    ovf = c > room ? c - room : 0;
-  }
+// CTAs that must fit on an SM at once: 2^17 nodes are 512 tiles, one
+// wave on 132 SMs
+constexpr int kMinBlocks = 4;
+
+__global__ void __launch_bounds__(tw::kTile, kMinBlocks)
+    mailbox_insert_kernel(
+    const int32_t* __restrict__ start, const int32_t* __restrict__ cnt,
+    const int32_t* __restrict__ counts, const int32_t* __restrict__ drel,
+    const int32_t* __restrict__ src, const int32_t* __restrict__ pay, int S,
+    const int32_t* __restrict__ mb_rel, const int32_t* __restrict__ mb_src,
+    const int32_t* __restrict__ mb_pay, int n, int K, int P, int cap,
+    bool wide, int32_t* __restrict__ o_rel, int32_t* __restrict__ o_src,
+    int32_t* __restrict__ o_pay, int32_t* __restrict__ overflow) {
+  extern __shared__ int32_t smem[];
+  int ovf = tw::insert_tile<false>(
+      n, K, P, S, cap, wide, start, cnt, counts,
+      [&](int j) { return tw::Entry{drel[j], src != nullptr ? src[j] : 0}; },
+      [](tw::Entry e, int) { return e; }, pay, mb_rel, mb_src, mb_pay,
+      o_rel, o_src, o_pay, smem);
   ovf = tw::warp_sum(ovf);
   if ((threadIdx.x & 31) == 0 && ovf != 0) atomicAdd(overflow, ovf);
 }
@@ -65,11 +71,12 @@ extern "C" const char* tw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// start, cnt int32[n]; counts int32[n] or null (commutative); drel
-// int32[S]; src int32[S] or null (no inbox src: mb_src, o_src unused);
-// pay int32[P, S]; mb_rel, mb_src int32[K, n]; mb_pay int32[K, P, n];
-// outputs o_rel, o_src, o_pay of the same shapes; overflow int32[1],
-// zeroed by the caller. Returns the CUDA error of the launch.
+// start, cnt int32[n], the buckets contiguous in node order; counts
+// int32[n] with 0 <= counts[d] <= K, or null (commutative); drel int32[S];
+// src int32[S] or null (no inbox src: mb_src, o_src unused); pay int32[P,
+// S]; mb_rel, mb_src int32[K, n]; mb_pay int32[K, P, n]; outputs o_rel,
+// o_src, o_pay of the same shapes; overflow int32[1], zeroed by the
+// caller. Returns the CUDA error of the launch.
 extern "C" int tw_mailbox_insert(const int32_t* start, const int32_t* cnt,
                                  const int32_t* counts, const int32_t* drel,
                                  const int32_t* src, const int32_t* pay,
@@ -78,10 +85,20 @@ extern "C" int tw_mailbox_insert(const int32_t* start, const int32_t* cnt,
                                  int n, int K, int P, int32_t* o_rel,
                                  int32_t* o_src, int32_t* o_pay,
                                  int32_t* overflow, void* stream) {
-  constexpr int kThreads = 256;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  insert_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool with_src = src != nullptr;
+  const int cap = tw::tile_cap(K, P, with_src);
+  const size_t smem = tw::tile_smem_bytes(cap, P, with_src);
+  const bool wide = tw::tile_wide(n, mb_rel, mb_src, mb_pay);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mailbox_insert_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (n + tw::kTile - 1) / tw::kTile;
+  mailbox_insert_kernel<<<blocks, tw::kTile, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
       start, cnt, counts, drel, src, pay, S, mb_rel, mb_src, mb_pay, n, K, P,
-      o_rel, o_src, o_pay, overflow);
+      cap, wide, o_rel, o_src, o_pay, overflow);
   return cudaGetLastError();
 }

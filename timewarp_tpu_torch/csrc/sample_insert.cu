@@ -37,22 +37,19 @@
 // issue rate (chip_smoke counts the instructions in this library's SASS,
 // tw_k3_draw_probe).
 //
-// Design: one CTA per tile of 256 consecutive nodes (tile_insert.cuh).
-// A thread that owns one node column and draws its whole bucket serially
-// between its row loads (the TPU kernel's walk carried over) keeps few
-// loads in flight, lets a warp run as long as its largest bucket, and
-// reads the batch columns a bucket apart across the warp: 3.4x its byte
-// bound. Here the tile's entries, one contiguous range of the sorted
-// batch, are drawn by all of the CTA's threads in turn, with coalesced
-// batch loads, each entry once; the columns' rows, the kept entries'
-// payloads and the copied-through planes move between global and shared
-// memory by cp.async, so no register waits on them and a thread needs at
-// most 48 registers (five CTAs an SM); then each thread writes its
-// column's rows once. The counters are warp sums plus one integer
-// atomicAdd each per warp, exact in any order. Outputs are separate
-// buffers.
+// Design: one CTA per tile of 256 consecutive nodes, on the tile walk it
+// shares with K1 (tile_insert.cuh). The tile's entries, one contiguous
+// range of the sorted batch, are drawn by all of the CTA's threads in
+// turn, with coalesced batch loads, each entry once, so no bucket sets
+// the pace of a warp; the columns' rows, the kept entries' payloads and
+// the copied-through planes move between global and shared memory by
+// cp.async (a full tile's rows 16 bytes a copy, shared by its threads),
+// so no register waits on them and a thread needs at most 48 registers
+// (five CTAs an SM); then each thread writes its column's rows once. (A thread that owns one node column and draws its whole bucket
+// between its row loads, the TPU kernel's walk carried over, ran at 3.4x
+// the byte bound.) The counters are warp sums plus one integer atomicAdd
+// each per warp, exact in any order. Outputs are separate buffers.
 
-#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -169,15 +166,15 @@ __global__ void __launch_bounds__(tw::kTile, kMinBlocks)
     Link L, uint32_t s0, uint32_t s1, int M, uint32_t W,
     const int32_t* __restrict__ mb_rel, const int32_t* __restrict__ mb_src,
     const int32_t* __restrict__ mb_pay, int n, int K, int P, int cap,
-    int32_t* __restrict__ o_rel, int32_t* __restrict__ o_src,
+    bool wide, int32_t* __restrict__ o_rel, int32_t* __restrict__ o_src,
     int32_t* __restrict__ o_pay, int32_t* __restrict__ counters) {
   extern __shared__ int32_t smem[];
   const uint64_t t = static_cast<uint64_t>(*tp);
   const uint32_t tl = static_cast<uint32_t>(t);
   const uint32_t th = static_cast<uint32_t>(t >> 32);
   int bad = 0, shrt = 0;
-  int ovf = tw::insert_tile(
-      n, K, P, S, cap, start, cnt,
+  int ovf = tw::insert_tile<true>(
+      n, K, P, S, cap, wide, start, cnt, nullptr,
       [&](int j) { return make_int2(woff[j], smrank[j]); },
       [&](int2 raw, int d) {
         return draw(raw.x, raw.y, static_cast<uint32_t>(d), tl, th, L, s0,
@@ -218,16 +215,10 @@ extern "C" int tw_sample_insert(
     int32_t* o_rel, int32_t* o_src, int32_t* o_pay, int32_t* counters,
     void* stream) {
   const Link L{kind, quantum, needs_key, i0, i1, i2, i3, f0, f1, f2, f3};
-  // The entry buffer: room for 8 kept entries a node (a tile chunks past
-  // that), within 96 KB; a tile never keeps more than kTile * K.
-  constexpr int kKeptPerNode = 8;
-  constexpr int kBufferBytes = 96 * 1024;
-  const int words = tw::tile_entry_words(P, mb_src != nullptr);
-  const int cap = std::max(1, std::min(tw::kTile * std::min(K, kKeptPerNode),
-                                       kBufferBytes / (4 * words)));
-  const size_t smem =
-      (static_cast<size_t>(tw::kTileWords) + static_cast<size_t>(cap) * words)
-      * sizeof(int32_t);
+  const bool with_src = mb_src != nullptr;
+  const int cap = tw::tile_cap(K, P, with_src);
+  const size_t smem = tw::tile_smem_bytes(cap, P, with_src);
+  const bool wide = tw::tile_wide(n, mb_rel, mb_src, mb_pay);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         sample_insert_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -238,7 +229,7 @@ extern "C" int tw_sample_insert(
   sample_insert_kernel<<<blocks, tw::kTile, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       start, cnt, woff, smrank, pay, S, tp, L, s0, s1, M, W, mb_rel, mb_src,
-      mb_pay, n, K, P, cap, o_rel, o_src, o_pay, counters);
+      mb_pay, n, K, P, cap, wide, o_rel, o_src, o_pay, counters);
   return cudaGetLastError();
 }
 

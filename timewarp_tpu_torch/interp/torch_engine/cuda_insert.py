@@ -268,8 +268,11 @@ def mailbox_insert(start, cnt, counts, drel, src, pay,
                    mb_rel, mb_src, mb_payload):
     """K1: see :func:`mailbox_insert_plain` for the function. CPU
     tensors take the plain version; CUDA tensors launch
-    ``csrc/mailbox_insert.cu`` (one thread per node column, outputs
-    freshly allocated)."""
+    ``csrc/mailbox_insert.cu`` (one CTA per tile of 256 nodes loads the
+    tile's entries in turn and fills its nodes' rows, the tile walk it
+    shares with K3; outputs freshly allocated). The buckets must be
+    contiguous in node order, as :func:`bucket_bounds` gives them, and an
+    ordered inbox's ``counts`` lie in ``[0, K]``."""
     if not _on_card(mb_rel, "mailbox_insert"):
         return mailbox_insert_plain(start, cnt, counts, drel, src, pay,
                                     mb_rel, mb_src, mb_payload)
