@@ -17,10 +17,11 @@ first use). Phases, each of which fails the script on any mismatch:
 3. the mailbox-insertion kernel (K1) against its plain version: the
    slice shape (K 16, P 1, no src, commutative) on a batch that
    overfills some mailboxes, and the ordered mode with src (K 8, P 2);
-   then the edges of its tiles in both modes: 2^17 + 3 nodes, a tile
-   that chunks with a node of 8192 entries after one with none, an empty
-   batch, K 1, 40 and 130, P 0, 3 and 7, with and without the inbox src
-   plane, and ordered with every ``counts`` at 0 and at K;
+   then the edges of its tiles in both modes, the ordered one also on
+   mailboxes whose holes lie apart from ``counts``: 2^17 + 3 nodes, a
+   tile that chunks with a node of 8192 entries after one with none, an
+   empty batch, K 1, 40 and 130, P 0, 3 and 7, with and without the
+   inbox src plane, and ordered with every ``counts`` at 0 and at K;
 4. the main path: the gossip wave at 2^17 nodes (``bench.py``
    ``gossip_100k_insert``'s configuration) to quiescence through
    ``TorchEngine.run_quiet``, with the wave-done invariants and both
@@ -29,9 +30,8 @@ first use). Phases, each of which fails the script on any mismatch:
    ``run`` on both devices — equal traces and final states;
 6. each kernel's time (CUDA events, cold L2, its launches queued before
    the start event fires), its plain version's time and its bound (bytes
-   over 3.35 TB/s), K1 also in the ordered mode with src, after a read
-   in place of the flush's write (L2 clean), and beside one device copy
-   of its planes' words; the timing floor, one empty launch;
+   over 3.35 TB/s), K1 also in the ordered mode with src; the timing
+   floor, one empty launch;
 7. where the main path's time goes: wall time per superstep against the
    device's kernel time under ``torch.profiler`` (the idle share);
 
@@ -169,9 +169,11 @@ def compact_inputs(device, n, M, P, frac, seed):
 
 
 def insert_inputs(device, n, K, P, S, ordered, with_src, seed, frac=0.7,
-                  hot=True, extra=(), counts=None):
+                  hot=True, extra=(), counts=None, apart=False):
     """A mailbox half full (ordered: each node's first ``counts[d]`` rows
-    kept, drawn at random unless ``counts`` gives one for every node) and
+    kept, drawn at random unless ``counts`` gives one for every node; with
+    ``apart`` its holes are drawn at random, apart from ``counts``, so
+    that only ``counts`` tells the rows to fill) and
     a destination-sorted batch of width ``S``, a ``frac`` share valid,
     whose 64 hot destinations overfill their mailboxes (unless not
     ``hot``); ``extra`` adds ``(node, count)`` messages after removing
@@ -184,8 +186,9 @@ def insert_inputs(device, n, K, P, S, ordered, with_src, seed, frac=0.7,
         kept = rng.integers(0, K + 1, n).astype(np.int32)
         if counts is not None:
             kept[:] = counts
-        mb_rel = np.where(np.arange(K)[:, None] < kept[None, :],
-                          rng.integers(0, 1 << 20, (K, n)),
+        live = rng.random((K, n)) < 0.5 if apart \
+            else np.arange(K)[:, None] < kept[None, :]
+        mb_rel = np.where(live, rng.integers(0, 1 << 20, (K, n)),
                           I32MAX).astype(np.int32)
     else:
         kept = None
@@ -276,12 +279,14 @@ def k1_cases(n=SLICE_N, S=SLICE_S, ns=1 << 16):
     the slice shape first, then the edges of the tile walk (tiles of 256
     nodes, 16 rows of a column staged in shared memory, an entry buffer of
     8 entries a node before a tile chunks); ``ns`` nodes where K or P is
-    large."""
-    both = ("commutative", "ordered")
+    large. The mode "ordered-apart" is the ordered one on a mailbox whose
+    holes are drawn apart from its ``counts``."""
+    both = ("commutative", "ordered", "ordered-apart")
+    ordered = both[1:]
     return [
         ("slice shape K 16, P 1", ("commutative",),
          dict(n=n, K=SLICE_K, P=SLICE_P, S=S, with_src=False, seed=4)),
-        ("K 8, P 2, src", ("ordered",),
+        ("K 8, P 2, src", ordered,
          dict(n=n, K=8, P=2, S=S, with_src=True, seed=5)),
         ("n + 3 nodes, not a multiple of the tile", both,
          dict(n=n + 3, K=SLICE_K, P=SLICE_P, S=S, with_src=False, seed=40)),
@@ -302,16 +307,16 @@ def k1_cases(n=SLICE_N, S=SLICE_S, ns=1 << 16):
               frac=0.9, extra=((300, 200),))),
         ("K 16, P 7, src (an entry buffer above 48 KB)", both,
          dict(n=ns, K=SLICE_K, P=7, S=8 * ns, with_src=True, seed=46)),
-        ("every counts 0, K 16, P 1, src", ("ordered",),
+        ("every counts 0, K 16, P 1, src", ordered,
          dict(n=n, K=SLICE_K, P=SLICE_P, S=S, with_src=True, seed=47,
               counts=0)),
-        ("every counts K, K 16, P 1, src", ("ordered",),
+        ("every counts K, K 16, P 1, src", ordered,
          dict(n=n, K=SLICE_K, P=SLICE_P, S=S, with_src=True, seed=48,
               counts=SLICE_K)),
-        ("every counts 0, K 40, P 1", ("ordered",),
+        ("every counts 0, K 40, P 1", ordered,
          dict(n=ns, K=40, P=1, S=32 * ns, with_src=False, seed=49,
               frac=0.9, counts=0)),
-        ("every counts K, K 130, P 1", ("ordered",),
+        ("every counts K, K 130, P 1", ordered,
          dict(n=ns, K=130, P=1, S=8 * ns, with_src=False, seed=50,
               counts=130)),
     ]
@@ -320,11 +325,13 @@ def k1_cases(n=SLICE_N, S=SLICE_S, ns=1 << 16):
 def phase_insert(device, **sizes):
     """K1 against its plain version, bit for bit, in every case of
     :func:`k1_cases` (``sizes`` passed to it)."""
+    import torch
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
     err = 0
     for tag, modes, kw in k1_cases(**sizes):
         for mode in modes:
-            t = insert_inputs(device, ordered=mode == "ordered", **kw)
+            t = insert_inputs(device, ordered=mode != "commutative",
+                              apart=mode == "ordered-apart", **kw)
             n = kw["n"]
             args = insert_args(t, n)
             got = ci.mailbox_insert(*args)
@@ -332,6 +339,10 @@ def phase_insert(device, **sizes):
             err = max(err, _equal(f"K1 {mode} {tag}", got, want))
             valid = int(args[1].sum())
             ovf = int(got[3])
+            rows = torch.arange(kw["K"], device=device)[:, None]
+            apart = mode != "ordered-apart" or bool(
+                ((t["mb_rel"] == 2**31 - 1)
+                 != (rows >= t["counts"][None, :])).any())
             say(f"K1 {mode} {tag}: n={n} K={kw['K']} P={kw['P']} "
                 f"src={kw['with_src']} valid={valid} overflow={ovf} "
                 "bit-equal")
@@ -341,7 +352,9 @@ def phase_insert(device, **sizes):
                 "overflow > 0 unless the batch is empty":
                     (ovf > 0) != tag.startswith("empty"),
                 "every message overflows when every counts is K":
-                    ovf == valid or "counts K," not in tag})
+                    ovf == valid or "counts K," not in tag,
+                "ordered-apart: holes other than the rows past counts":
+                    apart})
     return err
 
 
@@ -438,11 +451,9 @@ def phase_card_vs_cpu(device, n=1 << 14):
         "traces and states equal")
 
 
-def _time_ms(fn, reps=20, queued=True, clean=False):
+def _time_ms(fn, reps=20, queued=True):
     """Mean ms of ``fn`` on the card: CUDA events around each call. Before
-    every call a 1 GiB write flushes the 50 MB L2 (with ``clean`` a 1 GiB
-    read, which leaves L2 no dirty lines for the call to write back to
-    device memory), then the device waits
+    every call a 1 GiB write flushes the 50 MB L2, then the device waits
     ``SPIN_CYCLES`` clocks (``torch.cuda._sleep``) before the start event,
     so that the host has queued all of the call's launches by the time
     the start event fires and the events time the device, not the host.
@@ -459,10 +470,7 @@ def _time_ms(fn, reps=20, queued=True, clean=False):
     total, spin = 0.0, SPIN_CYCLES
     for _ in range(reps):
         for _ in range(6):
-            if clean:
-                flush.sum()
-            else:
-                flush.zero_()
+            flush.zero_()
             torch.cuda._sleep(spin)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -517,9 +525,11 @@ def phase_where_time_goes(tag, eng, warm, steps):
 
 def time_k1(device, ordered, with_src, seed=4):
     """K1's time at the slice shape (K 16, P 1), its plain version's time
-    and its bound: the planes read and written once, start/cnt (and
-    counts), and the deliver time, sender and payload of each entry that
-    finds a row (the others are not read)."""
+    and its bound: the planes written once and read once, except the old
+    words of each row the batch fills (commutative: all but its rel, by
+    which the hole is found; ordered: all), start/cnt (and counts), and
+    the deliver time, sender and payload of each entry that finds a row
+    (the others are not read)."""
     import torch
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
     t = insert_inputs(device, SLICE_N, SLICE_K, SLICE_P, SLICE_S, ordered,
@@ -533,17 +543,11 @@ def time_k1(device, ordered, with_src, seed=4):
     gathered = int(torch.minimum(cnt, room).sum())
     planes = t["mb_rel"].numel() + t["mb_payload"].numel() \
         + (t["mb_src"].numel() if with_src else 0)
-    k1_bytes = 2 * planes * 4 + (2 + ordered) * SLICE_N * 4 \
-        + gathered * (1 + with_src + SLICE_P) * 4
-    # a yardstick, not the function: one device copy of the planes' words
-    # into a fresh buffer, under the same timer
-    words = torch.empty(planes, dtype=torch.int32, device=device)
+    row = (1 + with_src + SLICE_P) * 4   # bytes of a mailbox row or entry
+    unread = gathered * (row - 4 * (not ordered))   # filled rows' old words
+    k1_bytes = 2 * planes * 4 - unread + (2 + ordered) * SLICE_N * 4 \
+        + gathered * row
     return dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
-                clean_ms=_time_ms(lambda: ci.mailbox_insert(*args),
-                                  clean=True),
-                copy_ms=_time_ms(lambda: torch.empty_like(words).copy_(words)),
-                copy_clean_ms=_time_ms(
-                    lambda: torch.empty_like(words).copy_(words), clean=True),
                 plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args),
                                   queued=False),
                 bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes)
@@ -567,11 +571,7 @@ def phase_times(device):
         f"{_time_ms(lambda: torch.cuda._sleep(0))}")
     for name, r in (("fire_compact", k2), ("mailbox_insert", k1),
                     ("mailbox_insert ordered, src", k1_ordered)):
-        clean = (f" clean_l2_ms={r['clean_ms']} planes_copy_ms="
-                 f"{r['copy_ms']} planes_copy_clean_l2_ms="
-                 f"{r['copy_clean_ms']}") if "clean_ms" in r else ""
-        say(f"time {name}: kernel_ms={r['ms']}{clean} "
-            f"plain_ms={r['plain_ms']} "
+        say(f"time {name}: kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
             f"bound_ms={r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s; "
             "no single PyTorch call computes this function: library_ms "
             "null)")

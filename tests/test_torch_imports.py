@@ -55,14 +55,12 @@ def test_import_leaves_jax_and_reference_out():
 
 
 def test_sources_import_neither_jax_nor_reference():
-    """The package's sources, ``chip_smoke.py``, the script that drives
-    the port on the card, and ``tools/k1_variants.py``, which times K1's
-    variants there."""
+    """The package's sources and ``chip_smoke.py``, the script that drives
+    the port on the card."""
     offenders = []
-    scripts = [PKG.parent / "chip_smoke.py",
-               PKG.parent / "tools" / "k1_variants.py"]
-    assert all(p.exists() for p in scripts)
-    for path in [*PKG.rglob("*.py"), *scripts]:
+    smoke = PKG.parent / "chip_smoke.py"
+    assert smoke.exists()
+    for path in [*PKG.rglob("*.py"), smoke]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):

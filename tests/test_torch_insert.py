@@ -10,13 +10,15 @@ Pallas interpreter, built through ``PallasInsertStage`` with
 - mailbox insertion (K1): the plain version equals ``stage.insert`` in
   the commutative (hole-ranked) and ordered (counts plane, with src)
   modes, on batches that overflow: mailboxes nine tenths full under hot
-  nodes, K 40, and ordered inboxes whose kept rows are all 0, all K, or
-  0 or K at random.
+  nodes, K 40, ordered inboxes whose kept rows are all 0, all K, or 0 or
+  K at random, and ordered inboxes whose holes lie apart from their kept
+  rows (only ``counts`` tells the rows to fill).
 
 Tolerance: exact — every output column and counter, bit for bit. The
 CUDA kernels themselves run only on the card: the ``cuda``-marked tests
 below hold them against the plain versions there (K1 on the edges of its
-tile walk, in both modes) and skip elsewhere.
+tile walk, in both modes, the ordered one also with holes apart from its
+kept rows) and skip elsewhere.
 """
 
 import numpy as np
@@ -98,7 +100,8 @@ def _batch(rng, n, K, P, S, src, hot_fill):
 
 
 # (ordered, K, P, src, kept rows of an ordered inbox, share of a
-# commutative mailbox's rows live, messages to each of 16 hot nodes, seed)
+# mailbox's rows live (ordered: drawn apart from the kept rows; None: the
+# kept rows are the live ones), messages to each of 16 hot nodes, seed)
 _INSERT_CASES = {
     "commutative": (False, 16, 1, False, None, 0.5, 22, 21),
     "ordered-src": (True, 8, 2, True, "random", None, 14, 22),
@@ -111,6 +114,8 @@ _INSERT_CASES = {
     "ordered-counts-all-K": (True, 8, 1, True, "K", None, 14, 27),
     "ordered-K40-counts-0-to-K": (True, 40, 1, False, "random", None, 46,
                                   28),
+    "ordered-src-holes-apart": (True, 8, 2, True, "random", 0.5, 14, 29),
+    "ordered-K40-holes-apart": (True, 40, 1, False, "random", 0.5, 46, 30),
 }
 
 
@@ -135,7 +140,8 @@ def test_mailbox_insert_plain_equals_pallas(case):
     rng = np.random.default_rng(seed)
     if ordered:
         counts = _kept_rows(rng, kept, K, n)
-        live = np.arange(K)[:, None] < counts[None, :]
+        live = np.arange(K)[:, None] < counts[None, :] if live_share is None \
+            else rng.random((K, n)) < live_share
     else:
         counts = None
         live = rng.random((K, n)) < live_share
@@ -256,8 +262,11 @@ def test_compact_scratch_words():
 # K, P, src, S, share of S valid, messages to each of 16 hot nodes,
 # (node, count) messages replacing that node's own, ordered kept rows).
 # The tile walk has tiles of 256 nodes, stages 16 rows of a column and
-# buffers 8 kept entries a node before a tile chunks.
-_BOTH = ("commutative", "ordered")
+# buffers 8 kept entries a node before a tile chunks. The mode
+# "ordered-apart" is the ordered one on a mailbox whose holes are drawn
+# apart from its kept rows.
+_K1_MODES = ("commutative", "ordered", "ordered-apart")
+_BOTH, _ORDERED = _K1_MODES, _K1_MODES[1:]
 _K1_EDGES = {
     "n5000-K8-P2-src": (_BOTH, 5000, 8, 2, True, 4096, 0.5, 11, (), None),
     "n-not-a-tile-multiple": (_BOTH, 4099, 16, 1, False, 8192, 0.7, 24, (),
@@ -272,12 +281,12 @@ _K1_EDGES = {
                             ((300, 200),), None),
     "K16-P7-src-buffer-above-48KB": (_BOTH, 4096, 16, 7, True, 1 << 15, 0.7,
                                      24, (), None),
-    "counts-all-0": (("ordered",), 4096, 16, 1, True, 8192, 0.7, 24, (), 0),
-    "counts-all-K": (("ordered",), 4096, 16, 1, True, 8192, 0.7, 24, (),
+    "counts-all-0": (_ORDERED, 4096, 16, 1, True, 8192, 0.7, 24, (), 0),
+    "counts-all-K": (_ORDERED, 4096, 16, 1, True, 8192, 0.7, 24, (),
                      16),
-    "K40-counts-all-0": (("ordered",), 4096, 40, 1, False, 1 << 17, 0.9, 24,
+    "K40-counts-all-0": (_ORDERED, 4096, 40, 1, False, 1 << 17, 0.9, 24,
                          (), 0),
-    "K130-counts-all-K": (("ordered",), 4096, 130, 1, False, 1 << 15, 0.7,
+    "K130-counts-all-K": (_ORDERED, 4096, 130, 1, False, 1 << 15, 0.7,
                           24, (), 130),
 }
 
@@ -287,8 +296,8 @@ _K1_EDGES = {
     (case, mode) for case, spec in _K1_EDGES.items() for mode in spec[0]])
 def test_mailbox_insert_kernel_equals_plain(cuda_device, case, mode):
     _, n, K, P, src, S, frac, hot_fill, extra, kept = _K1_EDGES[case]
-    ordered = mode == "ordered"
-    rng = np.random.default_rng(sum(map(ord, case)) + ordered)
+    ordered = mode != "commutative"
+    rng = np.random.default_rng(sum(map(ord, case)) + _K1_MODES.index(mode))
     n_msgs = int(S * frac)
     dst = np.concatenate([rng.integers(0, n, n_msgs - 16 * hot_fill),
                           np.repeat(rng.integers(0, n, 16), hot_fill)])
@@ -299,7 +308,8 @@ def test_mailbox_insert_kernel_equals_plain(cuda_device, case, mode):
     if ordered:
         counts = rng.integers(0, K + 1, n).astype(np.int32) if kept is None \
             else np.full(n, kept, np.int32)
-        live = np.arange(K)[:, None] < counts[None, :]
+        live = rng.random((K, n)) < 0.5 if mode == "ordered-apart" \
+            else np.arange(K)[:, None] < counts[None, :]
     else:
         counts = None
         live = rng.random((K, n)) < 0.5
