@@ -83,10 +83,37 @@ then the static-topology slice (kernel K4, the dense token ring at 2^20):
     equal traces and final states;
 19. K4's time, its plain version's time and its bound;
 20. where the dense ring's time goes, on ``FusedRingEngine`` and on
-    ``EdgeEngine``, as phase 7.
+    ``EdgeEngine``, as phase 7;
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
+then the general engine's eager and lazy routing paths (K1 at the eager
+width, steady gossip at 2^20):
+
+21. the main path: steady gossip at 2^20 nodes (``bench.py``
+    ``gossip_steady_1m``'s configuration: fanout 1, 1 ms rounds, window
+    1, ``Quantize(UniformDelay(500, 4_500), 1_000)``, K 8) through
+    ``TorchEngine.run_quiet`` on the eager path, 64 warm then 256 timed
+    supersteps: ``bad_dst``, ``bad_delay``, ``short_delay`` and
+    ``route_drop`` 0, every node infected, K1 launched once per superstep
+    and K2/K3/K4 not at all;
+22. eager = lazy at 2^20: the same run through ``run`` on the eager path
+    and on the lazy one (``route_cap = n * max_out``) for 64 supersteps,
+    equal traces and every state leaf, ``route_drop`` 0;
+23. card against CPU at 2^14 through ``run``, equal traces and final
+    states: a droppy windowed gossip (eager, 3-key sort) with
+    ``record_events``, whose ``events()`` are equal too, a lazy Praos
+    whose ``route_cap`` is below its active count (``route_drop > 0``),
+    steady gossip, socket-state on a droppy link, and ping-pong (ordered
+    inbox with src);
+24. K1 on a steady-state superstep's own batch from phase 21 (S = 2^20
+    entries over 2^20 nodes, K 8, P 1, no src, commutative; in the
+    steady state every lane holds a message): bit-equal to its plain
+    version, its time and its bound;
+25. where the steady path's time goes, as phase 7.
+
+Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed over its
+two main paths, phases 4 and 21; every time from phases 6, 13 and 19),
+the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -111,6 +138,8 @@ K3_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:259"
 PRAOS_N, PRAOS_P, PRAOS_S = 1 << 20, 2, (1 << 20) * SLICE_M
 # the static-topology slice: the dense token ring at 2^20 nodes
 RING_N = 1 << 20
+# the eager routing slice: steady gossip at 2^20 nodes
+STEADY_N = 1 << 20
 K4_REPLACES = "timewarp_tpu/interp/jax_engine/fused_ring.py:468"
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("fire_compact_kernel", "mailbox_insert_kernel",
@@ -523,34 +552,42 @@ def phase_where_time_goes(tag, eng, warm, steps):
                 f"{e.key[:90]}")
 
 
+def k1_bytes(args):
+    """K1's bytes on its arguments (``mailbox_insert``'s): the planes
+    written once and read once, except the old words of each row the
+    batch fills (commutative: all but its rel, by which the hole is
+    found; ordered: all), start/cnt (and counts), and the deliver time,
+    sender and payload of each entry that finds a row (the others are not
+    read)."""
+    import torch
+    _, cnt, counts, _, src, _, mb_rel, mb_src, mb_payload = args
+    K, n = mb_rel.shape
+    P = mb_payload.shape[1]
+    ordered, with_src = counts is not None, src is not None
+    if ordered:
+        room = K - counts
+    else:
+        room = (mb_rel == 2**31 - 1).sum(dim=0, dtype=torch.int32)
+    gathered = int(torch.minimum(cnt, room).sum())
+    planes = mb_rel.numel() + mb_payload.numel() \
+        + (mb_src.numel() if with_src else 0)
+    row = (1 + with_src + P) * 4         # bytes of a mailbox row or entry
+    unread = gathered * (row - 4 * (not ordered))   # filled rows' old words
+    return 2 * planes * 4 - unread + (2 + ordered) * n * 4 + gathered * row
+
+
 def time_k1(device, ordered, with_src, seed=4):
     """K1's time at the slice shape (K 16, P 1), its plain version's time
-    and its bound: the planes written once and read once, except the old
-    words of each row the batch fills (commutative: all but its rel, by
-    which the hole is found; ordered: all), start/cnt (and counts), and
-    the deliver time, sender and payload of each entry that finds a row
-    (the others are not read)."""
-    import torch
+    and its bound (:func:`k1_bytes`)."""
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
     t = insert_inputs(device, SLICE_N, SLICE_K, SLICE_P, SLICE_S, ordered,
                       with_src, seed)
     args = insert_args(t, SLICE_N)
-    start, cnt = args[0], args[1]
-    if ordered:
-        room = SLICE_K - t["counts"]
-    else:
-        room = (t["mb_rel"] == 2**31 - 1).sum(dim=0, dtype=torch.int32)
-    gathered = int(torch.minimum(cnt, room).sum())
-    planes = t["mb_rel"].numel() + t["mb_payload"].numel() \
-        + (t["mb_src"].numel() if with_src else 0)
-    row = (1 + with_src + SLICE_P) * 4   # bytes of a mailbox row or entry
-    unread = gathered * (row - 4 * (not ordered))   # filled rows' old words
-    k1_bytes = 2 * planes * 4 - unread + (2 + ordered) * SLICE_N * 4 \
-        + gathered * row
+    k1_bytes_ = k1_bytes(args)
     return dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
                 plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args),
                                   queued=False),
-                bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes)
+                bound_ms=k1_bytes_ / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes_)
 
 
 def phase_times(device):
@@ -1103,6 +1140,174 @@ def phase_time_k4(device, planes):
     return r
 
 
+# -- the eager routing slice: steady gossip at 2^20 and K1 at its width ---
+
+def steady_gossip(n):
+    """bench.py gossip_steady_1m: rumor mongering, every infected node
+    relays to one peer per 1 ms round; window 1 (the eager path)."""
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
+    sc = gossip(n, fanout=1, think_us=1_000, gossip_interval=1_000,
+                end_us=1 << 50, steady=True, mailbox_cap=8)
+    return sc, Quantize(UniformDelay(500, 4_500), 1_000)
+
+
+def phase_steady_main_path(device, n=STEADY_N, warm=64, steps=256):
+    """The slice's main path: steady gossip through ``run_quiet``."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link = steady_gossip(n)
+    eng = TorchEngine(sc, link, device=device)
+    ci.reset_launches()
+    mid = eng.run_quiet(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin = eng.run_quiet(steps, mid)
+    wall = time.perf_counter() - t0           # run_quiet ends in a sync
+    launches = dict(ci.LAUNCHES)
+    total = int(fin.steps)
+    delivered = int(fin.delivered) - int(mid.delivered)
+    checks = {
+        "eager path": not eng.adaptive and not eng.lazy,
+        "all supersteps ran": total == warm + steps,
+        "bad_dst == bad_delay == short_delay == route_drop == 0":
+            int(fin.bad_dst) == int(fin.bad_delay) == int(fin.short_delay)
+            == int(fin.route_drop) == 0,
+        "every node infected": int((fin.states["hop"] < 0).sum()) == 0,
+        "delivered > 0": delivered > 0}
+    if device.type == "cuda":
+        checks.update({
+            "mailbox_insert launched once per superstep":
+                launches["mailbox_insert"] == total,
+            "no K2/K3/K4 launch": launches["fire_compact"]
+                == launches["sample_insert"] == launches["fused_ring"] == 0})
+    _require_all("steady main path", checks)
+    say(f"steady main path: gossip n={n} window={eng.window} supersteps="
+        f"{total} (timed {steps}) delivered={delivered} overflow="
+        f"{int(fin.overflow)} (of {int(fin.delivered)} delivered in all) "
+        f"virtual_us={int(fin.time)} wall_s={wall} "
+        f"delivered_msgs_per_s={delivered / wall} "
+        f"wall_ms_per_superstep={wall / steps * 1e3} launches={launches}")
+    return launches, eng, fin
+
+
+def phase_eager_equals_lazy(device, n=STEADY_N, steps=64):
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    sc, link = steady_gossip(n)
+    eager = TorchEngine(sc, link, device=device)
+    lazy = TorchEngine(sc, link, route_cap=n * sc.max_out, device=device)
+    _require_all("eager = lazy", {"the paths": not eager.lazy and lazy.lazy})
+    (se, te), (sl, tl) = eager.run(steps), lazy.run(steps)
+    assert_traces_equal(te, tl, "eager", "lazy")
+    _states_equal("eager vs lazy", se, sl, sc)
+    _require_all("eager = lazy", {"route_drop == 0": int(sl.route_drop) == 0})
+    say(f"eager = lazy: steady gossip n={n} supersteps={len(te)} "
+        f"delivered={int(se.delivered)} overflow={int(se.overflow)} "
+        "traces and every state leaf equal")
+
+
+def phase_routing_card_vs_cpu(device, n=1 << 14):
+    """Each new path and model, card against CPU through ``run``."""
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.models.ping_pong import ping_pong
+    from timewarp_tpu_torch.models.praos import praos
+    from timewarp_tpu_torch.models.socket_state import socket_state
+    from timewarp_tpu_torch.net.links import parse_link
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    droppy = parse_link("drop:0.15:quantize:1000:uniform:2000:30000")
+    paced = gossip(n, fanout=6, think_us=3_000, gossip_interval=1_000,
+                   end_us=400_000)
+    cases = (
+        ("droppy gossip, window auto (eager, 3-key sort), record_events",
+         paced, droppy, dict(window="auto", record_events=1 << 16), 400,
+         "route_drop == 0"),
+        ("praos, route_cap 64 below its active count (lazy)",
+         praos(n, slot_us=100_000, n_slots=6, leader_prob=4.0 / n, fanout=8,
+               burst=True, mailbox_cap=16),
+         parse_link("quantize:1000:uniform:8000:30000"),
+         dict(window="auto", route_cap=64), 400, "route_drop > 0"),
+        ("steady gossip, window 1 (eager)", *steady_gossip(n), {}, 120,
+         "route_drop == 0"),
+        ("socket-state on a droppy link, window 1 (eager)",
+         socket_state(n - 1, seed=1, send_interval_us=20_000,
+                      server_life_us=2_000_000, mailbox_cap=64),
+         parse_link("drop:0.1:quantize:1000:uniform:3000:9000"), {}, 400,
+         "route_drop == 0"),
+        ("ping-pong (ordered inbox with src)", ping_pong(rounds=50),
+         parse_link("uniform:500:2000"), {}, 400, "route_drop == 0"),
+    )
+    for tag, sc, link, kw, steps, drops in cases:
+        engines = [TorchEngine(sc, link, seed=11, device=dev, **kw)
+                   for dev in (device, "cpu")]
+        (sa, ta), (sb, tb) = (e.run(steps) for e in engines)
+        secs = [e.last_run_stats["wall_seconds"] for e in engines]
+        assert_traces_equal(ta, tb, str(device), "cpu")
+        _states_equal(f"card vs CPU, {tag}", sa, sb, sc)
+        rd = int(sa.route_drop)
+        _require_all(f"card vs CPU, {tag}", {
+            drops: rd > 0 if drops.endswith("> 0") else rd == 0,
+            "delivered > 0": int(sa.delivered) > 0,
+            "not the adaptive regime": not engines[0].adaptive})
+        extra = ""
+        if kw.get("record_events"):
+            ev = [e.events(st) for e, st in zip(engines, (sa, sb))]
+            if ev[0] != ev[1]:
+                raise AssertionError(f"card vs CPU, {tag}: events differ")
+            extra = (f" events={len(ev[0][0])} (missing {ev[0][1]}) "
+                     "equal")
+        say(f"card vs CPU: {tag}: n={sc.n_nodes} supersteps={len(ta)} "
+            f"delivered={int(sa.delivered)} overflow={int(sa.overflow)} "
+            f"route_drop={rd} traces and states equal{extra} "
+            f"(wall_s card {secs[0]}, CPU {secs[1]})")
+
+
+def phase_k1_eager(device, eng, state):
+    """K1 on the batch of one steady-state superstep from ``state``: its
+    arguments taken where the engine's insertion stage receives them."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    taken = {}
+    stage_insert = eng.stage.insert
+
+    def take(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts):
+        start, cnt = ci.bucket_bounds(sd, eng.stage.n)
+        taken["args"] = (start, cnt, counts, drel_s,
+                         src_s if eng.stage.inbox_src else None, pay_s,
+                         mb_rel, mb_src, mb_payload)
+        taken["sd"] = sd
+        return stage_insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src,
+                            mb_payload, counts)
+    eng.stage.insert = take
+    try:
+        eng.run_quiet(1, state)
+    finally:
+        del eng.stage.insert
+    args = taken["args"]
+    got = ci.mailbox_insert(*args)
+    want = ci.mailbox_insert_plain(*args)
+    torch.cuda.synchronize()
+    err = _equal("K1 eager width", got, want)
+    n = args[6].shape[1]
+    S, valid = taken["sd"].numel(), int(args[1].sum())
+    nbytes = k1_bytes(args)
+    r = dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
+             plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*args),
+                               queued=False),
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+    say(f"K1 eager width: n={n} S={S} valid={valid} sentinel_tail="
+        f"{S - valid} K={args[6].shape[0]} P={args[8].shape[1]} "
+        f"src={args[4] is not None} overflow={int(got[3])} bit-equal "
+        f"max_abs_err={err}")
+    say(f"time mailbox_insert at the eager width: kernel_ms={r['ms']} "
+        f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} (bytes "
+        f"{nbytes} over 3.35 TB/s; {nvidia_smi()}; no single PyTorch call "
+        "computes this function: library_ms null)")
+    return err, r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1160,6 +1365,15 @@ def main() -> int:
     phase_where_time_goes("dense ring (EdgeEngine)",
                           EdgeEngine(*dense_ring(RING_N), device=device),
                           warm=16, steps=32)
+
+    steady_launches, steady_eng, steady_fin = phase_steady_main_path(device)
+    launches["mailbox_insert"] += steady_launches["mailbox_insert"]
+    phase_eager_equals_lazy(device)
+    phase_routing_card_vs_cpu(device)
+    err_k1_eager, _ = phase_k1_eager(device, steady_eng, steady_fin)
+    err_k1 = max(err_k1, err_k1_eager)
+    phase_where_time_goes("steady gossip (TorchEngine, eager)", steady_eng,
+                          warm=64, steps=32)
 
     kernels = []
     for name, src, repl, err, r in (

@@ -181,19 +181,28 @@ def test_insert_cap_drops_match_pallas_stage():
 
 
 def test_refuses_what_is_not_ported():
+    """The options still unported are refused by name; the knobs of the
+    other regimes are refused where the reference refuses them:
+    ``insert_cap`` outside the adaptive regime, ``route_cap < 1`` and a
+    negative ``record_events``."""
     tsc, tl = _gossip_pair(256, _quantized_uniform)[1]
-    for kw in (dict(route_cap=64), dict(faults=object()),
-               dict(telemetry="counters"), dict(batch=object()),
-               dict(speculate="auto")):
+    for kw in (dict(faults=object()), dict(telemetry="counters"),
+               dict(batch=object()), dict(speculate="auto")):
         with pytest.raises(ValueError, match="not yet ported"):
             TorchEngine(tsc, tl, window="auto", device="cpu", **kw)
     with pytest.raises(TypeError):
         TorchEngine(tsc, tl, device="cpu", insert="pallas")
-    droppy = td.FnDelay(lambda s, d, t, k: (d.long(), d < 0))
-    with pytest.raises(ValueError, match="not yet ported"):
-        TorchEngine(tsc, droppy, device="cpu")
     with pytest.raises(ValueError, match="exceeds"):
         TorchEngine(tsc, tl, window=9_000, device="cpu")
+    droppy = td.FnDelay(lambda s, d, t, k: (d.long(), d < 0))
     paced = tg.gossip(256, burst=False)
-    with pytest.raises(ValueError, match="not yet ported"):
-        TorchEngine(paced, td.FixedDelay(5), device="cpu")   # window 1
+    for sc, link, kw in ((tsc, droppy, {}),                      # eager
+                         (paced, td.FixedDelay(5), {}),          # window 1
+                         (tsc, tl, dict(window="auto", route_cap=64))):
+        with pytest.raises(ValueError, match="never compacts"):
+            TorchEngine(sc, link, insert_cap=2048, device="cpu", **kw)
+        assert not TorchEngine(sc, link, device="cpu", **kw).adaptive
+    with pytest.raises(ValueError, match="route_cap must be >= 1"):
+        TorchEngine(tsc, tl, window="auto", route_cap=0, device="cpu")
+    with pytest.raises(ValueError, match="record_events must be >= 0"):
+        TorchEngine(tsc, tl, window="auto", record_events=-1, device="cpu")

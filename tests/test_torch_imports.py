@@ -40,7 +40,9 @@ def _is_jax(name: str) -> bool:
 
 def test_import_leaves_jax_and_reference_out():
     mods = _modules()
-    assert "timewarp_tpu_torch.interp.torch_engine.engine" in mods
+    for m in ("interp.torch_engine.engine", "models.ping_pong",
+              "models.socket_state", "net.links"):
+        assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

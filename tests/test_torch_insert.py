@@ -18,7 +18,9 @@ Tolerance: exact — every output column and counter, bit for bit. The
 CUDA kernels themselves run only on the card: the ``cuda``-marked tests
 below hold them against the plain versions there (K1 on the edges of its
 tile walk, in both modes, the ordered one also with holes apart from its
-kept rows) and skip elsewhere.
+kept rows, and at the eager routing path's width, a batch of
+``n * max_out`` lanes that ends in a long sentinel tail) and skip
+elsewhere.
 """
 
 import numpy as np
@@ -288,6 +290,13 @@ _K1_EDGES = {
                          (), 0),
     "K130-counts-all-K": (_ORDERED, 4096, 130, 1, False, 1 << 15, 0.7,
                           24, (), 130),
+    # the eager routing path's batch: S = n * max_out, most of it the
+    # sentinel tail (invalid, dropped and bad-destination lanes)
+    "eager-width-long-sentinel-tail": (_BOTH, 1 << 16, 8, 1, False,
+                                       1 << 16, 0.25, 24, (), None),
+    "eager-width-M2-P2-src-long-sentinel-tail": (_BOTH, 1 << 16, 4, 2, True,
+                                                 1 << 17, 0.1, 16, (),
+                                                 None),
 }
 
 

@@ -1,10 +1,14 @@
 """The port's scenario steps against the reference's, leaf for leaf: one
-gossip step (burst and paced), one Praos step (burst and paced, with
-stake weights and random firing entropy) and one token-ring step (with
+gossip step (burst, paced and steady), one Praos step (burst and paced,
+with stake weights and random firing entropy), one token-ring step (with
 the observer, the ordered-inbox scenario, and the static ring without it,
-whose ``static_dst`` is held too) on random inboxes and states made with
-numpy from a seed, plus the initial states (the per-node ``init`` of
-Praos and of the token ring too).
+whose ``static_dst`` is held too), one ping-pong step and one
+socket-state step (its per-client counters fed payloads outside
+``[1, C]`` too) on random inboxes and states made with numpy from a
+seed, plus the initial states (the per-node ``init`` of Praos, the token
+ring, ping-pong and socket-state too). Ping-pong and socket-state key
+their roles on the node id, so their steps run many lanes that repeat
+the ids ``0..n-1``.
 The reference step is ``vmap``-ed exactly as ``JaxEngine`` does (inbox
 and outbox node axis minor); the port's step is batched by hand.
 
@@ -20,11 +24,17 @@ import jax.numpy as jnp
 
 from timewarp_tpu.core.scenario import Inbox as JInbox
 from timewarp_tpu.core.scenario import Outbox as JOutbox
+from timewarp_tpu.interp.jax_engine.common import \
+    init_states_wake as j_init_states_wake
 from timewarp_tpu.models.gossip import gossip as jgossip
+from timewarp_tpu.models.ping_pong import ping_pong as jping
+from timewarp_tpu.models.socket_state import socket_state as jsocket
 from timewarp_tpu.models.praos import praos as jpraos
 from timewarp_tpu.models.token_ring import token_ring as jring
 from timewarp_tpu_torch.core.scenario import NEVER, Inbox
 from timewarp_tpu_torch.models.gossip import gossip as tgossip
+from timewarp_tpu_torch.models.ping_pong import ping_pong as tping
+from timewarp_tpu_torch.models.socket_state import socket_state as tsocket
 from timewarp_tpu_torch.models.praos import praos as tpraos
 from timewarp_tpu_torch.models.token_ring import token_ring as tring
 
@@ -41,13 +51,14 @@ def _inbox(rng, K, P, n, pay_lo, pay_hi, kinds=False):
                 payload=payload)
 
 
-def _both_steps(jsc, tsc, states, inbox, now, key=None):
+def _both_steps(jsc, tsc, states, inbox, now, key=None, ids=None):
     """One step of each package on the same inputs; ``key`` (optional) is
-    the firing entropy as two uint32 arrays ``[n]``. States the scenario
-    declares in ``u32_states`` go to the reference as uint32 and to the
-    port as int64 words."""
+    the firing entropy as two uint32 arrays ``[n]``, ``ids`` the node id
+    of each lane (default ``0..n-1``). States the scenario declares in
+    ``u32_states`` go to the reference as uint32 and to the port as int64
+    words."""
     n = now.size
-    ids = np.arange(n, dtype=np.int32)
+    ids = np.arange(n, dtype=np.int32) if ids is None else ids
     u32 = set(tsc.u32_states)
     jout = jax.vmap(
         jsc.step,
@@ -90,17 +101,20 @@ def _gossip_states(rng, n, fanout):
                       rng.integers(0, 2 * 10**6, n)).astype(np.int64))
 
 
-@pytest.mark.parametrize("burst", [True, False], ids=["burst", "paced"])
-def test_gossip_step_equal(burst):
-    n, K, fanout = 301, 8, 8
+@pytest.mark.parametrize("burst,steady", [(True, False), (False, False),
+                                          (False, True)],
+                         ids=["burst", "paced", "steady"])
+def test_gossip_step_equal(burst, steady):
+    n, K = 301, 8
+    fanout = 1 if steady else 8
     kw = dict(fanout=fanout, think_us=2_000, burst=burst, end_us=10**6,
-              mailbox_cap=K)
+              steady=steady, mailbox_cap=K)
     jsc, tsc = jgossip(n, **kw), tgossip(n, **kw)
     assert (tsc.max_out, tsc.payload_width, tsc.mailbox_cap,
             tsc.commutative_inbox, tsc.inbox_src) == \
         (jsc.max_out, jsc.payload_width, jsc.mailbox_cap,
          jsc.commutative_inbox, jsc.inbox_src)
-    rng = np.random.default_rng(11 + burst)
+    rng = np.random.default_rng(11 + burst + 2 * steady)
     states = _gossip_states(rng, n, fanout)
     now = rng.integers(0, 2 * 10**6, n).astype(np.int64)
     now[:8] = states["next"][:8].clip(max=2 * 10**6)   # some nodes due
@@ -216,3 +230,72 @@ def test_init_states_equal(which):
                 assert tst[k].dtype == getattr(
                     torch, str(np.asarray(jst[k]).dtype)), (i, k)
                 assert int(tst[k]) == int(jst[k]), (i, k)
+
+
+def test_ping_pong_step_equal():
+    lanes, K, start = 400, 4, 1_000
+    jsc, tsc = jping(rounds=5, start_us=start), tping(rounds=5,
+                                                      start_us=start)
+    assert (tsc.n_nodes, tsc.max_out, tsc.payload_width, tsc.mailbox_cap,
+            tsc.commutative_inbox, tsc.inbox_src) == \
+        (jsc.n_nodes, jsc.max_out, jsc.payload_width, jsc.mailbox_cap,
+         jsc.commutative_inbox, jsc.inbox_src)
+    rng = np.random.default_rng(41)
+    states = dict(rem=rng.integers(0, 4, lanes).astype(np.int32),
+                  seq=rng.integers(0, 3, lanes).astype(np.int32))
+    now = np.where(rng.random(lanes) < 0.3, start,
+                   rng.integers(0, 5_000, lanes)).astype(np.int64)
+    inbox = _inbox(rng, K, 2, lanes, -5, 9, kinds=True)
+    _, out = _both_steps(jsc, tsc, states, inbox, now,
+                         ids=np.arange(lanes, dtype=np.int32) % 2)
+    assert bool(out.valid[0, 0::2].any()) and bool(out.valid[0, 1::2].any())
+
+
+def test_socket_state_step_equal():
+    C, lanes, K = 5, 600, 8
+    kw = dict(n_clients=C, send_interval_us=50_000, server_life_us=120_000,
+              seed=3, mailbox_cap=K)
+    jsc, tsc = jsocket(**kw), tsocket(**kw)
+    assert tsc.meta["sends"] == jsc.meta["sends"]
+    assert (tsc.n_nodes, tsc.max_out, tsc.payload_width,
+            tsc.commutative_inbox, tsc.inbox_src) == \
+        (jsc.n_nodes, jsc.max_out, jsc.payload_width,
+         jsc.commutative_inbox, jsc.inbox_src)
+    rng = np.random.default_rng(43)
+    states = dict(cnt=rng.integers(0, 9, (lanes, C)).astype(np.int32),
+                  left=rng.integers(0, 4, lanes).astype(np.int32),
+                  next=rng.integers(0, 200_000, lanes).astype(np.int64))
+    # payloads 1..C count; 0 and -C+1..-1 wrap as jnp's scatter wraps
+    # them; beyond C, below -C and I32MIN (whose - 1 wraps) add nothing
+    inbox = _inbox(rng, K, 1, lanes, -C - 3, C + 4)
+    inbox["payload"][0, 0, :8] = I32MIN
+    now = rng.integers(0, 240_000, lanes).astype(np.int64)
+    ts, out = _both_steps(jsc, tsc, states, inbox, now,
+                          ids=np.arange(lanes, dtype=np.int32) % (C + 1))
+    assert int((ts["cnt"] != torch.from_numpy(states["cnt"])).sum()) > 0
+    assert bool(out.valid.any())
+
+
+def test_roulette_and_inits_equal():
+    from timewarp_tpu.models.socket_state import roulette_sends as jroul
+    from timewarp_tpu_torch.models.socket_state import roulette_sends
+    for C, seed in ((3, 24), (1023, 1), (50, 0)):
+        assert roulette_sends(C, seed) == jroul(C, seed)
+    for jsc, tsc in ((jping(rounds=7, start_us=500),
+                      tping(rounds=7, start_us=500)),
+                     (jsocket(n_clients=40, seed=5),
+                      tsocket(n_clients=40, seed=5))):
+        n = jsc.n_nodes
+        js, jw = j_init_states_wake(jsc)   # ping-pong: its stacked init
+        ts, tw = tsc.init_batched(n, torch.device("cpu"))
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+        assert set(js) == set(ts)
+        for k in js:
+            assert ts[k].dtype == getattr(torch, str(np.asarray(js[k]).dtype))
+            np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]))
+        for i in range(n):
+            (jst, jwi), (tst, twi) = jsc.init(i), tsc.init(i)
+            assert int(jwi) == int(twi) and set(jst) == set(tst)
+            for k in jst:
+                np.testing.assert_array_equal(tst[k].numpy(),
+                                              np.asarray(jst[k]))

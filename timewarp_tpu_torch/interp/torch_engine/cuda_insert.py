@@ -32,6 +32,7 @@ from ...utils import build
 __all__ = ["LAUNCHES", "reset_launches", "fire_compact",
            "fire_compact_plain", "mailbox_insert", "mailbox_insert_plain",
            "bucket_bounds", "InsertStage", "LANES", "sample_nodrop",
+           "link_sample", "flight_times",
            "compact_scratch_words",
            "LoweredLink", "sample_insert", "sample_insert_plain"]
 
@@ -314,29 +315,46 @@ def mailbox_insert(start, cnt, counts, drel, src, pay,
 
 class InsertStage:
     """The engine's routing front end and insertion back end: K2 turns
-    the pre-masked ``[M, N]`` outbox into the compact fired batch, K1
-    merges the sorted, sampled batch into the mailbox.
+    the pre-masked ``[M, N]`` outbox into the compact fired batch (the
+    adaptive regime only), K1 merges the sorted, sampled batch into the
+    mailbox.
 
     ``insert_cap`` bounds the fired batch in messages, as in the
     reference: default ``n_nodes * max_out`` (nothing can drop), rounded
     UP to a multiple of 1024 — so a given cap drops exactly the messages
     the reference's ``PallasInsertStage`` drops, counted in
-    ``route_drop``. Unlike the reference, ``n_nodes`` need not be a
+    ``route_drop``. Outside the adaptive regime (``adaptive`` False: a
+    ``route_cap``, a droppy link, or window 1 with ``max_out`` 1) nothing
+    is compacted and ``insert_cap`` is refused; the batch is the eager
+    width ``n_nodes * max_out``, or ``route_cap`` when smaller, which is
+    not rounded. Unlike the reference, ``n_nodes`` need not be a
     multiple of 1024."""
 
     def __init__(self, scenario, n: int, *, window: int,
-                 insert_cap: Optional[int]) -> None:
+                 insert_cap: Optional[int], adaptive: bool = True,
+                 route_cap: Optional[int] = None) -> None:
         M = scenario.max_out
         self.n, self.M = n, M
         self.W = int(window)
         self.inbox_src = scenario.inbox_src
         full = n * M
-        if insert_cap is not None and int(insert_cap) < M:
-            raise ValueError(f"insert_cap must be >= max_out={M} (one "
-                             f"whole sender), got {insert_cap}")
-        cap = full if insert_cap is None else min(int(insert_cap), full)
-        #: the fired batch's static width
-        self.S = -(-cap // 1024) * 1024
+        if insert_cap is not None:
+            if int(insert_cap) < M:
+                raise ValueError(f"insert_cap must be >= max_out={M} (one "
+                                 f"whole sender), got {insert_cap}")
+            if not adaptive:
+                raise ValueError(
+                    "insert_cap bounds the fire-compacted adaptive "
+                    "batch; this engine's regime (route_cap / droppy "
+                    "link / classic narrow outbox) never compacts — "
+                    "drop the knob or use route_cap")
+        if adaptive:
+            cap = full if insert_cap is None else min(int(insert_cap), full)
+            #: the fired batch's static width
+            self.S = -(-cap // 1024) * 1024
+        else:
+            #: the sorted batch's width: eager, or sliced to route_cap
+            self.S = full if route_cap is None else min(int(route_cap), full)
 
     def compact(self, pdst, woff_n, payload):
         """Raw pre-masked outbox planes in, compact fired batch out:
@@ -358,18 +376,22 @@ class InsertStage:
 # link sampling (shared by the general engine and K3's plain version)
 # ----------------------------------------------------------------------
 
-def sample_nodrop(link, s0: int, s1: int, W: int, src, dst, tmsg, slot,
-                  woff, ok):
-    """Link sampling for the no-drop routing path: the per-message
-    entropy ``msg_bits(s0, s1, src, dst, tmsg, slot)``, the link's delay,
-    the ``>= 1 µs`` flight clamp, the epoch-relative deliver time
+def link_sample(link, s0: int, s1: int, src, dst, tmsg, slot):
+    """The link's draw for each message: the per-message entropy
+    ``msg_bits(s0, s1, src, dst, tmsg, slot)`` (derived only when the
+    model reads it) into ``link.sample``. Returns ``(delay int64, drop
+    bool)``."""
+    mbits = msg_bits(s0, s1, src, dst, tmsg, slot) if link.needs_key \
+        else None
+    return link.sample(src, dst, tmsg, mbits)
+
+
+def flight_times(delay, woff, ok, W: int):
+    """The ``>= 1 µs`` flight clamp, the epoch-relative deliver time
     ``woff + flight`` saturated to int32, and the ``bad_delay`` /
     ``short_delay`` counts over the ``ok`` entries (``short`` only when
     the window ``W > 1``). Returns ``(flight int64, drel int32, bad,
     short)``."""
-    mbits = msg_bits(s0, s1, src, dst, tmsg, slot) if link.needs_key \
-        else None
-    delay, _ = link.sample(src, dst, tmsg, mbits)
     flight = torch.clamp(delay, min=1)                     # contract #4
     drel64 = woff.long() + flight
     bad = (ok & (drel64 > I32MAX - 1)).sum(dtype=torch.int32)
@@ -379,6 +401,15 @@ def sample_nodrop(link, s0: int, s1: int, W: int, src, dst, tmsg, slot,
         short = torch.zeros((), dtype=torch.int32, device=ok.device)
     drel = torch.clamp(drel64, max=I32MAX - 1).to(torch.int32)
     return flight, drel, bad, short
+
+
+def sample_nodrop(link, s0: int, s1: int, W: int, src, dst, tmsg, slot,
+                  woff, ok):
+    """Link sampling for the no-drop routing paths (lazy, adaptive and
+    K3's plain version): :func:`link_sample` then :func:`flight_times`,
+    the drop column unread."""
+    delay, _ = link_sample(link, s0, s1, src, dst, tmsg, slot)
+    return flight_times(delay, woff, ok, W)
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The general engine on PyTorch (port of
-``timewarp_tpu/interp/jax_engine/engine.py``, the adaptive regime).
+``timewarp_tpu/interp/jax_engine/engine.py``, single device).
 
 Whole-network emulation as a Python loop of supersteps over tensors:
 per-node ``next_wake`` plus bounded ``[K, N]`` mailboxes with int32
@@ -14,14 +14,22 @@ in the reference's order:
    ordered inboxes);
 4. run the scenario's batched step;
 5. drop what was delivered and rebase to the new epoch;
-6. route: fire-compact the outbox (kernel K2), sort the batch by
-   ``(destination, window offset, sender-major rank)``, sample the link,
-   and insert into the mailbox (kernel K1).
+6. route, in one of the reference's three regimes, and insert into the
+   mailbox (kernel K1). Adaptive (no ``route_cap``, a drop-free link,
+   and ``window > 1`` or ``max_out > 1``): fire-compact the outbox
+   (kernel K2), sort the batch by ``(destination, window offset,
+   sender-major rank)``, then sample the link. Otherwise the outbox is
+   flattened slot-major at ``S = N·max_out``: the eager path samples
+   every slot (a droppy link's draw decides validity) and then sorts;
+   the lazy path (``route_cap`` with a drop-free link) sorts first,
+   slices to ``route_cap`` and samples only that prefix.
+
+With ``record_events > 0`` every superstep also appends its fires and
+deliveries to an on-device event ring (:meth:`TorchEngine.events`).
 
 The emitted trace and final state equal ``JaxEngine``'s bit for bit
-(tests/test_torch_engine.py). The slice covers the adaptive regime —
-no ``route_cap``, a drop-free link, and ``window > 1`` or ``max_out > 1``
-— and refuses everything else at construction.
+(tests/test_torch_engine.py, tests/test_torch_routing.py). Batched
+worlds, faults and the run-mode planes are refused at construction.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...trace.hashing import FIRED, RECV, SENT, mix32
 from .common import LocalComm, init_states_wake, refuse_unported, run_stats
-from .cuda_insert import InsertStage, sample_nodrop
+from .cuda_insert import (InsertStage, flight_times, link_sample,
+                          sample_nodrop)
 
 __all__ = ["TorchEngine", "EngineState", "resolve_device", "resolve_window",
            "sort_batch", "sent_digest"]
@@ -62,18 +71,18 @@ class EngineState(NamedTuple):
     delivered: torch.Tensor      # int64[]
     steps: torch.Tensor          # int64[]
     time: torch.Tensor           # int64[] — current epoch
-    ev_time: torch.Tensor        # int64[0] — the event ring (not ported)
-    ev_meta: torch.Tensor        # int32[4, 0]
-    ev_count: torch.Tensor       # int64[]
+    ev_time: torch.Tensor        # int64[E] — event ring, E = record_events
+    ev_meta: torch.Tensor        # int32[4, E] — kind, node, src, payload0
+    ev_count: torch.Tensor       # int64[] — events seen, stored or not
     fault_dropped: torch.Tensor  # int32[] — faults are not ported: 0
     restart_done: torch.Tensor   # bool[0]
 
 
 #: the reference engine's options this slice does not port, with the
 #: value that means "off" — any other value is refused at construction
-_UNPORTED = {"route_cap": None, "record_events": 0, "batch": None,
-             "faults": None, "telemetry": "off", "controller": None,
-             "verify": "off", "record": "off", "speculate": "off"}
+_UNPORTED = {"batch": None, "faults": None, "telemetry": "off",
+             "controller": None, "verify": "off", "record": "off",
+             "speculate": "off"}
 
 
 def resolve_device(device, who: str = "TorchEngine") -> torch.device:
@@ -138,49 +147,57 @@ def sent_digest(ok, src, dst, tmsg, flight, pay0) -> torch.Tensor:
 
 class TorchEngine:
     """Single-device engine for dynamic-destination scenarios —
-    ``JaxEngine(insert="pallas")`` on the adaptive regime, with the
+    ``JaxEngine(insert="pallas")`` on one device, with the
     fire-compaction and mailbox-insertion kernels on the card (their
     plain versions on the CPU).
 
     ``window`` is an int µs width or ``"auto"`` (the link's declared
     floor); it must not exceed ``link.min_delay_us``, and sampled delays
-    shorter than it are counted in ``short_delay``. ``insert_cap`` bounds
-    the fired batch (default ``n_nodes * max_out``: nothing can drop; a
-    smaller cap counts the excess in ``route_drop``). ``device`` defaults
-    to the card. After ``run``/``run_quiet``, ``last_run_stats`` holds
-    the call's supersteps, wall seconds and compiles (0)."""
+    shorter than it are counted in ``short_delay``. ``route_cap`` bounds
+    the sorted batch outside the adaptive regime, unrounded (the excess
+    is counted in ``route_drop``); ``insert_cap`` bounds the adaptive
+    regime's fired batch (default ``n_nodes * max_out``: nothing can
+    drop) and is refused in the other regimes. ``record_events`` is the
+    capacity of the event ring (0: off). ``device`` defaults to the card.
+    After ``run``/``run_quiet``, ``last_run_stats`` holds the call's
+    supersteps, wall seconds and compiles (0)."""
 
     last_run_stats = None
 
     def __init__(self, scenario: Scenario, link: LinkModel, *,
-                 seed: int = 0, window=1,
-                 insert_cap: Optional[int] = None,
+                 seed: int = 0, window=1, route_cap: Optional[int] = None,
+                 record_events: int = 0, insert_cap: Optional[int] = None,
                  device=None, **unported) -> None:
-        self._hold(scenario, link, seed, device, unported)
-        sc = scenario
-        if link.can_drop:
-            raise ValueError(
-                "TorchEngine: links that can drop take the reference's "
-                "eager routing path, which is not yet ported")
+        self._hold(scenario, link, seed, device, record_events, unported)
         self.window = resolve_window(window, link)
-        if not (self.window > 1 or sc.max_out > 1):
-            raise ValueError(
-                "TorchEngine: window=1 with max_out=1 takes the reference's "
-                "eager routing path, which is not yet ported")
-        self.stage = InsertStage(sc, sc.n_nodes, window=self.window,
-                                 insert_cap=insert_cap)
+        if route_cap is not None and route_cap < 1:
+            raise ValueError(f"route_cap must be >= 1, got {route_cap}")
+        self.route_cap = None if route_cap is None else int(route_cap)
+        #: the regime step 6 takes (reference ``_adaptive_regime``)
+        self.adaptive = (self.route_cap is None and not link.can_drop
+                         and (self.window > 1 or scenario.max_out > 1))
+        #: outside it: sort first and sample only the route_cap prefix
+        #: (the lazy path), else sample every slot (the eager path)
+        self.lazy = self.route_cap is not None and not link.can_drop
+        self.stage = InsertStage(scenario, scenario.n_nodes,
+                                 window=self.window, insert_cap=insert_cap,
+                                 adaptive=self.adaptive,
+                                 route_cap=self.route_cap)
 
     def _hold(self, sc: Scenario, link: LinkModel, seed: int, device,
-              unported: dict) -> None:
+              record_events: int, unported: dict) -> None:
         """What every engine of this package checks and holds, before its
-        own regime guards: the unported options, the device, the seed
-        words and the node axis."""
+        own regime guards: the unported options, the device, the event
+        ring's capacity, the seed words and the node axis."""
         name = type(self).__name__
         refuse_unported(name, unported, _UNPORTED, "JaxEngine")
         self.device = resolve_device(device, name)
         if sc.n_nodes * sc.max_out >= 2**31:
             raise ValueError(
                 "n_nodes * max_out must fit int32 (sender-major rank)")
+        if record_events < 0:
+            raise ValueError("record_events must be >= 0")
+        self.record_events = int(record_events)
         self.scenario, self.link = sc, link
         self.s0, self.s1 = seed_words(seed)
         self.comm = LocalComm(sc.n_nodes, self.device)
@@ -204,8 +221,10 @@ class TorchEngine:
             bad_delay=scalar(torch.int32), short_delay=scalar(torch.int32),
             route_drop=scalar(torch.int32), delivered=scalar(torch.int64),
             steps=scalar(torch.int64), time=scalar(torch.int64),
-            ev_time=torch.zeros((0,), dtype=torch.int64, device=dev),
-            ev_meta=torch.zeros((4, 0), dtype=torch.int32, device=dev),
+            ev_time=torch.zeros((self.record_events,), dtype=torch.int64,
+                                device=dev),
+            ev_meta=torch.zeros((4, self.record_events), dtype=torch.int32,
+                                device=dev),
             ev_count=scalar(torch.int64),
             fault_dropped=scalar(torch.int32),
             restart_done=torch.zeros((0,), dtype=torch.bool, device=dev))
@@ -260,9 +279,83 @@ class TorchEngine:
                 bad_delay_step, short_step, route_drop_step, sent_count,
                 sent_hash)
 
-    #: step 6, the routing stage; an engine subclass replaces it
-    #: (fused_sparse.py) and keeps everything else
-    _route = _route_firecompact
+    def _route_flat(self, out, out_valid, now_vec, t, mb_rel, mb_src,
+                    mb_payload, counts, with_trace):
+        """Step 6 outside the adaptive regime: the outbox flattened
+        slot-major at ``S = N·M``, sampled (eager: every slot, before the
+        sort; lazy: the sorted ``route_cap`` prefix), ordered by ``(dst or
+        sentinel n, woff, smrank)``, sliced to ``route_cap`` when set,
+        inserted (K1), and the path's SENT digest."""
+        sc = self.scenario
+        M, P = sc.max_out, sc.payload_width
+        n = self.comm.n_local
+        S = n * M
+        src_f = self._node_ids.repeat(M)
+        slot_f = torch.arange(M, dtype=torch.int32,
+                              device=self.device).repeat_interleave(n)
+        tmsg = now_vec.repeat(M)                                # int64[S]
+        dst_f = out.dst.reshape(S).to(torch.int32)
+        pay_f = out.payload.to(torch.int32).permute(1, 0, 2).reshape(P, S)
+        v_f = out_valid.reshape(S)
+        dst_ok = (dst_f >= 0) & (dst_f < self.comm.n_global)
+        bad_dst_step = (v_f & ~dst_ok).sum(dtype=torch.int32)
+        woff = (tmsg - t).to(torch.int32)                       # [0, W)
+        smrank = src_f * M + slot_f
+        if self.lazy:
+            ok = v_f & dst_ok
+        else:
+            # every slot is drawn, invalid and out-of-range ones too (the
+            # draw is elementwise); a droppy link's draw decides validity
+            delay, drop = link_sample(self.link, self.s0, self.s1, src_f,
+                                      dst_f, tmsg, slot_f)
+            ok = v_f & ~drop & dst_ok
+            flight, drel, bad_delay_step, short_step = flight_times(
+                delay, woff, ok, self.window)
+        sort_dst = torch.where(ok, dst_f, n)
+        perm = sort_batch(sort_dst, woff, smrank)
+        route_drop_step = torch.zeros((), dtype=torch.int32,
+                                      device=self.device)
+        if self.route_cap is not None and self.route_cap < S:
+            # valid messages sort ahead of the sentinel: the prefix is
+            # exact while the active count fits, the excess is counted
+            perm = perm[:self.route_cap]
+            route_drop_step = ok.sum(dtype=torch.int32) \
+                - (sort_dst[perm] < n).sum(dtype=torch.int32)
+        sd, smrank_s = sort_dst[perm], smrank[perm]
+        src_s = torch.div(smrank_s, M, rounding_mode="floor")
+        pay_s = pay_f[:, perm].contiguous()
+        ok_s = sd < n
+        if self.lazy:
+            woff_s = woff[perm]
+            tmsg_s = t + woff_s.long()
+            flight_s, drel_s, bad_delay_step, short_step = sample_nodrop(
+                self.link, self.s0, self.s1, self.window, src_s, sd, tmsg_s,
+                smrank_s - src_s * M, woff_s, ok_s)
+        else:
+            drel_s = drel[perm]
+        mrel, msrc, mpay, overflow_step = self.stage.insert(
+            sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts)
+        # the SENT digest: lazy over the sliced survivors (all that has a
+        # delay), eager over every ok message at the unsliced width
+        if self.lazy:
+            sent_count = ok_s.sum(dtype=torch.int32)
+            sent_hash = sent_digest(ok_s, src_s, sd, tmsg_s, flight_s,
+                                    pay_s[0]) if with_trace else None
+        else:
+            sent_count = ok.sum(dtype=torch.int32)
+            sent_hash = sent_digest(ok, src_f, dst_f, tmsg, flight,
+                                    pay_f[0]) if with_trace else None
+        return (mrel, msrc, mpay, overflow_step, bad_dst_step,
+                bad_delay_step, short_step, route_drop_step, sent_count,
+                sent_hash)
+
+    def _route(self, *args):
+        """Step 6, the routing stage, in the engine's regime. An engine
+        subclass replaces it (fused_sparse.py) and keeps everything
+        else."""
+        if self.adaptive:
+            return self._route_firecompact(*args)
+        return self._route_flat(*args)
 
     def _superstep(self, st: EngineState, with_trace: bool
                    ) -> Optional[Tuple[EngineState, Optional[torch.Tensor]]]:
@@ -355,20 +448,55 @@ class TorchEngine:
             with_trace)
         return self._finish_superstep(
             st, states, wake, mb_rel, mb_src, mb_payload, deliver, fire,
-            node_ids, t, base, overflow_step, bad_dst_step, bad_delay_step,
-            short_step, route_drop_step, sent_count, sent_hash, with_trace)
+            now_vec, node_ids, t, base, overflow_step, bad_dst_step,
+            bad_delay_step, short_step, route_drop_step, sent_count,
+            sent_hash, with_trace)
+
+    def _record(self, st, deliver, fire, now_vec, node_ids, base):
+        """This superstep's events appended to the ring: fires in
+        ascending node order, then deliveries node-major in slot order.
+        Each ring slot is written at most once; an event past the
+        capacity E goes to a spare slot E that is cut off, while
+        ``ev_count`` keeps counting (the overflow evidence)."""
+        sc = self.scenario
+        K, n, E = sc.mailbox_cap, self.comm.n_local, self.record_events
+        base_i = torch.clamp(st.ev_count, max=E)
+        f = fire.long()
+        pos_f = base_i + torch.cumsum(f, 0) - f
+        idx_f = torch.where(fire & (pos_f < E), pos_f, E)
+        nf = f.sum()
+        dv = deliver.T.reshape(K * n)                          # node-major
+        d = dv.long()
+        pos_r = base_i + nf + torch.cumsum(d, 0) - d
+        idx_r = torch.where(dv & (pos_r < E), pos_r, E)
+        ev_time = torch.cat([st.ev_time, st.ev_time.new_zeros(1)])
+        ev_time[idx_f] = now_vec
+        ev_time[idx_r] = (base + st.mb_rel.long()).T.reshape(K * n)
+        meta = torch.cat([st.ev_meta, st.ev_meta.new_zeros((4, 1))], dim=1)
+        meta[0, idx_f] = 1
+        meta[1, idx_f] = node_ids
+        meta[0, idx_r] = 2
+        meta[1, idx_r] = node_ids.repeat_interleave(K)
+        meta[2, idx_r] = st.mb_src.T.reshape(K * n) if sc.inbox_src else 0
+        meta[3, idx_r] = st.mb_payload[:, 0, :].T.reshape(K * n)
+        return (ev_time[:E], meta[:, :E].contiguous(),
+                st.ev_count + nf + d.sum())
 
     def _finish_superstep(self, st, states, wake, mb_rel, mb_src,
-                          mb_payload, deliver, fire, node_ids, t, base,
-                          overflow_step, bad_dst_step, bad_delay_step,
+                          mb_payload, deliver, fire, now_vec, node_ids, t,
+                          base, overflow_step, bad_dst_step, bad_delay_step,
                           short_step, route_drop_step, sent_count,
                           sent_hash, with_trace):
-        """Assemble the post-superstep state and (optionally) the trace
-        row ``(t, fired_count, fired_hash, recv_count, recv_hash,
-        sent_count, sent_hash, overflow)``."""
+        """Assemble the post-superstep state, the event ring included,
+        and (optionally) the trace row ``(t, fired_count, fired_hash,
+        recv_count, recv_hash, sent_count, sent_hash, overflow)``."""
         sc = self.scenario
         K, n = sc.mailbox_cap, self.comm.n_local
         recv_count = deliver.sum(dtype=torch.int32)
+        ev_time, ev_meta, ev_count = st.ev_time, st.ev_meta, st.ev_count
+        if self.record_events:
+            ev_time, ev_meta, ev_count = self._record(
+                st, deliver, fire, now_vec, node_ids, base)
         new_st = st._replace(
             states=states, wake=wake,
             mb_rel=mb_rel, mb_src=mb_src, mb_payload=mb_payload,
@@ -379,7 +507,7 @@ class TorchEngine:
             route_drop=st.route_drop + route_drop_step,
             delivered=st.delivered + recv_count.long(),
             steps=st.steps + 1,
-            time=t)
+            time=t, ev_time=ev_time, ev_meta=ev_meta, ev_count=ev_count)
         if not with_trace:
             return new_st, None
         # trace digests (order-independent): from the pre-sort mask
@@ -397,12 +525,23 @@ class TorchEngine:
 
     # -- run loops ---------------------------------------------------------
 
+    def _start(self, state: Optional[EngineState]) -> EngineState:
+        """A run's first state: a fresh one, or ``state`` if its event
+        ring has this engine's capacity."""
+        if state is None:
+            return self.init_state()
+        if tuple(state.ev_meta.shape) != (4, self.record_events):
+            raise ValueError(
+                f"state's event ring holds {state.ev_meta.shape[1]} "
+                f"events, this engine's record_events={self.record_events}")
+        return state
+
     def run(self, max_steps: int, state: Optional[EngineState] = None
             ) -> Tuple[EngineState, SuperstepTrace]:
         """Execute up to ``max_steps`` supersteps (stopping early once
         quiesced); returns the final state and the trace of the
         supersteps that fired."""
-        st = self.init_state() if state is None else state
+        st = self._start(state)
         steps0 = int(st.steps)
         t0 = time.perf_counter()
         rows = []
@@ -420,7 +559,7 @@ class TorchEngine:
                   state: Optional[EngineState] = None) -> EngineState:
         """Traceless run: no digest work. Stops at quiescence or after
         ``max_steps`` supersteps."""
-        st = self.init_state() if state is None else state
+        st = self._start(state)
         steps0 = int(st.steps)
         t0 = time.perf_counter()
         for _ in range(max_steps):
@@ -431,3 +570,23 @@ class TorchEngine:
         # int() waits for the device, so the wall time covers the work
         self.last_run_stats = run_stats(t0, steps0, int(st.steps))
         return st
+
+    def events(self, state: EngineState):
+        """The event ring decoded on the host: ``("fire", time, node)`` and
+        ``("recv", deliver_time, node, src, payload0)`` tuples in ring
+        order, and the count of events that did not fit (0: the record
+        is complete). ``src`` is 0 for scenarios without ``inbox_src``."""
+        if not self.record_events:
+            raise ValueError("engine built with record_events=0")
+        ev_time = state.ev_time.cpu().numpy()
+        ev_meta = state.ev_meta.cpu().numpy()
+        total = int(state.ev_count)
+        filled = min(total, self.record_events)
+        out = []
+        for j in range(filled):
+            kind, node, src, pay = (int(x) for x in ev_meta[:, j])
+            if kind == 1:
+                out.append(("fire", int(ev_time[j]), node))
+            else:
+                out.append(("recv", int(ev_time[j]), node, src, pay))
+        return out, total - filled

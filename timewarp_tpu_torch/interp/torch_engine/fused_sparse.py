@@ -94,14 +94,16 @@ class FusedSparseEngine(TorchEngine):
     """:class:`TorchEngine` with the routing stage replaced by sender
     compaction, one batch sort and K3 (module docstring). ``max_batch``
     bounds the messages per superstep (default ``2**16``, as the
-    reference); ``device`` defaults to the card."""
+    reference); ``record_events`` is the event ring's capacity, as in
+    :class:`TorchEngine`; ``device`` defaults to the card."""
 
     def __init__(self, scenario: Scenario, link: LinkModel, *,
-                 seed: int = 0, window=1, max_batch: int = 1 << 16,
-                 device=None, **unported) -> None:
+                 seed: int = 0, window=1, record_events: int = 0,
+                 max_batch: int = 1 << 16, device=None,
+                 **unported) -> None:
         sc = scenario
         # TorchEngine's holdings, not its K2/K1 stage: _route replaces it
-        self._hold(sc, link, seed, device, unported)
+        self._hold(sc, link, seed, device, record_events, unported)
         if link.can_drop:
             raise ValueError(
                 "FusedSparseEngine requires a drop-free link (message "

@@ -103,8 +103,16 @@ def state_from_numpy(leaves: Dict[str, object], device,
                      scenario=None) -> EngineState:
     """The port's state from a reference ``EngineState``'s numpy leaves.
     The ``scenario``'s ``u32_states`` leaves must be uint32; they become
-    int64 words."""
-    return _from_numpy(EngineState, LEAF_DTYPES, leaves, device, scenario)
+    int64 words. The event ring carries across at any capacity E
+    (``ev_time`` ``[E]``, ``ev_meta`` ``[4, E]``)."""
+    st = _from_numpy(EngineState, LEAF_DTYPES, leaves, device, scenario)
+    E = st.ev_time.shape[0] if st.ev_time.dim() == 1 else -1
+    if tuple(st.ev_meta.shape) != (4, E) or st.ev_count.shape != ():
+        raise ValueError(
+            f"event ring leaves disagree: ev_time {tuple(st.ev_time.shape)}"
+            f", ev_meta {tuple(st.ev_meta.shape)}, ev_count "
+            f"{tuple(st.ev_count.shape)} (want [E], [4, E], [])")
+    return st
 
 
 def state_to_numpy(state: EngineState, scenario=None) -> Dict[str, object]:

@@ -8,8 +8,8 @@ all ``fanout`` in one firing (``burst=True``). The inbox reduces
 commutatively (min over hop counts) and never reads the sender.
 
 Payload layout: ``[hop]`` — the relay depth at which the rumor travels.
-Ported: the broadcast wave, paced and burst. The ``steady`` mongering
-variant is not yet ported.
+``steady=True`` is the rumor-mongering variant: an infected node keeps
+relaying to one random peer every ``gossip_interval`` until ``end_us``.
 """
 
 from __future__ import annotations
@@ -36,12 +36,14 @@ def gossip(n: int, *,
            burst: bool = False,
            mailbox_cap: int = 16) -> Scenario:
     """Build the gossip scenario (the reference's arguments). Node 0
-    starts infected; the run quiesces when every node has relayed."""
+    starts infected; the run quiesces when every node has relayed (wave)
+    or at ``end_us`` (``steady``)."""
     if n < 2:
         raise ValueError(f"gossip needs n >= 2 nodes, got {n} "
                          "(peer draw divides by n - 1)")
-    if steady:
-        raise ValueError("gossip(steady=True) is not yet ported")
+    if burst and steady:
+        raise ValueError("burst applies to the broadcast wave only; "
+                         "steady mode is round-paced by definition")
 
     def adopt(state, inbox: Inbox, now):
         """Adopt the minimum incoming relay depth (commutative)."""
@@ -82,9 +84,14 @@ def gossip(n: int, *,
         lcg1 = torch.where(due, lc, lcg)
         out = Outbox(valid=due[None, :], dst=dst[None, :],
                      payload=(hop1 + 1)[None, None, :])
-        left2 = left1 - due.to(torch.int32)
-        nxt2 = torch.where(
-            due, torch.where(left2 > 0, now + gossip_interval, NEVER), nxt1)
+        if steady:
+            left2 = left1                     # mongering never exhausts
+            nxt2 = torch.where(due, now + gossip_interval, nxt1)
+        else:
+            left2 = left1 - due.to(torch.int32)
+            nxt2 = torch.where(
+                due, torch.where(left2 > 0, now + gossip_interval, NEVER),
+                nxt1)
         wake = torch.where((left2 > 0) & alive, nxt2, NEVER)
         return {"hop": hop1, "lcg": lcg1, "left": left2,
                 "next": nxt2}, out, wake
