@@ -102,8 +102,8 @@ width, steady gossip at 2^20):
     states: a droppy windowed gossip (eager, 3-key sort) with
     ``record_events``, whose ``events()`` are equal too, a lazy Praos
     whose ``route_cap`` is below its active count (``route_drop > 0``),
-    steady gossip, socket-state on a droppy link, and ping-pong (ordered
-    inbox with src);
+    steady gossip, socket-state on a droppy link (at 2^12: its state is
+    n^2 words), and ping-pong (ordered inbox with src);
 24. K1 on a steady-state superstep's own batch from phase 21 (S = 2^20
     entries over 2^20 nodes, K 8, P 1, no src, commutative; in the
     steady state every lane holds a message): bit-equal to its plain
@@ -1231,8 +1231,10 @@ def phase_routing_card_vs_cpu(device, n=1 << 14):
          dict(window="auto", route_cap=64), 400, "route_drop > 0"),
         ("steady gossip, window 1 (eager)", *steady_gossip(n), {}, 120,
          "route_drop == 0"),
+        # its state holds a counter per client on every node, n^2 words:
+        # 64 MiB a copy at 2^12 nodes, 1 GiB at 2^14
         ("socket-state on a droppy link, window 1 (eager)",
-         socket_state(n - 1, seed=1, send_interval_us=20_000,
+         socket_state((n >> 2) - 1, seed=1, send_interval_us=20_000,
                       server_life_us=2_000_000, mailbox_cap=64),
          parse_link("drop:0.1:quantize:1000:uniform:3000:9000"), {}, 400,
          "route_drop == 0"),
