@@ -108,11 +108,38 @@ width, steady gossip at 2^20):
     entries over 2^20 nodes, K 8, P 1, no src, commutative; in the
     steady state every lane holds a message): bit-equal to its plain
     version, its time and its bound;
-25. where the steady path's time goes, as phase 7.
+25. where the steady path's time goes, as phase 7;
+26. K2 and K1 across the world axis (a fleet of B worlds in one launch)
+    against their plain versions at the chaos fleet's shape (8 worlds of
+    100 000 nodes, M 1, P 1, K 8, S 100 352), every world also against
+    its own solo call: a world with an empty batch, one world that drops
+    (K2) or whose hot nodes overflow (K1), B = 1 equal to the solo
+    kernel, a ragged N (100 003), window 1 with P 0, ordered K1 with
+    ``counts`` and src;
+27. the main path of the world-axis slice: ``bench.py``
+    ``gossip_100k_chaos``, 8 steady-gossip worlds of 100 000 nodes under
+    8 fault schedules through ``TorchEngine(batch=..., faults=...)``,
+    under the bench's gates — worlds 0 and 7 equal their solo faulted
+    runs over 12 supersteps, deliveries after every world's faults heal
+    — then, from 2 warm supersteps, ``run_quiet`` to quiescence with K2
+    and K1 each launched once per fleet superstep, ``short_delay`` and
+    ``route_drop`` 0, ``fault_dropped > 0`` and at most ``max(n // 500,
+    8)`` nodes uninfected in every world;
+28. fleet card against CPU at 2^12 nodes, 3 worlds, in each routing
+    regime: adaptive and eager under per-world fault schedules, lazy
+    under a link sweep;
+29. the chaos fleet saved mid-run on the card (utils/checkpoint.py) and
+    resumed equals the uninterrupted run; ``load_world_state`` of one
+    world continued solo equals that world;
+30. K2 and K1 on one chaos-fleet superstep's own arguments, taken at
+    ``eng.stage``: bit-equal, their times and byte bounds (per world,
+    summed over the 8);
+31. where the chaos fleet's time goes, as phase 7.
 
 Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed over its
-two main paths, phases 4 and 21; every time from phases 6, 13 and 19),
-the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+three main paths, phases 4, 21 and 27, K2's over phases 4 and 27; every
+time from phases 6, 13 and 19), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
 
@@ -140,6 +167,9 @@ PRAOS_N, PRAOS_P, PRAOS_S = 1 << 20, 2, (1 << 20) * SLICE_M
 RING_N = 1 << 20
 # the eager routing slice: steady gossip at 2^20 nodes
 STEADY_N = 1 << 20
+# the world-axis and faults slice: bench.py's chaos fleet, 8 worlds of
+# 100 000 nodes
+CHAOS_N, CHAOS_B = 100_000, 8
 K4_REPLACES = "timewarp_tpu/interp/jax_engine/fused_ring.py:468"
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("fire_compact_kernel", "mailbox_insert_kernel",
@@ -1275,11 +1305,15 @@ def phase_k1_eager(device, eng, state):
     stage_insert = eng.stage.insert
 
     def take(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts):
-        start, cnt = ci.bucket_bounds(sd, eng.stage.n)
-        taken["args"] = (start, cnt, counts, drel_s,
-                         src_s if eng.stage.inbox_src else None, pay_s,
-                         mb_rel, mb_src, mb_payload)
-        taken["sd"] = sd
+        # the superstep's world axis is 1 on a solo engine: K1 is taken
+        # at its solo shapes
+        solo = [None if x is None else x[0] for x in (
+            sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts)]
+        start, cnt = ci.bucket_bounds(solo[0], eng.stage.n)
+        taken["args"] = (start, cnt, solo[7], solo[1],
+                         solo[2] if eng.stage.inbox_src else None, solo[3],
+                         *solo[4:7])
+        taken["sd"] = solo[0]
         return stage_insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src,
                             mb_payload, counts)
     eng.stage.insert = take
@@ -1308,6 +1342,396 @@ def phase_k1_eager(device, eng, state):
         f"{nbytes} over 3.35 TB/s; {nvidia_smi()}; no single PyTorch call "
         "computes this function: library_ms null)")
     return err, r
+
+
+# -- the world axis and faults: the 8-world chaos fleet at 100 000 nodes ---
+
+def chaos_fleet(n=CHAOS_N, B=CHAOS_B):
+    """bench.py bench_gossip_100k_chaos: steady gossip, 8 worlds, 8
+    distinct fault schedules (a reset crash, a crash, a partition and a
+    degradation window per world), built as the bench builds them.
+    Returns ``(scenario, link, spec, fleet, heal_us)``."""
+    from timewarp_tpu_torch.faults import (FaultFleet, FaultSchedule,
+                                           LinkWindow, NodeCrash, Partition)
+    from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
+    sc = gossip(n, fanout=1, think_us=1_000, gossip_interval=1_000,
+                end_us=300_000, steady=True, mailbox_cap=8)
+    link = Quantize(UniformDelay(500, 4_500), 1_000)
+    half = n // 2
+    heal_us = 0
+    scheds = []
+    for b in range(B):
+        part_end = 70_000 + 2_000 * b
+        crash_up = 60_000 + 5_000 * b
+        heal_us = max(heal_us, part_end, crash_up + 10_000)
+        scheds.append(FaultSchedule((
+            NodeCrash((7 * b + 3) % n, 20_000, crash_up, reset_state=True),
+            NodeCrash((11 * b + half + 5) % n, 30_000, crash_up + 10_000),
+            Partition((tuple(range(half)), tuple(range(half, n))),
+                      25_000, part_end),
+            LinkWindow(None, None, 80_000, 120_000, scale=2.0 + 0.25 * b),
+        )))
+    return sc, link, BatchSpec(seeds=tuple(range(B))), \
+        FaultFleet(tuple(scheds)), heal_us
+
+
+def fleet_compact_inputs(device, B, n, M, P, fracs, seed, window1=False):
+    """B worlds' outboxes, world b a share ``fracs[b]`` of valid lanes."""
+    import torch
+    outs = [compact_inputs(device, n, M, P, f, seed + b)
+            for b, f in enumerate(fracs)]
+    pdst, woff, pay = (torch.stack(x) for x in zip(*outs))
+    return pdst, None if window1 else woff, pay
+
+
+def fleet_insert_inputs(device, B, n, K, P, S, ordered, with_src, seed,
+                        shares, hot_world=None):
+    """B worlds of :func:`insert_inputs`, world b a ``shares[b]`` share of
+    its batch valid; ``hot_world``'s 64 hot destinations overfill their
+    mailboxes (the other worlds' batches spread evenly)."""
+    import torch
+    worlds = [insert_inputs(device, n, K, P, S, ordered, with_src,
+                            seed + b, frac=f, hot=b == hot_world)
+              for b, f in enumerate(shares)]
+    return {k: None if worlds[0][k] is None
+            else torch.stack([w[k] for w in worlds]) for k in worlds[0]}
+
+
+def fleet_k1_bytes(args):
+    """K1's bound bytes over a fleet: :func:`k1_bytes` per world, summed."""
+    return sum(k1_bytes(tuple(None if x is None else x[b] for x in args))
+               for b in range(args[6].shape[0]))
+
+
+def fleet_k2_bytes(pdst, woff, pay, S):
+    """K2's bound bytes over a fleet: per world the dst planes and the woff
+    plane read, the fired lanes' payload read, the batch written; summed."""
+    B, M, n = pdst.shape
+    P = pay.shape[2]
+    fired = int((pdst >= 0).sum())
+    return (pdst.numel() + (0 if woff is None else woff.numel())) * 4 \
+        + fired * P * 4 + B * (3 + P) * S * 4
+
+
+def phase_fleet_kernels(device, n=CHAOS_N, B=CHAOS_B):
+    """K2 and K1 across the world axis against their plain versions at
+    the chaos fleet's shape (8 worlds of 100 000 nodes, M 1, P 1, K 8, S
+    100 352), one launch for every world, then the edge cases: B = 1
+    equals the solo kernel; a world with an empty batch; one world that
+    drops (K2) or overflows (K1) while the others do not; a ragged N
+    (100 003); ordered K1 with ``counts`` and src; and every world of a
+    fleet call equals its own solo call."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    S = -(-n // 1024) * 1024
+    err2 = err1 = 0
+
+    def k2(tag, pdst, woff, pay, SS, drops_in):
+        nonlocal err2
+        got = ci.fire_compact(pdst, woff, pay, SS)
+        want = ci.fire_compact_plain(pdst, woff, pay, SS)
+        err2 = max(err2, _equal(f"K2 fleet {tag}", got, want))
+        drops = got[4].tolist() if pdst.dim() == 3 else [int(got[4])]
+        _require_all(f"K2 fleet {tag}", {
+            f"drops only in worlds {drops_in}":
+                [b for b, d in enumerate(drops) if d > 0] == list(drops_in)})
+        for b in range(pdst.shape[0] if pdst.dim() == 3 else 0):
+            solo = ci.fire_compact(pdst[b], None if woff is None
+                                   else woff[b], pay[b], SS)
+            err2 = max(err2, _equal(f"K2 fleet {tag} world {b} vs solo",
+                                    solo, tuple(g[b] for g in got)))
+        say(f"K2 fleet {tag}: B={pdst.shape[0]} n={pdst.shape[-1]} "
+            f"M={pdst.shape[-2]} P={pay.shape[-2]} S={SS} drops={drops} "
+            "bit-equal, every world = its solo call")
+        return got
+
+    fracs = (0.3, 0.0, 0.5, 1.0, 0.1, 0.7, 0.02, 0.4)[:B]
+    k2("chaos shape, world 1 empty", *fleet_compact_inputs(
+        device, B, n, 1, 1, fracs, 60), S, ())
+    one = fleet_compact_inputs(device, 1, n, 1, 1, (0.3,), 61)
+    got1 = k2("B 1", *one, S, ())
+    solo = ci.fire_compact(one[0][0], one[1][0], one[2][0], S)
+    err2 = max(err2, _equal("K2 B 1 = solo kernel", solo,
+                            tuple(g[0] for g in got1)))
+    k2("one world drops, ragged n, M 4, P 2",
+       *fleet_compact_inputs(device, 3, n + 3, 4, 2, (0.1, 0.9, 0.0), 62),
+       2 * (n + 3), (1,))
+    k2("window 1, P 0, 5 worlds",
+       *fleet_compact_inputs(device, 5, 4099, 2, 0, (0.4, 0.4, 0.2, 0.0,
+                                                    0.8), 63, window1=True),
+       4096, (4,))
+
+    def k1(tag, t, nn, empty, hot):
+        nonlocal err1
+        args = insert_args(t, nn)
+        got = ci.mailbox_insert(*args)
+        want = ci.mailbox_insert_plain(*args)
+        err1 = max(err1, _equal(f"K1 fleet {tag}", got, want))
+        ovf = got[3].tolist()
+        valid = args[1].sum(dim=1).tolist()
+        _require_all(f"K1 fleet {tag}", {
+            "the empty world: no entry, no overflow": empty is None
+            or valid[empty] == ovf[empty] == 0,
+            "the hot world overflows the most": ovf[hot] == max(ovf) > 0})
+        for b in range(args[6].shape[0]):
+            solo = ci.mailbox_insert(*(None if x is None else x[b]
+                                       for x in args))
+            err1 = max(err1, _equal(f"K1 fleet {tag} world {b} vs solo",
+                                    solo, tuple(g[b] for g in got)))
+        say(f"K1 fleet {tag}: B={args[6].shape[0]} n={nn} "
+            f"K={args[6].shape[1]} P={args[8].shape[2]} "
+            f"src={args[4] is not None} ordered={args[2] is not None} "
+            f"valid={valid} overflow={ovf} bit-equal, every world = its "
+            "solo call")
+
+    # the fleet shape: nearly every lane valid, as in the steady state;
+    # world 1's batch is empty, the last world's 64 hot nodes overflow
+    shares = (0.95, 0.0, 0.95, 0.95, 0.95, 0.95, 0.95, 0.95)[:B]
+    k1("chaos shape, world 1 empty, the last world's hot nodes overflow",
+       fleet_insert_inputs(device, B, n, 8, 1, S, False, False, 70, shares,
+                           hot_world=B - 1), n, 1, B - 1)
+    t1 = fleet_insert_inputs(device, 1, n, 8, 1, S, False, False, 71,
+                             (0.7,), hot_world=0)
+    k1("B 1", t1, n, None, 0)
+    a1 = insert_args(t1, n)
+    err1 = max(err1, _equal("K1 B 1 = solo kernel", ci.mailbox_insert(
+        *(None if x is None else x[0] for x in a1)),
+        tuple(g[0] for g in ci.mailbox_insert(*a1))))
+    k1("ordered with counts and src, ragged n, world 2 overflows",
+       fleet_insert_inputs(device, 3, n + 3, 8, 2, S, True, True, 72,
+                           (0.3, 0.0, 0.3), hot_world=2), n + 3, 1, 2)
+    torch.cuda.synchronize()
+    return err2, err1
+
+
+def fleet_engine(device, n=CHAOS_N):
+    """The chaos fleet's engine: ``(engine, scenario, link, spec, fleet,
+    heal_us)``."""
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link, spec, fleet, heal_us = chaos_fleet(n)
+    eng = TorchEngine(sc, link, window="auto", batch=spec, faults=fleet,
+                      device=device)
+    return eng, sc, link, spec, fleet, heal_us
+
+
+def phase_chaos_main_path(device, n=CHAOS_N):
+    """The slice's main path: the chaos fleet through ``run_quiet`` to
+    quiescence, under the bench's own gates (bench.py:686-711): worlds 0
+    and B - 1 equal their solo faulted runs over 12 supersteps;
+    deliveries after every world's faults heal (a traced run of 192);
+    then, timed from 2 warm supersteps, the run to quiescence with K2
+    and K1 each launched exactly once per fleet superstep, ``short_delay``
+    and ``route_drop`` 0, ``fault_dropped > 0`` in every world and at most
+    ``max(n // 500, 8)`` nodes uninfected per world."""
+    import torch
+    from timewarp_tpu_torch.faults import eventually_delivered
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.batched import world_slice
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    eng, sc, link, spec, fleet, heal_us = fleet_engine(device, n)
+    B = spec.B
+    _require_all("chaos fleet", {
+        "adaptive regime, window 1000": eng.adaptive and eng.window == 1000})
+    gate = eng.run_quiet(12)
+    for b in (0, B - 1):
+        solo = TorchEngine(sc, link, seed=spec.seeds[b], window=eng.window,
+                           faults=fleet.world_schedule(b),
+                           device=device).run_quiet(12)
+        _states_equal(f"chaos gate: world {b} vs its solo run", solo,
+                      world_slice(gate, b), sc)
+    _, traces = eng.run(192)
+    for b, tr in enumerate(traces):
+        if not eventually_delivered(tr, heal_us):
+            raise AssertionError(f"world {b}: no deliveries after its "
+                                 f"faults healed at {heal_us} µs")
+    warm = eng.run_quiet(2)
+    base = int(warm.delivered.sum())
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    fin = eng.run_quiet(1 << 20, warm)
+    launches = dict(ci.LAUNCHES)
+    stats = eng.last_run_stats
+    wall = stats["wall_seconds"]
+    iters = stats["fleet_supersteps"]
+    delivered = int(fin.delivered.sum()) - base
+    hops = fin.states["hop"]
+    missed = (hops < 0).sum(dim=1).tolist()
+    fault_dropped = fin.fault_dropped.tolist()
+    checks = {
+        "every world quiesced": not bool(eng.world_active(fin).any()),
+        "short_delay == 0": int(fin.short_delay.sum()) == 0,
+        "route_drop == 0": int(fin.route_drop.sum()) == 0,
+        "fault_dropped > 0 in every world": min(fault_dropped) > 0,
+        f"missed {missed} <= max(n // 500, 8)":
+            max(missed) <= max(n // 500, 8),
+        "K2 launched once per fleet superstep":
+            launches["fire_compact"] == iters,
+        "K1 launched once per fleet superstep":
+            launches["mailbox_insert"] == iters,
+        "no K3/K4 launch":
+            launches["sample_insert"] == launches["fused_ring"] == 0}
+    _require_all("chaos main path", checks)
+    say(f"chaos main path: B={B} n={n} window={eng.window} fleet_supersteps="
+        f"{iters} world_supersteps={(fin.steps - warm.steps).tolist()} "
+        f"delivered={delivered} overflow={fin.overflow.tolist()} "
+        f"fault_dropped={fault_dropped} route_drop="
+        f"{fin.route_drop.tolist()} missed={missed} virtual_us="
+        f"{fin.time.tolist()} wall_s={wall} aggregate_delivered_msgs_per_s="
+        f"{delivered / wall} wall_ms_per_fleet_superstep={wall / iters * 1e3}"
+        f" launches={launches}")
+    return launches, eng, fin
+
+
+def phase_fleet_card_vs_cpu(device, n=1 << 12):
+    """A small fleet (2^12 nodes, 3 worlds) card against CPU through
+    ``run`` in each routing regime: adaptive and eager with per-world
+    fault schedules, lazy (which takes no faults) with a link sweep."""
+    from timewarp_tpu_torch.faults import (FaultFleet, FaultSchedule,
+                                           LinkWindow, NodeCrash, Partition)
+    from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.links import parse_link
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    half = n // 2
+    fleet = FaultFleet(tuple(FaultSchedule((
+        NodeCrash(3 + b, 10_000, 40_000 + 5_000 * b, reset_state=True),
+        NodeCrash(half + b, 15_000, 35_000),
+        Partition((tuple(range(half)), tuple(range(half, n))), 12_000,
+                  30_000 + 2_000 * b),
+        LinkWindow(None, None, 50_000, 70_000, scale=1.5 + 0.5 * b),
+    )) for b in range(3)))
+    steady = gossip(n, fanout=1, think_us=1_000, gossip_interval=1_000,
+                    end_us=120_000, steady=True, mailbox_cap=8)
+    burst = gossip(n, fanout=4, think_us=700, burst=True, end_us=400_000,
+                   mailbox_cap=16)
+    spec = BatchSpec(seeds=(3, 4, 9))
+    cases = (
+        ("adaptive, faults (steady gossip, window auto)", steady,
+         parse_link("quantize:1000:uniform:500:4500"),
+         dict(window="auto", faults=fleet), 400),
+        ("eager, faults (droppy link, window 1)", steady,
+         parse_link("drop:0.1:quantize:1000:uniform:500:4500"),
+         dict(faults=fleet), 400),
+        ("lazy, link sweep (route_cap 64, window 3000)", burst,
+         parse_link("quantize:1000:uniform:3000:9000"),
+         dict(window=3_000, route_cap=64), 200),
+    )
+    for tag, sc, link, kw, steps in cases:
+        bs = spec if "sweep" not in tag else BatchSpec(
+            seeds=spec.seeds, link_params={"inner.lo": [3000, 4000, 3500],
+                                           "inner.hi": [9000, 9000, 12000]})
+        engines = [TorchEngine(sc, link, batch=bs, device=dev, **kw)
+                   for dev in (device, "cpu")]
+        (sa, ta), (sb, tb) = (e.run(steps) for e in engines)
+        for b in range(bs.B):
+            assert_traces_equal(ta[b], tb[b], f"card w{b}", "cpu")
+        _states_equal(f"fleet card vs CPU, {tag}", sa, sb, sc)
+        fd = sa.fault_dropped.tolist()
+        _require_all(f"fleet card vs CPU, {tag}", {
+            "fault_dropped > 0 in every faulted world":
+                "faults" not in kw or min(fd) > 0,
+            "delivered > 0": int(sa.delivered.min()) > 0})
+        say(f"fleet card vs CPU: {tag}: B={bs.B} n={n} supersteps="
+            f"{[len(t) for t in ta]} delivered={sa.delivered.tolist()} "
+            f"fault_dropped={fd} route_drop={sa.route_drop.tolist()} "
+            "traces and states equal")
+
+
+def phase_fleet_checkpoint(device, eng, steps=40):
+    """The chaos fleet saved mid-run on the card and resumed equals the
+    uninterrupted run; world b of the checkpoint, loaded into a solo
+    engine with world b's schedule and continued, equals world b."""
+    import os
+    import tempfile
+    from timewarp_tpu_torch.interp.torch_engine.batched import world_slice
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.utils import checkpoint as ck
+    sc = eng.scenario
+    full = eng.run_quiet(2 * steps)
+    mid = eng.run_quiet(steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fleet.npz")
+        ck.save_state(path, mid, meta={"seeds": list(eng.batch.seeds)})
+        size = os.path.getsize(path)
+        loaded, meta = ck.load_state(path, eng.init_state(),
+                                     expect_meta={"seeds": list(
+                                         eng.batch.seeds)})
+        _states_equal("fleet checkpoint round trip", loaded, mid, sc)
+        _states_equal("fleet resumed from its checkpoint",
+                      eng.run_quiet(steps, loaded), full, sc)
+        b = eng.batch.B - 3
+        solo = TorchEngine(sc, eng.link, seed=eng.batch.seeds[b],
+                           window=eng.window,
+                           faults=eng.faults.world_schedule(b), device=device)
+        wb, _ = ck.load_world_state(path, solo.init_state(), b)
+        _states_equal(f"world {b} forked solo from the checkpoint",
+                      solo.run_quiet(steps, wb), world_slice(full, b), sc)
+    say(f"fleet checkpoint: B={eng.batch.B} n={sc.n_nodes} saved after "
+        f"{steps} supersteps ({size} bytes), resumed = uninterrupted over "
+        f"{steps} more; world {b} forked solo = world {b}")
+
+
+def phase_fleet_times(device, eng, state):
+    """K2 and K1 on one chaos-fleet superstep's own arguments, taken where
+    the engine's stage receives them (every world at once): bit-equal to
+    their plain versions, their times and byte bounds (per world, summed
+    over the B worlds)."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    taken = {}
+    compact, insert = eng.stage.compact, eng.stage.insert
+
+    def take_compact(pdst, woff_n, payload):
+        taken["k2"] = (pdst, woff_n if eng.stage.W > 1 else None, payload,
+                       eng.stage.S)
+        return compact(pdst, woff_n, payload)
+
+    def take_insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
+                    counts):
+        start, cnt = ci.bucket_bounds(sd, eng.stage.n)
+        taken["k1"] = (start, cnt, counts, drel_s,
+                       src_s if eng.stage.inbox_src else None, pay_s,
+                       mb_rel, mb_src, mb_payload)
+        return insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
+                      counts)
+    eng.stage.compact, eng.stage.insert = take_compact, take_insert
+    try:
+        eng.run_quiet(1, state)
+    finally:
+        del eng.stage.compact, eng.stage.insert
+    a2, a1 = taken["k2"], taken["k1"]
+    err2 = _equal("K2 fleet superstep", ci.fire_compact(*a2),
+                  ci.fire_compact_plain(*a2))
+    err1 = _equal("K1 fleet superstep", ci.mailbox_insert(*a1),
+                  ci.mailbox_insert_plain(*a1))
+    torch.cuda.synchronize()
+    b2 = fleet_k2_bytes(*a2)
+    b1 = fleet_k1_bytes(a1)
+    r2 = dict(ms=_time_ms(lambda: ci.fire_compact(*a2)),
+              plain_ms=_time_ms(lambda: ci.fire_compact_plain(*a2),
+                                queued=False),
+              bound_ms=b2 / HBM_BYTES_PER_S * 1e3, bytes=b2)
+    r1 = dict(ms=_time_ms(lambda: ci.mailbox_insert(*a1)),
+              plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*a1),
+                                queued=False),
+              bound_ms=b1 / HBM_BYTES_PER_S * 1e3, bytes=b1)
+    B, M, n = a2[0].shape
+    fired = (a2[0] >= 0).sum(dim=(1, 2)).tolist()
+    for name, r, shape in (
+            ("fire_compact", r2, f"B={B} n={n} M={M} P={a2[2].shape[2]} "
+             f"S={a2[3]} fired={fired}"),
+            ("mailbox_insert", r1, f"B={B} n={n} K={a1[6].shape[1]} "
+             f"P={a1[8].shape[2]} S={a1[3].shape[1]} valid="
+             f"{a1[1].sum(dim=1).tolist()}")):
+        say(f"time {name} across the world axis, one chaos-fleet superstep"
+            f" ({shape}): kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
+            f"bound_ms={r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s, "
+            f"per world summed over {B}; {nvidia_smi()}; no single PyTorch "
+            "call computes this function: library_ms null) bit-equal")
+    return max(err2, err1), r2, r1
 
 
 def main() -> int:
@@ -1376,6 +1800,19 @@ def main() -> int:
     err_k1 = max(err_k1, err_k1_eager)
     phase_where_time_goes("steady gossip (TorchEngine, eager)", steady_eng,
                           warm=64, steps=32)
+
+    err_k2_fleet, err_k1_fleet = phase_fleet_kernels(device)
+    chaos_launches, chaos_eng, _ = phase_chaos_main_path(device)
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += chaos_launches[k]
+    phase_fleet_card_vs_cpu(device)
+    phase_fleet_checkpoint(device, chaos_eng)
+    err_fleet, _, _ = phase_fleet_times(device, chaos_eng,
+                                        chaos_eng.run_quiet(96))
+    phase_where_time_goes("chaos fleet (TorchEngine, B 8, faults)", chaos_eng,
+                          warm=96, steps=32)
+    err_k2 = max(err_k2, err_k2_fleet, err_fleet)
+    err_k1 = max(err_k1, err_k1_fleet, err_fleet)
 
     kernels = []
     for name, src, repl, err, r in (

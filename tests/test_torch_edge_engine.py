@@ -404,11 +404,15 @@ def test_refusals():
         EdgeEngine(tring(8, with_observer=True), td.FixedDelay(1),
                    device="cpu")
     sc = tring(8, n_tokens=8, with_observer=False)
-    for kw in (dict(faults=object()), dict(telemetry="counters"),
+    for kw in (dict(telemetry="counters"),
                dict(controller=object()), dict(verify="guard"),
                dict(record="full"), dict(record_cap=64)):
         with pytest.raises(ValueError, match="not yet ported"):
             EdgeEngine(sc, td.FixedDelay(1), device="cpu", **kw)
+    # faults are ported: what is not one FaultSchedule is refused, as the
+    # reference refuses it
+    with pytest.raises(ValueError, match="must be a FaultSchedule"):
+        EdgeEngine(sc, td.FixedDelay(1), device="cpu", faults=object())
     with pytest.raises(TypeError):
         EdgeEngine(sc, td.FixedDelay(1), device="cpu", window=8)
     with pytest.raises(ValueError, match="static_dst shape"):

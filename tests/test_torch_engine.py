@@ -184,12 +184,17 @@ def test_refuses_what_is_not_ported():
     """The options still unported are refused by name; the knobs of the
     other regimes are refused where the reference refuses them:
     ``insert_cap`` outside the adaptive regime, ``route_cap < 1`` and a
-    negative ``record_events``."""
+    negative ``record_events``. ``batch`` and ``faults`` are ported and
+    refuse what is not a ``BatchSpec`` / ``FaultSchedule``, as the
+    reference does."""
     tsc, tl = _gossip_pair(256, _quantized_uniform)[1]
-    for kw in (dict(faults=object()), dict(telemetry="counters"),
-               dict(batch=object()), dict(speculate="auto")):
+    for kw in (dict(telemetry="counters"), dict(speculate="auto")):
         with pytest.raises(ValueError, match="not yet ported"):
             TorchEngine(tsc, tl, window="auto", device="cpu", **kw)
+    with pytest.raises(ValueError, match="must be a BatchSpec"):
+        TorchEngine(tsc, tl, window="auto", device="cpu", batch=object())
+    with pytest.raises(ValueError, match="must be a FaultSchedule"):
+        TorchEngine(tsc, tl, window="auto", device="cpu", faults=object())
     with pytest.raises(TypeError):
         TorchEngine(tsc, tl, device="cpu", insert="pallas")
     with pytest.raises(ValueError, match="exceeds"):

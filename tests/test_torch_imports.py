@@ -41,7 +41,9 @@ def _is_jax(name: str) -> bool:
 def test_import_leaves_jax_and_reference_out():
     mods = _modules()
     for m in ("interp.torch_engine.engine", "models.ping_pong",
-              "models.socket_state", "net.links"):
+              "models.socket_state", "net.links",
+              "interp.torch_engine.batched", "faults", "faults.apply",
+              "faults.schedule", "faults.properties", "utils.checkpoint"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

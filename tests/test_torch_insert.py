@@ -345,3 +345,187 @@ def test_mailbox_insert_kernel_equals_plain(cuda_device, case, mode):
     assert (int(got[3]) > 0) == (valid > 0)
     if kept == K:                        # no room: every message overflows
         assert int(got[3]) == valid
+
+
+# -- the world axis (a fleet of B worlds in one call) -------------------------
+
+def _fleet_outbox(rng, B, n, M, P, fracs, W):
+    """B worlds' outboxes, world b a share ``fracs[b]`` of valid lanes."""
+    outs = [_outbox(rng, n, M, P, f, W) for f in fracs[:B]]
+    return tuple(np.stack(x) for x in zip(*outs))
+
+
+def test_fire_compact_plain_world_axis_equals_pallas_vmap():
+    """K2's plain version over a world axis: each world compacted into
+    its own batch row, its prefix and drops restarting — equal to the
+    reference's Pallas stage ``vmap``-ed over the worlds (its kernels map
+    the world axis so) and to the solo call per world. World 1 has an
+    empty outbox, world 2 drops while the others do not."""
+    import jax
+    n, M, P, W, cap = 1024, 4, 2, 8_000, 2048
+    jsc, tsc = _scenarios(n, 8, M, P, False, False)
+    jstage = _jax_stage(jsc, n, W, cap)
+    tstage = ci.InsertStage(tsc, n, window=W, insert_cap=cap)
+    rng = np.random.default_rng(41)
+    pdst, woff, pay = _fleet_outbox(rng, 3, n, M, P, (0.3, 0.0, 0.9), W)
+    want = jax.vmap(jstage.compact)(jnp.asarray(pdst), jnp.asarray(woff),
+                                    jnp.asarray(pay))
+    got = tstage.compact(*(torch.from_numpy(a) for a in (pdst, woff, pay)))
+    for name, a, b in (("dst", got[0], want[0]), ("woff", got[1], want[1]),
+                       ("smrank", got[2], want[2]), ("drops", got[4],
+                                                     want[4])):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)
+    np.testing.assert_array_equal(
+        got[3].numpy(), np.stack([np.asarray(c) for c in want[3]], axis=1))
+    assert got[4].tolist()[:2] == [0, 0] and int(got[4][2]) > 0
+    assert (got[0][1] == n).all()
+    for b in range(3):
+        solo = ci.fire_compact_plain(*(torch.from_numpy(a[b]) for a in (
+            pdst, woff, pay)), tstage.S)
+        for s, g in zip(solo, got):
+            assert torch.equal(s, g[b])
+
+
+@pytest.mark.parametrize("ordered", [False, True], ids=["commutative",
+                                                        "ordered"])
+def test_mailbox_insert_plain_world_axis(ordered):
+    """K1's plain version over a world axis equals the reference's Pallas
+    stage ``vmap``-ed over the worlds and the solo call per world: world
+    0 a normal batch, world 1 an empty one, world 2 overflowing."""
+    import jax
+    n, K, M, P, B = 1024, 8, 4, 2, 3
+    jsc, tsc = _scenarios(n, K, M, P, ordered, True)
+    jstage = _jax_stage(jsc, n, 8_000, 2048)
+    tstage = ci.InsertStage(tsc, n, window=8_000, insert_cap=2048)
+    S = tstage.S
+    rng = np.random.default_rng(43 + ordered)
+    cols = {k: [] for k in ("sd", "drel", "src", "pay", "rel", "msrc",
+                            "mpay", "counts")}
+    for b, (share, hot) in enumerate(((0.5, 8), (0.0, 0), (0.95, 40))):
+        counts = rng.integers(0, K + 1, n).astype(np.int32)
+        live = np.arange(K)[:, None] < counts[None, :] if ordered \
+            else rng.random((K, n)) < share
+        cols["counts"].append(counts)
+        cols["rel"].append(np.where(live, rng.integers(0, 1 << 20, (K, n)),
+                                    I32MAX).astype(np.int32))
+        cols["msrc"].append(rng.integers(0, n, (K, n)).astype(np.int32))
+        cols["mpay"].append(rng.integers(-2**31, I32MAX, (K, P, n))
+                            .astype(np.int32))
+        bt = _batch(rng, n, K, P, S, True, hot_fill=hot)
+        if b == 1:
+            bt["sd"][:] = n
+        for k in ("sd", "drel", "src", "pay"):
+            cols[k].append(bt[k])
+    a = {k: np.stack(v) for k, v in cols.items()}
+    counts = a["counts"] if ordered else None
+    want = jax.vmap(
+        lambda sd, dr, sr, py, r, s, p, c: jstage.insert(
+            sd, dr, sr, tuple(py[i] for i in range(P)), r, s, p, c),
+        in_axes=(0,) * 7 + ((0,) if ordered else (None,)))(
+        *(jnp.asarray(a[k]) for k in ("sd", "drel", "src", "pay", "rel",
+                                      "msrc", "mpay")),
+        None if counts is None else jnp.asarray(counts))
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    got = tstage.insert(t["sd"], t["drel"], t["src"], t["pay"], t["rel"],
+                        t["msrc"], t["mpay"],
+                        t["counts"] if ordered else None)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[3][1]) == 0 and int(got[3][2]) > 0
+    for b in range(B):
+        start, cnt = ci.bucket_bounds(t["sd"][b], n)
+        solo = ci.mailbox_insert_plain(
+            start, cnt, t["counts"][b] if ordered else None, t["drel"][b],
+            t["src"][b], t["pay"][b], t["rel"][b], t["msrc"][b],
+            t["mpay"][b])
+        for s, g in zip(solo, got):
+            assert torch.equal(s, g[b])
+
+
+def test_compact_scratch_words_world_axis():
+    """K2's scratch grows by B: one world's words per world."""
+    assert ci.compact_scratch_words(100_000, 1, 8) == \
+        8 * ci.compact_scratch_words(100_000, 1)
+
+
+# K2 and K1 across the world axis on the card, chip_smoke phase 26's
+# cases at a smaller size: (B, n, M, P, valid share per world, S).
+_K2_FLEETS = {
+    "B1-equals-solo": (1, 1 << 15, 8, 1, (0.3,), 1 << 14),
+    "B8-fleet-shape-M1": (8, 100_000, 1, 1, (0.3, 0.0, 0.5, 1.0, 0.1, 0.7,
+                                             0.02, 0.4), 100_352),
+    "B3-one-world-drops-ragged": (3, 5000, 4, 2, (0.1, 0.9, 0.0), 8192),
+    "B5-P0-window1": (5, 4099, 2, 0, (0.5, 0.5, 0.2, 0.0, 0.8), 4096),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_K2_FLEETS))
+def test_fire_compact_kernel_world_axis(cuda_device, case):
+    B, n, M, P, fracs, S = _K2_FLEETS[case]
+    rng = np.random.default_rng(len(case))
+    pdst, woff, pay = (torch.from_numpy(a).to(cuda_device) for a in
+                       _fleet_outbox(rng, B, n, M, P, fracs, 1_000))
+    w = None if case == "B5-P0-window1" else woff
+    got = ci.fire_compact(pdst, w, pay, S)
+    want = ci.fire_compact_plain(pdst, w, pay, S)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    for b in range(B):
+        solo = ci.fire_compact(pdst[b], None if w is None else w[b],
+                               pay[b], S)
+        for s, g in zip(solo, got):
+            assert torch.equal(s, g[b])
+
+
+_K1_FLEETS = {
+    "B1-commutative": (1, 1 << 15, 8, 1, False, 1 << 15),
+    "B8-fleet-shape": (8, 100_000, 8, 1, False, 100_352),
+    "B3-ragged-ordered-src": (3, 4099, 16, 2, True, 8192),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_K1_FLEETS))
+def test_mailbox_insert_kernel_world_axis(cuda_device, case):
+    """World 1's batch is empty, the last world's mailboxes overflow."""
+    B, n, K, P, ordered, S = _K1_FLEETS[case]
+    rng = np.random.default_rng(len(case))
+    dev = cuda_device
+    sds, counts, rels = [], [], []
+    for b in range(B):
+        share = 0.0 if b == 1 else (0.95 if b == B - 1 else 0.5)
+        sd = np.full(S, n, np.int32)
+        m = int(S * share)
+        sd[:m] = np.sort(rng.integers(0, n if b < B - 1 else 64, m))
+        sds.append(sd)
+        c = rng.integers(0, K + 1, n).astype(np.int32)
+        counts.append(c)
+        rels.append(np.where(np.arange(K)[:, None] < c[None, :], 7, I32MAX)
+                    .astype(np.int32))
+
+    def on(x):
+        return torch.from_numpy(np.stack(x) if isinstance(x, list) else x) \
+            .to(dev)
+    sd = on(sds)
+    start, cnt = ci.bucket_bounds(sd, n)
+    args = (start, cnt, on(counts) if ordered else None,
+            on(rng.integers(0, 1 << 20, (B, S)).astype(np.int32)),
+            on(rng.integers(0, n, (B, S)).astype(np.int32)) if ordered
+            else None,
+            on(rng.integers(-2**31, I32MAX, (B, P, S)).astype(np.int32)),
+            on(rels), on(rng.integers(0, n, (B, K, n)).astype(np.int32)),
+            on(rng.integers(-2**31, I32MAX, (B, K, P, n)).astype(np.int32)))
+    got = ci.mailbox_insert(*args)
+    want = ci.mailbox_insert_plain(*args)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    if B > 1:
+        assert int(got[3][1]) == 0 and int(got[3][-1]) > 0
+    for b in range(B):
+        solo = ci.mailbox_insert(*(None if x is None else x[b]
+                                   for x in args))
+        for s, g in zip(solo, got):
+            assert torch.equal(s, g[b])

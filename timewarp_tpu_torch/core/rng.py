@@ -9,7 +9,9 @@ uint32 words ride in int64 tensors holding ``[0, 2**32)`` (torch's
 ``uint32`` has no add, shift or remainder on the CPU): every add is
 masked with ``0xFFFFFFFF``, and rotations shift at most 29 bits, so no
 intermediate leaves int64. The same functions accept Python ints
-(``seed_words`` runs host-side on them).
+(``seed_words`` runs host-side on them), and a fleet's seed words and
+link parameters as ``[B, 1]`` tensors that broadcast over its ``[B, N]``
+or ``[B, S]`` operands, word for word the reference's per-world draw.
 """
 
 from __future__ import annotations
@@ -73,14 +75,14 @@ def _t_words(t: torch.Tensor):
     return t & MASK32, (t >> 32) & MASK32
 
 
-def fire_bits(s0: int, s1: int, node, t) -> Tuple:
+def fire_bits(s0, s1, node, t) -> Tuple:
     """Entropy for one node's firing at virtual time ``t``."""
     tlo, thi = _t_words(t)
     a0, a1 = threefry2x32(s0 ^ _FIRE_TAG, s1, node, tlo)
     return threefry2x32(a0, a1, thi, 0)
 
 
-def msg_bits(s0: int, s1: int, src, dst, t, slot) -> Tuple:
+def msg_bits(s0, s1, src, dst, t, slot) -> Tuple:
     """Entropy for the link sample of one message ``src -> dst`` emitted
     at time ``t`` from outbox slot ``slot``."""
     tlo, thi = _t_words(t)
@@ -95,7 +97,7 @@ def split_bits(b0, b1, tag: int) -> Tuple:
     return threefry2x32(b0, b1, tag, 1)
 
 
-def uniform_int(bits: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+def uniform_int(bits: torch.Tensor, lo, hi) -> torch.Tensor:
     """Uniform integer in [lo, hi] from one uint32 word (modulo scheme,
     identical to the reference), int64."""
     span = (hi - lo + 1) & MASK32

@@ -10,7 +10,9 @@
 // node rows (RW = 8 when the row count is a multiple of 8, else 1), and
 // inside a block slot-major, then row, then lane. Past the fired count
 // the batch holds the sentinel dst = n (woff, smrank, payload 0).
-// Messages beyond S are counted as drops: max(total - S, 0).
+// Messages beyond S are counted as drops: max(total - S, 0). A fleet
+// of B worlds is one launch: each world is compacted into its own batch
+// row, as a solo call would, its prefix and drops restarting at it.
 //
 // What bounds it on an H100: memory traffic. It reads the M dst planes,
 // the woff plane and the payload of the valid lanes, and writes the batch:
@@ -48,7 +50,19 @@
 // Every load of a step is issued before the first that waits on it, and
 // no unit index is divided per unit (UnitPos steps through them). Nothing
 // is atomic, so the result is deterministic. The scratch is the caller's,
-// fresh each call: wcnt int32[units * 8], then ctatot int32[grid].
+// fresh each call: wcnt int32[B * units * 8], then ctatot int32[jobs].
+//
+// The world axis: the segmented scan is a scan per world. Each world's
+// units are cut into Gw contiguous jobs (Gw = the resident CTAs / B, at
+// most its units), and the grid takes the B * Gw jobs, one a CTA while
+// the card holds them all, else several a CTA, a grid apart (only the
+// first job's first batch stays in registers then). A job's write base
+// sums only the totals of its own world's earlier jobs, so each world's
+// prefix, tail and drops start afresh; at B = 1 the jobs are the solo
+// grid's CTAs, unit for unit, and the kernel is its solo instantiation
+// (kFleet false), where the world offsets are constants: the first
+// world-axis build held 8 more pointers a thread and spilled, and read
+// 20% slower at the slice shape.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -114,20 +128,42 @@ __device__ __forceinline__ int warp_total(int v) {
   return v;
 }
 
+template <bool kFleet>
 __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
     const int32_t* __restrict__ pdst, const int32_t* __restrict__ woff_n,
     const int32_t* __restrict__ payload, int n, int M, int P, int RW, int S,
-    int Q, int32_t* __restrict__ wcnt, int32_t* __restrict__ ctatot,
-    int32_t* __restrict__ out_dst, int32_t* __restrict__ out_woff,
-    int32_t* __restrict__ out_smrank, int32_t* __restrict__ out_pay,
-    int32_t* __restrict__ drops) {
+    int Q, int Gw, int jobs, int32_t* __restrict__ wcnt,
+    int32_t* __restrict__ ctatot, int32_t* __restrict__ out_dst,
+    int32_t* __restrict__ out_woff, int32_t* __restrict__ out_smrank,
+    int32_t* __restrict__ out_pay, int32_t* __restrict__ drops) {
   __shared__ int32_t red[kWarps], red2[kWarps];
   // staged words [1 + P][kBatch][kT]: woff, then the payload words
   extern __shared__ int32_t s_w[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, b = blockIdx.x;
-  const int u0 = static_cast<int>(static_cast<int64_t>(Q) * b / G);
-  const int nu = static_cast<int>(static_cast<int64_t>(Q) * (b + 1) / G) - u0;
+
+  // The job in hand: part `part` of world `w`'s Q units (its units u0 ..
+  // u0 + nu - 1), with the world's planes, scratch and batch.
+  int w = 0, part = 0, u0 = 0, nu = 0;
+  const int32_t *pd = pdst, *wo = woff_n, *pl = payload;
+  int32_t *wc = wcnt, *od = out_dst, *ow = out_woff, *osm = out_smrank,
+          *op = out_pay;
+  const auto enter = [&](int job) {
+    // solo (kFleet false): world 0, one job a CTA — the offsets fold away
+    w = kFleet ? job / Gw : 0;
+    part = job - w * Gw;
+    u0 = static_cast<int>(static_cast<int64_t>(Q) * part / Gw);
+    nu = static_cast<int>(static_cast<int64_t>(Q) * (part + 1) / Gw) - u0;
+    const int64_t wmn = static_cast<int64_t>(w) * M * n;
+    pd = pdst + wmn;
+    wo = woff_n != nullptr ? woff_n + static_cast<int64_t>(w) * n : nullptr;
+    pl = payload + wmn * P;
+    wc = wcnt + static_cast<int64_t>(w) * Q * kWarps;
+    od = out_dst + static_cast<int64_t>(w) * S;
+    ow = out_woff + static_cast<int64_t>(w) * S;
+    osm = out_smrank + static_cast<int64_t>(w) * S;
+    op = out_pay + static_cast<int64_t>(w) * P * S;
+  };
 
   // A lane's dst in units i0 .. i0 + kBatch - 1 (-1 past the units or
   // past n), from position `at`; with `all`, its woff and payload words
@@ -143,10 +179,10 @@ __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
       src[i] = nullptr;
       const int node = at.node(RW);
       if (i0 + i >= nu || node >= n) continue;
-      dv[i] = pdst[static_cast<int64_t>(at.slot) * n + node];
+      dv[i] = pd[static_cast<int64_t>(at.slot) * n + node];
       if (!all) continue;
-      if (woff_n != nullptr) copy_async(&s_w[i * kT + tid], woff_n + node);
-      src[i] = payload + static_cast<int64_t>(at.slot) * P * n + node;
+      if (wo != nullptr) copy_async(&s_w[i * kT + tid], wo + node);
+      src[i] = pl + static_cast<int64_t>(at.slot) * P * n + node;
     }
     if (!all) return;
     for (int p = 0; p < P; ++p)
@@ -163,138 +199,174 @@ __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
     for (int i = 0; i < kBatch; ++i) {
       const int c = __popc(__ballot_sync(0xffffffffu, dv[i] >= 0));
       if (lane == 0 && i0 + i < nu)
-        wcnt[static_cast<int64_t>(u0 + i0 + i) * kWarps + warp] = c;
+        wc[static_cast<int64_t>(u0 + i0 + i) * kWarps + warp] = c;
       mine += c;
     }
   };
 
-  // 1. load (the first batch kept: dst in registers, the rest staged)
-  // and count
-  UnitPos at(u0, M, RW);
+  // 1. load and count, job after job (the CTA's first job's first batch
+  // kept: dst in registers, the rest staged)
+  UnitPos at(0, M, RW);
   int kd[kBatch];
-  stage(0, at, kd, true);
-  count(0, kd);
-  for (int i0 = kBatch; i0 < nu; i0 += kBatch) {
+  const auto count_job = [&](int job, bool first) {
+    enter(job);
+    mine = 0;
+    at = UnitPos(u0, M, RW);
+    if (first) {
+      stage(0, at, kd, true);
+      count(0, kd);
+    } else {
+      int dv[kBatch];
+      stage(0, at, dv, false);
+      count(0, dv);
+    }
+    for (int i0 = kBatch; i0 < nu; i0 += kBatch) {
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i) at.next(M, RW);
-    int dv[kBatch];
-    stage(i0, at, dv, false);
-    count(i0, dv);
-  }
-  if (lane == 0) red[warp] = mine;
-  __syncthreads();
-  if (tid == 0) {
-    int sum = 0;
+      for (int i = 0; i < kBatch; ++i) at.next(M, RW);
+      int dv[kBatch];
+      stage(i0, at, dv, false);
+      count(i0, dv);
+    }
+    if (lane == 0) red[warp] = mine;
+    __syncthreads();
+    if (tid == 0) {
+      int sum = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[w];
-    ctatot[b] = sum;
+      for (int x = 0; x < kWarps; ++x) sum += red[x];
+      ctatot[job] = sum;
+    }
+    if constexpr (kFleet) __syncthreads();  // red is the next job's
+  };
+  // the solo instantiation calls each phase once, for its one job, so
+  // that the first batch's registers and the world offsets fold away
+  if constexpr (kFleet) {
+    for (int job = b; job < jobs; job += G) count_job(job, job == b);
+  } else {
+    count_job(b, true);
   }
   cg::this_grid().sync();
 
-  // 2. this CTA's write base and the fired count: the CTA totals are
-  // loaded all at once (kTotals a thread covers every grid the card can
-  // hold), then summed over the CTA
-  int before = 0, all = 0;
-  {
-    int v[kTotals];
-#pragma unroll
-    for (int i = 0; i < kTotals; ++i)
-      v[i] = tid + i * kT < G ? ctatot[tid + i * kT] : 0;
-#pragma unroll
-    for (int i = 0; i < kTotals; ++i) {
-      all += v[i];
-      before += tid + i * kT < b ? v[i] : 0;
-    }
-    for (int c = tid + kTotals * kT; c < G; c += kT) {
-      const int x = ctatot[c];
-      all += x;
-      before += c < b ? x : 0;
-    }
-  }
-  before = warp_total(before);
-  all = warp_total(all);
-  if (lane == 0) {
-    red[warp] = before;
-    red2[warp] = all;
-  }
-  __syncthreads();
-  int base = 0;
-  all = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    base += red[w];
-    all += red2[w];
-  }
-
-  // 3. scatter, unit after unit in write order
   const unsigned below = (1u << lane) - 1u;
-  at = UnitPos(u0, M, RW);
-  const auto scatter = [&](int i0, const int* dv) {
-    int wc[kBatch];
+  const auto write_job = [&](int job, bool first) {
+    enter(job);
+    // 2. this job's write base and its world's fired count: the world's
+    // job totals are loaded all at once (kTotals a thread covers every
+    // grid the card can hold), then summed over the CTA
+    const int32_t* tot = ctatot + static_cast<int64_t>(w) * Gw;
+    int before = 0, all = 0;
+    {
+      int v[kTotals];
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i)
-      wc[i] = i0 + i < nu && lane < kWarps
-                  ? wcnt[static_cast<int64_t>(u0 + i0 + i) * kWarps + lane]
-                  : 0;
-    copy_wait();
-    int at_pos[kBatch];  // where a lane's message goes, or -1
+      for (int i = 0; i < kTotals; ++i)
+        v[i] = tid + i * kT < Gw ? tot[tid + i * kT] : 0;
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i, at.next(M, RW)) {
-      int x = wc[i];  // inclusive scan over the unit's warp counts
-#pragma unroll
-      for (int o = 1; o < kWarps; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
+      for (int i = 0; i < kTotals; ++i) {
+        all += v[i];
+        before += tid + i * kT < part ? v[i] : 0;
       }
-      const int unit_total = __shfl_sync(0xffffffffu, x, kWarps - 1);
-      const int warp_base =
-          __shfl_sync(0xffffffffu, x, warp > 0 ? warp - 1 : 0);
-      const int d = dv[i];
-      const unsigned ballot = __ballot_sync(0xffffffffu, d >= 0);
-      const int pos = base + (warp > 0 ? warp_base : 0) +
-                      __popc(ballot & below);
-      at_pos[i] = -1;
-      if (d >= 0 && pos < S) {
-        const int node = at.node(RW), slot = at.slot;
-        out_dst[pos] = d;
-        out_woff[pos] = woff_n != nullptr ? s_w[i * kT + tid] : 0;
-        out_smrank[pos] = node * M + slot;
-        at_pos[i] = pos;
+      for (int c = tid + kTotals * kT; c < Gw; c += kT) {
+        const int x = tot[c];
+        all += x;
+        before += c < part ? x : 0;
       }
-      base += unit_total;
     }
-    for (int p = 0; p < P; ++p)
+    before = warp_total(before);
+    all = warp_total(all);
+    if (lane == 0) {
+      red[warp] = before;
+      red2[warp] = all;
+    }
+    __syncthreads();
+    int base = 0;
+    all = 0;
+#pragma unroll
+    for (int x = 0; x < kWarps; ++x) {
+      base += red[x];
+      all += red2[x];
+    }
+    if constexpr (kFleet) __syncthreads();  // red, red2: the next job's
+
+    // 3. scatter, unit after unit in write order
+    at = UnitPos(u0, M, RW);
+    const auto scatter = [&](int i0, const int* dv) {
+      int wv[kBatch];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i)
-        if (at_pos[i] >= 0)
-          out_pay[static_cast<int64_t>(p) * S + at_pos[i]] =
-              s_w[((1 + p) * kBatch + i) * kT + tid];
-  };
-  scatter(0, kd);
-  for (int i0 = kBatch; i0 < nu; i0 += kBatch) {
-    int dv[kBatch];
-    stage(i0, at, dv, true);
-    scatter(i0, dv);
-  }
+        wv[i] = i0 + i < nu && lane < kWarps
+                    ? wc[static_cast<int64_t>(u0 + i0 + i) * kWarps + lane]
+                    : 0;
+      copy_wait();
+      int at_pos[kBatch];  // where a lane's message goes, or -1
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i, at.next(M, RW)) {
+        int x = wv[i];  // inclusive scan over the unit's warp counts
+#pragma unroll
+        for (int o = 1; o < kWarps; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x, o);
+          if (lane >= o) x += y;
+        }
+        const int unit_total = __shfl_sync(0xffffffffu, x, kWarps - 1);
+        const int warp_base =
+            __shfl_sync(0xffffffffu, x, warp > 0 ? warp - 1 : 0);
+        const int d = dv[i];
+        const unsigned ballot = __ballot_sync(0xffffffffu, d >= 0);
+        const int pos = base + (warp > 0 ? warp_base : 0) +
+                        __popc(ballot & below);
+        at_pos[i] = -1;
+        if (d >= 0 && pos < S) {
+          const int node = at.node(RW), slot = at.slot;
+          od[pos] = d;
+          ow[pos] = wo != nullptr ? s_w[i * kT + tid] : 0;
+          osm[pos] = node * M + slot;
+          at_pos[i] = pos;
+        }
+        base += unit_total;
+      }
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+          if (at_pos[i] >= 0)
+            op[static_cast<int64_t>(p) * S + at_pos[i]] =
+                s_w[((1 + p) * kBatch + i) * kT + tid];
+    };
+    if (first) {
+      scatter(0, kd);
+    } else {
+      int dv[kBatch];
+      stage(0, at, dv, true);
+      scatter(0, dv);
+    }
+    for (int i0 = kBatch; i0 < nu; i0 += kBatch) {
+      int dv[kBatch];
+      stage(i0, at, dv, true);
+      scatter(i0, dv);
+    }
 
-  // this CTA's share of the sentinel tail [min(total, S), S)
-  const int fired = min(all, S);
-  for (int64_t q = fired + static_cast<int64_t>(b) * kT + tid; q < S;
-       q += static_cast<int64_t>(G) * kT) {
-    out_dst[q] = n;
-    out_woff[q] = 0;
-    out_smrank[q] = 0;
-    for (int p = 0; p < P; ++p) out_pay[static_cast<int64_t>(p) * S + q] = 0;
+    // this job's share of its world's sentinel tail [min(total, S), S)
+    const int fired = min(all, S);
+    for (int64_t q = fired + static_cast<int64_t>(part) * kT + tid; q < S;
+         q += static_cast<int64_t>(Gw) * kT) {
+      od[q] = n;
+      ow[q] = 0;
+      osm[q] = 0;
+      for (int p = 0; p < P; ++p) op[static_cast<int64_t>(p) * S + q] = 0;
+    }
+    if (part == Gw - 1 && tid == 0) drops[w] = all > S ? all - S : 0;
+  };
+  if constexpr (kFleet) {
+    for (int job = b; job < jobs; job += G) write_job(job, job == b);
+  } else {
+    write_job(b, true);
   }
-  if (b == G - 1 && tid == 0) *drops = all > S ? all - S : 0;
 }
 
 // Dynamic shared memory of a CTA: the staged words.
 int staged_bytes(int P) { return (1 + P) * kBatch * kT * 4; }
 
-// The most CTAs of fire_compact_kernel the device holds at once with P
-// payload words staged: queried once per device and P (the cache holds
-// every P whose staging fits a CTA).
+// The most CTAs of fire_compact_kernel<kFleet> the device holds at once
+// with P payload words staged: queried once per device and P (the cache
+// holds every P whose staging fits a CTA).
+template <bool kFleet>
 cudaError_t resident_ctas(int P, int* out) {
   constexpr int kCachedP = 32;
   static int cache[kMaxDevices][kCachedP] = {};
@@ -308,7 +380,7 @@ cudaError_t resident_ctas(int P, int* out) {
   }
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fire_compact_kernel, kT, staged_bytes(P));
+      &per_sm, fire_compact_kernel<kFleet>, kT, staged_bytes(P));
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -318,45 +390,70 @@ cudaError_t resident_ctas(int P, int* out) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" const char* tw_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// pdst int32[M, n], woff_n int32[n] or null (window 1), payload
-// int32[M, P, n]; scratch int32[units * 9] with units = ceil(n / 1024) *
-// M * 4; outputs dst, woff, smrank int32[S], pay int32[P, S], drops
-// int32[1]. One cooperative launch; returns its CUDA error (0 =
-// launched).
-extern "C" int tw_fire_compact(const int32_t* pdst, const int32_t* woff_n,
-                               const int32_t* payload, int n, int M, int P,
-                               int S, int32_t* scratch, int32_t* out_dst,
-                               int32_t* out_woff, int32_t* out_smrank,
-                               int32_t* out_pay, int32_t* drops,
-                               void* stream) {
+// One cooperative launch of fire_compact_kernel<kFleet> over B worlds.
+template <bool kFleet>
+cudaError_t launch(const int32_t* pdst, const int32_t* woff_n,
+                   const int32_t* payload, int n, int M, int P, int S, int B,
+                   int32_t* scratch, int32_t* out_dst, int32_t* out_woff,
+                   int32_t* out_smrank, int32_t* out_pay, int32_t* drops,
+                   cudaStream_t stream) {
   const int NR = (n + kLanes - 1) / kLanes;
   int RW = NR % 8 == 0 ? 8 : 1;
   int Q = NR * M * kUnitsPerSeg;
   const int smem = staged_bytes(P);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {  // above the default cap: opt in, or fail here
-    err = cudaFuncSetAttribute(fire_compact_kernel,
+    err = cudaFuncSetAttribute(fire_compact_kernel<kFleet>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
   }
   int ctas = 0;
-  err = resident_ctas(P, &ctas);
+  err = resident_ctas<kFleet>(P, &ctas);
   if (err != cudaSuccess) return err;
-  const int grid = ctas < Q ? ctas : Q;
+  // Gw jobs (contiguous unit ranges) a world, one job a CTA when the
+  // card holds B * Gw CTAs; past that (B above the resident CTAs) a
+  // world is one job and a CTA takes several, a grid apart
+  int Gw = ctas / B;
+  if (Gw < 1) Gw = 1;
+  if (Gw > Q) Gw = Q;
+  int jobs = B * Gw;
+  const int grid = ctas < jobs ? ctas : jobs;
   int32_t* wcnt = scratch;
-  int32_t* ctatot = scratch + static_cast<int64_t>(Q) * kWarps;
+  int32_t* ctatot = scratch + static_cast<int64_t>(B) * Q * kWarps;
   void* args[] = {&pdst, &woff_n, &payload, &n, &M, &P, &RW, &S, &Q,
-                  &wcnt, &ctatot, &out_dst, &out_woff, &out_smrank,
-                  &out_pay, &drops};
+                  &Gw, &jobs, &wcnt, &ctatot, &out_dst, &out_woff,
+                  &out_smrank, &out_pay, &drops};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&fire_compact_kernel), grid, kT, args,
-      smem,
-      static_cast<cudaStream_t>(stream));
+      reinterpret_cast<const void*>(&fire_compact_kernel<kFleet>), grid, kT,
+      args, smem, stream);
+}
+
+}  // namespace
+
+extern "C" const char* tw_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// B worlds, each laid out as one solo call, world-major: pdst int32[B,
+// M, n], woff_n int32[B, n] or null (window 1), payload int32[B, M, P,
+// n]; scratch int32[B * units * 9] with units = ceil(n / 1024) * M * 4;
+// outputs dst, woff, smrank int32[B, S], pay int32[B, P, S], drops
+// int32[B]. One cooperative launch for every world; B = 1 takes the solo
+// instantiation, whose world offsets are constants. Returns the launch's
+// CUDA error (0 = launched).
+extern "C" int tw_fire_compact(const int32_t* pdst, const int32_t* woff_n,
+                               const int32_t* payload, int n, int M, int P,
+                               int S, int B, int32_t* scratch,
+                               int32_t* out_dst, int32_t* out_woff,
+                               int32_t* out_smrank, int32_t* out_pay,
+                               int32_t* drops, void* stream) {
+  if (B < 1) return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  return B == 1 ? launch<false>(pdst, woff_n, payload, n, M, P, S, B,
+                                scratch, out_dst, out_woff, out_smrank,
+                                out_pay, drops, st)
+                : launch<true>(pdst, woff_n, payload, n, M, P, S, B,
+                               scratch, out_dst, out_woff, out_smrank,
+                               out_pay, drops, st);
 }

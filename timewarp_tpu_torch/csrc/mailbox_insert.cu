@@ -9,7 +9,9 @@
 // start[d] .. start[d] + cnt[d] - 1, the buckets contiguous in node
 // order. Commutative inbox: the r-th message fills d's r-th empty slot
 // (mb_rel == INT32_MAX). Ordered inbox: it fills row counts[d] + r.
-// Messages that find no slot are summed into overflow.
+// Messages that find no slot are summed into overflow. A fleet of B
+// worlds is one launch: the world is the grid's y axis, and each world's
+// planes, buckets, batch columns and overflow sit at its own offset.
 //
 // What bounds it on an H100: memory traffic — every mailbox plane is
 // read once and written once (K * (1 + P [+ 1 src]) int32 planes of N),
@@ -56,13 +58,28 @@ __global__ void __launch_bounds__(tw::kTile, kMinBlocks)
     bool wide, int32_t* __restrict__ o_rel, int32_t* __restrict__ o_src,
     int32_t* __restrict__ o_pay, int32_t* __restrict__ overflow) {
   extern __shared__ int32_t smem[];
+  // world blockIdx.y: every plane, batch column and counter at its offset
+  const int64_t w = blockIdx.y;
+  const int64_t wn = w * n, ws = w * S, wkn = w * K * n;
+  start += wn;
+  cnt += wn;
+  if (counts != nullptr) counts += wn;
+  drel += ws;
+  if (src != nullptr) src += ws;
+  pay += ws * P;
+  mb_rel += wkn;
+  if (mb_src != nullptr) mb_src += wkn;
+  mb_pay += wkn * P;
+  o_rel += wkn;
+  if (o_src != nullptr) o_src += wkn;
+  o_pay += wkn * P;
   int ovf = tw::insert_tile<false>(
       n, K, P, S, cap, wide, start, cnt, counts,
       [&](int j) { return tw::Entry{drel[j], src != nullptr ? src[j] : 0}; },
       [](tw::Entry e, int) { return e; }, pay, mb_rel, mb_src, mb_pay,
       o_rel, o_src, o_pay, smem);
   ovf = tw::warp_sum(ovf);
-  if ((threadIdx.x & 31) == 0 && ovf != 0) atomicAdd(overflow, ovf);
+  if ((threadIdx.x & 31) == 0 && ovf != 0) atomicAdd(overflow + w, ovf);
 }
 
 }  // namespace
@@ -71,23 +88,27 @@ extern "C" const char* tw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// start, cnt int32[n], the buckets contiguous in node order; counts
-// int32[n] with 0 <= counts[d] <= K, or null (commutative); drel int32[S];
-// src int32[S] or null (no inbox src: mb_src, o_src unused); pay int32[P,
-// S]; mb_rel, mb_src int32[K, n]; mb_pay int32[K, P, n]; outputs o_rel,
-// o_src, o_pay of the same shapes; overflow int32[1], zeroed by the
-// caller. Returns the CUDA error of the launch.
+// B worlds, each laid out as one solo call, world-major: start, cnt
+// int32[B, n], each world's buckets contiguous in node order; counts
+// int32[B, n] with 0 <= counts <= K, or null (commutative); drel int32[B,
+// S]; src int32[B, S] or null (no inbox src: mb_src, o_src unused); pay
+// int32[B, P, S]; mb_rel, mb_src int32[B, K, n]; mb_pay int32[B, K, P, n];
+// outputs o_rel, o_src, o_pay of the same shapes; overflow int32[B],
+// zeroed by the caller. One launch for every world (grid: tiles x B).
+// Returns the CUDA error of the launch.
 extern "C" int tw_mailbox_insert(const int32_t* start, const int32_t* cnt,
                                  const int32_t* counts, const int32_t* drel,
                                  const int32_t* src, const int32_t* pay,
                                  int S, const int32_t* mb_rel,
                                  const int32_t* mb_src, const int32_t* mb_pay,
-                                 int n, int K, int P, int32_t* o_rel,
+                                 int n, int K, int P, int B, int32_t* o_rel,
                                  int32_t* o_src, int32_t* o_pay,
                                  int32_t* overflow, void* stream) {
   const bool with_src = src != nullptr;
   const int cap = tw::tile_cap(K, P, with_src);
   const size_t smem = tw::tile_smem_bytes(cap, P, with_src);
+  // every world's planes start 16-byte aligned when the first's do and n
+  // is a multiple of 4 (a world is K * n words of a plane)
   const bool wide = tw::tile_wide(n, mb_rel, mb_src, mb_pay);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -95,7 +116,8 @@ extern "C" int tw_mailbox_insert(const int32_t* start, const int32_t* cnt,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int blocks = (n + tw::kTile - 1) / tw::kTile;
+  if (B < 1 || B > 65535) return cudaErrorInvalidValue;
+  const dim3 blocks((n + tw::kTile - 1) / tw::kTile, B);
   mailbox_insert_kernel<<<blocks, tw::kTile, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       start, cnt, counts, drel, src, pay, S, mb_rel, mb_src, mb_pay, n, K, P,

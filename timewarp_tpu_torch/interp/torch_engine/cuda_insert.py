@@ -8,7 +8,10 @@ the general engine's counterpart of ``PallasInsertStage``.
 Each wrapper takes its plain version for tensors on the CPU only. For a
 CUDA tensor it launches the hand-written CUDA kernel (``csrc/``, built
 with ``nvcc`` at first use — utils/build.py) or raises: there is no
-fallback. Every launch adds one to :data:`LAUNCHES`.
+fallback. Every launch adds one to :data:`LAUNCHES`. K2 and K1 (and
+their plain versions) also take a fleet: a leading world axis B on
+every operand, all B worlds in one launch, each world's result equal to
+its own solo call.
 
 No kernel writes into its inputs: outputs are allocated fresh. This
 matters because the commutative path hands the previous state's
@@ -118,95 +121,113 @@ def _compact_layout(n: int):
     return NR, RW
 
 
-def compact_scratch_words(n: int, M: int) -> int:
-    """int32 words of K2's scratch, allocated fresh for each call (so no
-    two calls, engines or streams share it): one valid count per warp of
-    each 256-lane unit of the write order (8 warps, 4 units a segment of
-    LANES), then one total per CTA of the cooperative grid, which never
-    has more CTAs than units."""
+def compact_scratch_words(n: int, M: int, B: int = 1) -> int:
+    """int32 words of K2's scratch for ``B`` worlds, allocated fresh for
+    each call (so no two calls, engines or streams share it): one valid
+    count per warp of each 256-lane unit of each world's write order (8
+    warps, 4 units a segment of LANES), then one total per job of the
+    cooperative grid, which never has more jobs than units."""
     NR, _ = _compact_layout(n)
     units = NR * M * (LANES // 256)
-    return units * 8 + units
+    return B * (units * 8 + units)
 
 
 def fire_compact_plain(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
                        payload: torch.Tensor, S: int):
-    """Plain version of K2. ``pdst`` int32 ``[M, N]`` (-1 = no message),
-    ``woff_n`` int32 ``[N]`` in-window send offsets (None when the window
-    is 1: the batch's woff column is then 0), ``payload`` int32
-    ``[M, P, N]``. Returns ``(dst[S], woff[S], smrank[S], pay[P, S],
-    drops)``: valid messages in the reference kernel's order
-    (``_compact_layout``), ``dst = n`` past the fired count, and the
-    count of messages beyond ``S`` (an int32 scalar tensor)."""
-    M, n = pdst.shape
-    P = payload.shape[1]
+    """Plain version of K2. ``pdst`` int32 ``[(B,) M, N]`` (-1 = no
+    message), ``woff_n`` int32 ``[(B,) N]`` in-window send offsets (None
+    when the window is 1: the batch's woff column is then 0), ``payload``
+    int32 ``[(B,) M, P, N]``; a leading world axis B is optional and, when
+    present, leads every output. Returns ``(dst[S], woff[S], smrank[S],
+    pay[P, S], drops)``: each world's valid messages in the reference
+    kernel's order (``_compact_layout``), ``dst = n`` past its fired
+    count, and the count of its messages beyond ``S`` (int32)."""
+    solo = pdst.dim() == 2
+    if solo:
+        pdst, payload = pdst[None], payload[None]
+        woff_n = None if woff_n is None else woff_n[None]
+    B, M, n = pdst.shape
+    P = payload.shape[2]
     dev = pdst.device
     NR, RW = _compact_layout(n)
     G = NR // RW
-    padded = torch.full((M, NR * LANES), -1, dtype=torch.int32, device=dev)
-    padded[:, :n] = pdst
-    d = padded.view(M, G, RW, LANES).permute(1, 0, 2, 3).reshape(-1)
-    node = torch.arange(NR * LANES, dtype=torch.int64, device=dev) \
-        .view(1, G, RW, LANES).expand(M, G, RW, LANES) \
-        .permute(1, 0, 2, 3).reshape(-1)
-    slot = torch.arange(M, dtype=torch.int64, device=dev) \
-        .view(M, 1, 1, 1).expand(M, G, RW, LANES) \
-        .permute(1, 0, 2, 3).reshape(-1)
-    idx = torch.nonzero(d >= 0).squeeze(1)
-    total = idx.numel()
-    keep = idx[:S]
-    F = keep.numel()
-    nodes, slots = node[keep], slot[keep]
-    out_dst = torch.full((S,), n, dtype=torch.int32, device=dev)
-    out_dst[:F] = d[keep]
-    out_woff = torch.zeros(S, dtype=torch.int32, device=dev)
+    L = NR * LANES
+    padded = torch.full((B, M, L), -1, dtype=torch.int32, device=dev)
+    padded[:, :, :n] = pdst
+    # the write order: block, slot, row, lane
+    order = (torch.arange(M * L, dtype=torch.int64, device=dev)
+             .view(M, G, RW * LANES).permute(1, 0, 2).reshape(-1))
+    d = padded.view(B, M * L)[:, order]                      # [B, M*L]
+    node, slot = order % L, order // L
+    valid = d >= 0
+    pos = torch.cumsum(valid, dim=1) - 1                     # write slot
+    total = valid.sum(dim=1)
+    keep = valid & (pos < S)
+    wb, lane = torch.nonzero(keep, as_tuple=True)
+    at = pos[wb, lane]
+    nodes, slots = node[lane], slot[lane]
+    out_dst = torch.full((B, S), n, dtype=torch.int32, device=dev)
+    out_dst[wb, at] = d[wb, lane]
+    out_woff = torch.zeros((B, S), dtype=torch.int32, device=dev)
     if woff_n is not None:
-        out_woff[:F] = woff_n[nodes]
-    out_smrank = torch.zeros(S, dtype=torch.int32, device=dev)
-    out_smrank[:F] = (nodes * M + slots).to(torch.int32)
-    out_pay = torch.zeros((P, S), dtype=torch.int32, device=dev)
-    out_pay[:, :F] = payload[slots, :, nodes].T
-    drops = torch.tensor(max(total - S, 0), dtype=torch.int32, device=dev)
+        out_woff[wb, at] = woff_n[wb, nodes]
+    out_smrank = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    out_smrank[wb, at] = (nodes * M + slots).to(torch.int32)
+    out_pay = torch.zeros((B, P, S), dtype=torch.int32, device=dev)
+    out_pay[wb, :, at] = payload[wb, slots, :, nodes]
+    drops = torch.clamp(total - S, min=0).to(torch.int32)
+    if solo:
+        return (out_dst[0], out_woff[0], out_smrank[0], out_pay[0],
+                drops[0])
     return out_dst, out_woff, out_smrank, out_pay, drops
 
 
-_COMPACT_ARGS = (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P)
+_COMPACT_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                 _P)
 
 
 def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
                  payload: torch.Tensor, S: int):
     """K2: stream compaction of the raw outbox planes into the fired
-    batch of static width ``S`` (see :func:`fire_compact_plain` for the
-    function). CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/fire_compact.cu``: one cooperative launch of a grid that is
-    resident all at once, with every payload word staged in shared
-    memory (8 KB a CTA per word), so a refused launch — a payload too
-    wide for a CTA's shared memory among them — raises."""
+    batch of static width ``S``, solo or over a leading world axis (see
+    :func:`fire_compact_plain` for the function). CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/fire_compact.cu``: one
+    cooperative launch of a grid that is resident all at once, for every
+    world, with every payload word staged in shared memory (8 KB a CTA
+    per word), so a refused launch — a payload too wide for a CTA's
+    shared memory among them — raises."""
     if not _on_card(pdst, "fire_compact"):
         return fire_compact_plain(pdst, woff_n, payload, S)
-    M, n = pdst.shape
-    P = payload.shape[1]
+    solo = pdst.dim() == 2
+    if solo:
+        pdst, payload = pdst[None], payload[None]
+        woff_n = None if woff_n is None else woff_n[None]
+    B, M, n = pdst.shape
+    P = payload.shape[2]
     dev = pdst.device
-    _require("pdst", pdst, (M, n), dev)
-    _require("payload", payload, (M, P, n), dev)
+    _require("pdst", pdst, (B, M, n), dev)
+    _require("payload", payload, (B, M, P, n), dev)
     if woff_n is not None:
-        _require("woff_n", woff_n, (n,), dev)
-    scratch = torch.empty(compact_scratch_words(n, M), dtype=torch.int32,
+        _require("woff_n", woff_n, (B, n), dev)
+    scratch = torch.empty(compact_scratch_words(n, M, B), dtype=torch.int32,
                           device=dev)
-    out_dst = torch.empty(S, dtype=torch.int32, device=dev)
-    out_woff = torch.empty(S, dtype=torch.int32, device=dev)
-    out_smrank = torch.empty(S, dtype=torch.int32, device=dev)
-    out_pay = torch.empty((P, S), dtype=torch.int32, device=dev)
-    drops = torch.empty((), dtype=torch.int32, device=dev)
+    out_dst = torch.empty((B, S), dtype=torch.int32, device=dev)
+    out_woff = torch.empty((B, S), dtype=torch.int32, device=dev)
+    out_smrank = torch.empty((B, S), dtype=torch.int32, device=dev)
+    out_pay = torch.empty((B, P, S), dtype=torch.int32, device=dev)
+    drops = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _kernel("fire_compact", "tw_fire_compact", _COMPACT_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(pdst.data_ptr(), _ptr(woff_n), payload.data_ptr(), n, M, P,
-                S, scratch.data_ptr(), out_dst.data_ptr(),
+                S, B, scratch.data_ptr(), out_dst.data_ptr(),
                 out_woff.data_ptr(), out_smrank.data_ptr(),
                 out_pay.data_ptr(), drops.data_ptr(), stream)
     _check_launch("fire_compact", rc)
     LAUNCHES["fire_compact"] += 1
+    if solo:
+        return (out_dst[0], out_woff[0], out_smrank[0], out_pay[0],
+                drops[0])
     return out_dst, out_woff, out_smrank, out_pay, drops
 
 
@@ -218,9 +239,13 @@ def bucket_bounds(sd: torch.Tensor, n: int) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
     """Per-destination bucket of a destination-sorted batch (sentinel
     ``n`` past the valid entries): ``start[d]`` is the index of d's first
-    message and ``cnt[d]`` their number, int32 ``[n]`` each. Plain torch
-    ops outside the kernel, as the reference computes them in XLA."""
+    message and ``cnt[d]`` their number, int32 ``[n]`` each — ``[B, n]``
+    for a ``[B, S]`` fleet batch, each world's row sorted on its own.
+    Plain torch ops outside the kernel, as the reference computes them in
+    XLA."""
     nodes = torch.arange(n, dtype=torch.int32, device=sd.device)
+    if sd.dim() == 2:
+        nodes = nodes.expand(sd.shape[0], n).contiguous()
     start = torch.searchsorted(sd, nodes, out_int32=True)
     end = torch.searchsorted(sd, nodes, right=True, out_int32=True)
     return start, end - start
@@ -237,75 +262,99 @@ def mailbox_insert_plain(start, cnt, counts, drel, src, pay,
     r-th empty slot (``mb_rel == I32MAX``); otherwise (ordered inbox) it
     fills row ``counts[d] + r``. Returns ``(mb_rel, mb_src, mb_payload,
     overflow)`` with the messages that found no slot counted in the int32
-    scalar ``overflow``."""
-    K, n = mb_rel.shape
-    S = drel.shape[0]
+    ``overflow``. A leading world axis B on every operand (a fleet)
+    leads every result too."""
+    solo = mb_rel.dim() == 2
+    if solo:
+        start, cnt, drel, pay, mb_rel, mb_src, mb_payload = (
+            x[None] for x in (start, cnt, drel, pay, mb_rel, mb_src,
+                              mb_payload))
+        counts = None if counts is None else counts[None]
+        src = None if src is None else src[None]
+    B, K, n = mb_rel.shape
+    P = mb_payload.shape[2]
+    S = drel.shape[1]
     if counts is None:
         free = mb_rel == I32MAX
-        h = torch.cumsum(free, dim=0, dtype=torch.int32) - free.to(
+        h = torch.cumsum(free, dim=1, dtype=torch.int32) - free.to(
             torch.int32)
-        want = free & (h < cnt[None, :])
-        j = start[None, :] + h
-        ovf = torch.clamp(cnt - free.sum(dim=0, dtype=torch.int32), min=0)
+        want = free & (h < cnt[:, None, :])
+        j = start[:, None, :] + h
+        ovf = torch.clamp(cnt - free.sum(dim=1, dtype=torch.int32), min=0)
     else:
         rows = torch.arange(K, dtype=torch.int32, device=mb_rel.device)
-        jr = rows[:, None] - counts[None, :]
-        want = (jr >= 0) & (jr < cnt[None, :])
-        j = start[None, :] + jr
+        jr = rows[None, :, None] - counts[:, None, :]
+        want = (jr >= 0) & (jr < cnt[:, None, :])
+        j = start[:, None, :] + jr
         ovf = torch.clamp(cnt - (K - counts), min=0)
-    jc = torch.where(want, j, 0).clamp(0, S - 1).long()
-    o_rel = torch.where(want, drel[jc], mb_rel)
-    o_pay = torch.where(want[:, None, :], pay[:, jc].permute(1, 0, 2),
+    jc = torch.where(want, j, 0).clamp(0, S - 1).long().view(B, K * n)
+    o_rel = torch.where(want, drel.gather(1, jc).view(B, K, n), mb_rel)
+    pj = pay.gather(2, jc[:, None, :].expand(B, P, K * n)).view(B, P, K, n)
+    o_pay = torch.where(want[:, :, None, :], pj.permute(0, 2, 1, 3),
                         mb_payload)
-    o_src = mb_src if src is None else torch.where(want, src[jc], mb_src)
-    return o_rel, o_src, o_pay, ovf.sum(dtype=torch.int32)
+    o_src = mb_src if src is None else torch.where(
+        want, src.gather(1, jc).view(B, K, n), mb_src)
+    overflow = ovf.sum(dim=1, dtype=torch.int32)
+    if solo:
+        return o_rel[0], o_src[0], o_pay[0], overflow[0]
+    return o_rel, o_src, o_pay, overflow
 
 
-_INSERT_ARGS = (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+_INSERT_ARGS = (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                 _P, _P, _P, _P, _P)
 
 
 def mailbox_insert(start, cnt, counts, drel, src, pay,
                    mb_rel, mb_src, mb_payload):
-    """K1: see :func:`mailbox_insert_plain` for the function. CPU
-    tensors take the plain version; CUDA tensors launch
-    ``csrc/mailbox_insert.cu`` (one CTA per tile of 256 nodes loads the
-    tile's entries in turn and fills its nodes' rows, the tile walk it
-    shares with K3; outputs freshly allocated). The buckets must be
-    contiguous in node order, as :func:`bucket_bounds` gives them, and an
-    ordered inbox's ``counts`` lie in ``[0, K]``."""
+    """K1: see :func:`mailbox_insert_plain` for the function, solo or
+    over a leading world axis. CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/mailbox_insert.cu`` (one CTA per tile of 256
+    nodes of one world loads the tile's entries in turn and fills its
+    nodes' rows, the tile walk it shares with K3; every world in the one
+    launch; outputs freshly allocated). The buckets must be contiguous in
+    node order, as :func:`bucket_bounds` gives them, and an ordered
+    inbox's ``counts`` lie in ``[0, K]``."""
     if not _on_card(mb_rel, "mailbox_insert"):
         return mailbox_insert_plain(start, cnt, counts, drel, src, pay,
                                     mb_rel, mb_src, mb_payload)
-    K, n = mb_rel.shape
-    P = mb_payload.shape[1]
-    S = drel.shape[0]
+    solo = mb_rel.dim() == 2
+    if solo:
+        start, cnt, drel, pay, mb_rel, mb_src, mb_payload = (
+            x[None] for x in (start, cnt, drel, pay, mb_rel, mb_src,
+                              mb_payload))
+        counts = None if counts is None else counts[None]
+        src = None if src is None else src[None]
+    B, K, n = mb_rel.shape
+    P = mb_payload.shape[2]
+    S = drel.shape[1]
     dev = mb_rel.device
-    for name, x, shape in (("start", start, (n,)), ("cnt", cnt, (n,)),
-                           ("drel", drel, (S,)), ("pay", pay, (P, S)),
-                           ("mb_rel", mb_rel, (K, n)),
-                           ("mb_src", mb_src, (K, n)),
-                           ("mb_payload", mb_payload, (K, P, n))):
+    for name, x, shape in (("start", start, (B, n)), ("cnt", cnt, (B, n)),
+                           ("drel", drel, (B, S)), ("pay", pay, (B, P, S)),
+                           ("mb_rel", mb_rel, (B, K, n)),
+                           ("mb_src", mb_src, (B, K, n)),
+                           ("mb_payload", mb_payload, (B, K, P, n))):
         _require(name, x, shape, dev)
     if counts is not None:
-        _require("counts", counts, (n,), dev)
+        _require("counts", counts, (B, n), dev)
     if src is not None:
-        _require("src", src, (S,), dev)
+        _require("src", src, (B, S), dev)
     o_rel = torch.empty_like(mb_rel)
     o_pay = torch.empty_like(mb_payload)
     o_src = mb_src if src is None else torch.empty_like(mb_src)
-    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((B,), dtype=torch.int32, device=dev)
     fn = _kernel("mailbox_insert", "tw_mailbox_insert", _INSERT_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(start.data_ptr(), cnt.data_ptr(), _ptr(counts),
                 drel.data_ptr(), _ptr(src), pay.data_ptr(), S,
                 mb_rel.data_ptr(), None if src is None else mb_src.data_ptr(),
-                mb_payload.data_ptr(), n, K, P,
+                mb_payload.data_ptr(), n, K, P, B,
                 o_rel.data_ptr(), None if src is None else o_src.data_ptr(),
                 o_pay.data_ptr(), overflow.data_ptr(), stream)
     _check_launch("mailbox_insert", rc)
     LAUNCHES["mailbox_insert"] += 1
+    if solo:
+        return o_rel[0], o_src[0], o_pay[0], overflow[0]
     return o_rel, o_src, o_pay, overflow
 
 
@@ -358,14 +407,16 @@ class InsertStage:
 
     def compact(self, pdst, woff_n, payload):
         """Raw pre-masked outbox planes in, compact fired batch out:
-        ``(dst, woff, smrank, pay[P, S], route_drop)``."""
+        ``(dst, woff, smrank, pay[P, S], route_drop)`` — each with the
+        fleet's leading world axis when the planes have one."""
         return fire_compact(pdst, woff_n if self.W > 1 else None,
                             payload, self.S)
 
     def insert(self, sd, drel_s, src_s, pay_s, mb_rel, mb_src,
                mb_payload, counts):
         """One destination-sorted batch into the mailbox (``counts`` is
-        the ordered inbox's kept-rows plane, None when commutative)."""
+        the ordered inbox's kept-rows plane, None when commutative), solo
+        or every world of a fleet at once."""
         start, cnt = bucket_bounds(sd, self.n)
         return mailbox_insert(start, cnt, counts, drel_s,
                               src_s if self.inbox_src else None, pay_s,
@@ -376,11 +427,12 @@ class InsertStage:
 # link sampling (shared by the general engine and K3's plain version)
 # ----------------------------------------------------------------------
 
-def link_sample(link, s0: int, s1: int, src, dst, tmsg, slot):
+def link_sample(link, s0, s1, src, dst, tmsg, slot):
     """The link's draw for each message: the per-message entropy
     ``msg_bits(s0, s1, src, dst, tmsg, slot)`` (derived only when the
-    model reads it) into ``link.sample``. Returns ``(delay int64, drop
-    bool)``."""
+    model reads it) into ``link.sample``. For a fleet the seed words are
+    ``[B, 1]`` tensors (and a swept link's parameters too) broadcasting
+    over the ``[B, S]`` messages. Returns ``(delay int64, drop bool)``."""
     mbits = msg_bits(s0, s1, src, dst, tmsg, slot) if link.needs_key \
         else None
     return link.sample(src, dst, tmsg, mbits)
@@ -389,22 +441,22 @@ def link_sample(link, s0: int, s1: int, src, dst, tmsg, slot):
 def flight_times(delay, woff, ok, W: int):
     """The ``>= 1 µs`` flight clamp, the epoch-relative deliver time
     ``woff + flight`` saturated to int32, and the ``bad_delay`` /
-    ``short_delay`` counts over the ``ok`` entries (``short`` only when
-    the window ``W > 1``). Returns ``(flight int64, drel int32, bad,
-    short)``."""
+    ``short_delay`` counts over the ``ok`` entries of each batch row (the
+    last axis; ``short`` only when the window ``W > 1``). Returns
+    ``(flight int64, drel int32, bad, short)``."""
     flight = torch.clamp(delay, min=1)                     # contract #4
     drel64 = woff.long() + flight
-    bad = (ok & (drel64 > I32MAX - 1)).sum(dtype=torch.int32)
+    bad = (ok & (drel64 > I32MAX - 1)).sum(dim=-1, dtype=torch.int32)
     if W > 1:
-        short = (ok & (flight < W)).sum(dtype=torch.int32)
+        short = (ok & (flight < W)).sum(dim=-1, dtype=torch.int32)
     else:
-        short = torch.zeros((), dtype=torch.int32, device=ok.device)
+        short = torch.zeros(ok.shape[:-1], dtype=torch.int32,
+                            device=ok.device)
     drel = torch.clamp(drel64, max=I32MAX - 1).to(torch.int32)
     return flight, drel, bad, short
 
 
-def sample_nodrop(link, s0: int, s1: int, W: int, src, dst, tmsg, slot,
-                  woff, ok):
+def sample_nodrop(link, s0, s1, W: int, src, dst, tmsg, slot, woff, ok):
     """Link sampling for the no-drop routing paths (lazy, adaptive and
     K3's plain version): :func:`link_sample` then :func:`flight_times`,
     the drop column unread."""

@@ -24,9 +24,14 @@ insert step, src, slot)``; commutative ones are presented unsorted.
 
 The trace and every state leaf equal the reference's bit for bit
 (tests/test_torch_edge_engine.py). Every superstep is classic W=1: all
-nodes due at the global minimum fire at that instant. The reference's
-faults, telemetry, controller, integrity and flight-recorder planes are
-not ported and are refused at construction.
+nodes due at the global minimum fire at that instant. ``faults=`` takes
+one ``FaultSchedule`` (the edge engine runs one world, as the
+reference's): crashes defer and reboot, partitions cut and down windows
+drop at each edge's send, degradation windows stretch the delay — the
+general engine's masks (faults/apply.py), held against the JAX
+``EdgeEngine`` in tests/test_torch_faults.py. The reference's telemetry,
+controller, integrity and flight-recorder planes are not ported and are
+refused at construction.
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ import torch
 
 from ...core.rng import fire_bits, msg_bits, seed_words
 from ...core.scenario import NEVER, Inbox, Scenario
+from ...faults.apply import (consume_restarts, cut_mask, defer_next,
+                             degrade, device_tables, down_mask,
+                             restart_fire, skewed_step)
+from ...faults.schedule import FaultSchedule
 from ...net.delays import LinkModel
 from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
@@ -155,13 +164,13 @@ class EdgeState(NamedTuple):
     delivered: torch.Tensor      # int64[]
     steps: torch.Tensor          # int64[]
     time: torch.Tensor           # int64[] — current virtual time == epoch
-    fault_dropped: torch.Tensor  # int32[] — faults are not ported: 0
-    restart_done: torch.Tensor   # bool[0]
+    fault_dropped: torch.Tensor  # int32[] — cut, down-dropped and purged
+    restart_done: torch.Tensor   # bool[C] — reboot rows consumed
 
 
 #: the reference edge engine's options this port does not carry, with the
 #: value that means "off"
-_UNPORTED = {"faults": None, "telemetry": "off", "controller": None,
+_UNPORTED = {"telemetry": "off", "controller": None,
              "verify": "off", "record": "off", "record_cap": None}
 
 
@@ -175,7 +184,7 @@ class EdgeEngine:
     last_run_stats = None
 
     def __init__(self, scenario: Scenario, link: LinkModel, *,
-                 seed: int = 0, cap: int = 2, device=None,
+                 seed: int = 0, cap: int = 2, faults=None, device=None,
                  **unported) -> None:
         name = type(self).__name__
         refuse_unported(name, unported, _UNPORTED, "the JAX EdgeEngine")
@@ -208,6 +217,28 @@ class EdgeEngine:
                         (tab(topo.in_flat[e]).long(), tab(topo.in_valid[e]))
                         for e, sh in enumerate(topo.shift)]
         self._sd = tab(np.asarray(scenario.static_dst, np.int32).T)  # [M, N]
+        self._setup_faults(faults)
+
+    def _setup_faults(self, faults) -> None:
+        """Hold one schedule's tensor tables (the edge engine runs one
+        world, as the reference's) and the reboot template."""
+        self.faults, self._ft = faults, None
+        self._has_skew = self._has_reset = False
+        self._n_restarts = 0
+        if faults is None:
+            return
+        if not isinstance(faults, FaultSchedule):
+            raise ValueError(
+                f"the edge engine runs one world; faults must be a "
+                f"FaultSchedule, got {faults!r}")
+        self._has_skew = faults.has_skew
+        self._has_reset = faults.has_reset
+        self._n_restarts = faults.n_restarts
+        self._ft = device_tables(faults.tables(self.scenario.n_nodes),
+                                 self.device)
+        if self._has_reset:
+            self._reset_states, _ = init_states_wake(self.scenario,
+                                                     self.device)
 
     # -- state -------------------------------------------------------------
 
@@ -232,7 +263,8 @@ class EdgeEngine:
             misrouted=scalar(torch.int32), bad_delay=scalar(torch.int32),
             delivered=scalar(torch.int64), steps=scalar(torch.int64),
             time=scalar(torch.int64), fault_dropped=scalar(torch.int32),
-            restart_done=torch.zeros((0,), dtype=torch.bool, device=dev))
+            restart_done=torch.zeros((self._n_restarts,), dtype=torch.bool,
+                                     device=dev))
 
     def _next_event(self, st: EdgeState) -> torch.Tensor:
         """The next event time (NEVER = quiesced), an int64 0-d tensor."""
@@ -278,7 +310,9 @@ class EdgeEngine:
     def _superstep(self, st: EdgeState, with_trace: bool
                    ) -> Optional[Tuple[EdgeState, Optional[torch.Tensor]]]:
         """One superstep: ``(new_state, trace_row)`` — the row an int64
-        ``[8]`` tensor when ``with_trace`` — or None once quiesced."""
+        ``[8]`` tensor when ``with_trace`` — or None once quiesced (the
+        quiet run, as the reference's, before the schedule's deferrals;
+        the traced one after them)."""
         sc, topo = self.scenario, self.topo
         E, C, P = topo.n_edges, self.cap, sc.payload_width
         n = self.comm.n_local
@@ -290,22 +324,57 @@ class EdgeEngine:
         nnr = st.q_rel.amin(dim=(0, 1))
         node_next = torch.minimum(
             st.wake, torch.where(nnr == I32MAX, NEVER, base + nnr.long()))
-        t = node_next.min()
-        if int(t) >= NEVER:        # the loop's one host sync per superstep
-            return None
+        ft = self._ft
+        if ft is None:
+            t = node_next.min()
+            if int(t) >= NEVER:    # the loop's one host sync per superstep
+                return None
+        else:
+            # crash suppression: events inside a down window slide to its
+            # t_up, unconsumed reboots inject their restart firing
+            t_raw = node_next.min()
+            node_next = defer_next(ft, node_ids, node_next, st.restart_done)
+            t = node_next.min()
+            if int(torch.stack([t, t_raw])[0 if with_trace else 1]) \
+                    >= NEVER:
+                return None
         fire = node_next == t
+
+        # restart bookkeeping: a reboot row whose node fires at its t_up
+        # consumes; the node's state resets, its pre-crash queue entries
+        # are purged (counted)
+        restart_done, purge = st.restart_done, None
+        fault_step = torch.zeros((), dtype=torch.int32, device=self.device)
+        states_in = st.states
+        if ft is not None and self._has_reset:
+            now = t.expand(n)
+            reset_now, purge_before = restart_fire(ft, fire, now, node_ids,
+                                                   st.restart_done)
+            restart_done = consume_restarts(ft, fire, now, node_ids,
+                                            st.restart_done)
+            purge = q_live & ((base + st.q_rel.long())
+                              < purge_before[None, None, :])
+            fault_step = purge.sum(dtype=torch.int32)
+            states_in = {k: torch.where(
+                reset_now.view((n,) + (1,) * (v.dim() - 1)),
+                self._reset_states[k], v) for k, v in st.states.items()}
 
         # 2. deliverable messages: every queued one due at a fired node
         shift32 = torch.clamp(t - base, max=I32MAX - 1).to(torch.int32)
         deliver = q_live & (st.q_rel <= shift32) & fire
+        if purge is not None:
+            deliver = deliver & ~purge
 
         # 3-4. inbox, then fire every node at t; mask the non-fired
         inbox = self._inbox(st, deliver, base)
         now = t.expand(n)
         bits = fire_bits(self.s0, self.s1, node_ids, now) \
             if sc.needs_key else None
-        new_states, out, new_wake = sc.step(st.states, inbox, now,
-                                            node_ids, bits)
+        step = sc.step
+        if ft is not None and self._has_skew:
+            step = skewed_step(sc.step, ft.skew)
+        new_states, out, new_wake = step(states_in, inbox, now, node_ids,
+                                         bits)
         states = {k: torch.where(
             fire.view((n,) + (1,) * (v.dim() - 1)), new_states[k], v)
             for k, v in st.states.items()}
@@ -324,6 +393,8 @@ class EdgeEngine:
 
         # 5. rebase surviving queue entries to the new epoch t
         keep = q_live & ~deliver
+        if purge is not None:
+            keep = keep & ~purge
         q_rel = torch.where(keep, st.q_rel - shift32, I32MAX)
 
         # 6-7. route and enqueue, one static in-edge at a time
@@ -349,6 +420,17 @@ class EdgeEngine:
                 if self.link.needs_key else None
             delay, drop = self.link.sample(src_e, node_ids, t, mb)
             ok = arr_v & ~drop
+            if ft is not None:
+                # the reference's drop order: the partition cut at the
+                # send instant, degradation of the sampled delay, the
+                # down window at the deliver time
+                cutm = ok & cut_mask(ft, src_e, node_ids, t)
+                delay = degrade(ft, delay, src_e, node_ids, t)
+                downm = (ok & ~cutm) & down_mask(
+                    ft, node_ids, t + torch.clamp(delay, min=1))
+                fault_step = fault_step + (cutm | downm).sum(
+                    dtype=torch.int32)
+                ok = ok & ~cutm & ~downm
             flight = torch.clamp(delay, min=1)                 # contract #4
             # queue times are int32-relative: a delay >= 2^31 - 1 µs is
             # clamped and counted, never wrapped
@@ -388,8 +470,8 @@ class EdgeEngine:
             delivered=st.delivered + recv_count.long(),
             steps=st.steps + 1,
             time=t,
-            fault_dropped=st.fault_dropped,
-            restart_done=st.restart_done)
+            fault_dropped=st.fault_dropped + fault_step,
+            restart_done=restart_done)
         if not with_trace:
             return new_st, None
 

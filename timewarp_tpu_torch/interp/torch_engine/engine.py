@@ -7,12 +7,16 @@ epoch-relative deliver times (``I32MAX`` = empty slot). Each superstep,
 in the reference's order:
 
 1. pop the minimum event (``t``) — the one host sync of the loop, which
-   is also the run loop's quiescence test;
+   is also the run loop's quiescence test; under a fault schedule a
+   crashed node's events first slide to its ``t_up`` and pending reboots
+   inject their restart firing;
 2. fire every node whose next event lies in ``[t, t + window)``, each at
-   its own instant;
+   its own instant (a rebooting node's state reset to the scenario's
+   initial state, its pre-crash mailbox entries purged);
 3. deliver and build the inbox (sorted by ``(deliver time, slot)`` for
    ordered inboxes);
-4. run the scenario's batched step;
+4. run the scenario's batched step (on a skewed clock where a schedule
+   says so);
 5. drop what was delivered and rebase to the new epoch;
 6. route, in one of the reference's three regimes, and insert into the
    mailbox (kernel K1). Adaptive (no ``route_cap``, a drop-free link,
@@ -22,14 +26,25 @@ in the reference's order:
    flattened slot-major at ``S = N·max_out``: the eager path samples
    every slot (a droppy link's draw decides validity) and then sorts;
    the lazy path (``route_cap`` with a drop-free link) sorts first,
-   slices to ``route_cap`` and samples only that prefix.
+   slices to ``route_cap`` and samples only that prefix. A fault schedule
+   cuts partitioned sends, degrades delays and drops deliveries into a
+   down window, at the reference's points, counting each in
+   ``fault_dropped``.
+
+The world axis: every superstep runs over a leading axis of B worlds
+(``batch=BatchSpec``), each with its own seed words, link parameters and
+fault tables, its own ``t``, and its own quiescence and step budget; a
+solo engine is the same superstep at B = 1 with the axis hidden from its
+states. One launch of K2 and one of K1 serve every world. World b of a
+fleet equals the solo run with world b's seed, link and schedule.
 
 With ``record_events > 0`` every superstep also appends its fires and
 deliveries to an on-device event ring (:meth:`TorchEngine.events`).
 
-The emitted trace and final state equal ``JaxEngine``'s bit for bit
-(tests/test_torch_engine.py, tests/test_torch_routing.py). Batched
-worlds, faults and the run-mode planes are refused at construction.
+The emitted traces and final states equal ``JaxEngine``'s bit for bit
+(tests/test_torch_engine.py, test_torch_routing.py,
+test_torch_world_batch.py, test_torch_faults.py). The run-mode planes
+are refused at construction.
 """
 
 from __future__ import annotations
@@ -37,17 +52,22 @@ from __future__ import annotations
 import time
 from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...core.rng import fire_bits, seed_words
-from ...core.scenario import NEVER, Inbox, Scenario
+from ...core.scenario import NEVER, Inbox, Outbox, Scenario
+from ...faults.apply import (consume_restarts, cut_mask, defer_next,
+                             degrade, device_tables, down_mask,
+                             restart_fire, skewed_step)
+from ...faults.schedule import FaultFleet, FaultSchedule, as_fleet
 from ...net.delays import LinkModel
 from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...trace.hashing import FIRED, RECV, SENT, mix32
+from .batched import BatchSpec, map_state, rebind_link
 from .common import LocalComm, init_states_wake, refuse_unported, run_stats
-from .cuda_insert import (InsertStage, flight_times, link_sample,
-                          sample_nodrop)
+from .cuda_insert import InsertStage, flight_times, link_sample
 
 __all__ = ["TorchEngine", "EngineState", "resolve_device", "resolve_window",
            "sort_batch", "sent_digest"]
@@ -57,7 +77,7 @@ class EngineState(NamedTuple):
     """The complete simulation state — the reference's ``EngineState``
     leaf for leaf, same dtypes and ``[K, N]`` layout (so states carry
     across, state_io.py). Scalars are 0-d tensors on the engine's
-    device."""
+    device; a fleet's state has a leading world axis B on every leaf."""
     states: Any                  # dict of [N, ...] tensors
     wake: torch.Tensor           # int64[N]
     mb_rel: torch.Tensor         # int32[K, N]; I32MAX = empty slot
@@ -74,15 +94,24 @@ class EngineState(NamedTuple):
     ev_time: torch.Tensor        # int64[E] — event ring, E = record_events
     ev_meta: torch.Tensor        # int32[4, E] — kind, node, src, payload0
     ev_count: torch.Tensor       # int64[] — events seen, stored or not
-    fault_dropped: torch.Tensor  # int32[] — faults are not ported: 0
-    restart_done: torch.Tensor   # bool[0]
+    fault_dropped: torch.Tensor  # int32[] — cut, down-dropped and purged
+    restart_done: torch.Tensor   # bool[C] — reboot rows consumed
 
 
 #: the reference engine's options this slice does not port, with the
 #: value that means "off" — any other value is refused at construction
-_UNPORTED = {"batch": None, "faults": None, "telemetry": "off",
-             "controller": None, "verify": "off", "record": "off",
-             "speculate": "off"}
+_UNPORTED = {"telemetry": "off", "controller": None, "verify": "off",
+             "record": "off", "speculate": "off"}
+
+
+class _World(NamedTuple):
+    """What distinguishes the worlds of a superstep: seed words (ints,
+    or ``[B, 1]`` tensors), the link (its swept parameters ``[B, 1]``
+    tensors) and the fault tables (a leading world axis), or None."""
+    s0: Any
+    s1: Any
+    link: LinkModel
+    ft: Any
 
 
 def resolve_device(device, who: str = "TorchEngine") -> torch.device:
@@ -102,11 +131,13 @@ def resolve_device(device, who: str = "TorchEngine") -> torch.device:
     return dev
 
 
-def resolve_window(window, link: LinkModel) -> int:
+def resolve_window(window, link: LinkModel, floor=None,
+                   fleet: bool = False) -> int:
     """The superstep window in µs: an int, or ``"auto"`` for the link's
-    declared floor. A window wider than that floor would reorder causally
-    dependent events and is refused."""
-    floor = link.min_delay_us
+    declared floor (``floor`` when given: a fleet's minimum over its
+    worlds, degraded by a fault schedule). A window wider than that floor
+    would reorder causally dependent events and is refused."""
+    floor = link.min_delay_us if floor is None else floor
     if isinstance(window, str) and window != "auto":
         raise ValueError(f"window must be an int µs count or 'auto', "
                          f"got {window!r}")
@@ -117,32 +148,67 @@ def resolve_window(window, link: LinkModel) -> int:
     if window > 1 and window > floor:
         raise ValueError(
             f"window={window} µs exceeds the link model's declared "
-            f"min_delay_us={floor}; windowed supersteps would reorder "
-            "causally dependent events")
+            f"min_delay_us={floor}"
+            f"{' (min over the batch worlds)' if fleet else ''}; windowed "
+            "supersteps would reorder causally dependent events")
     if window >= I32MAX:
         raise ValueError("window must fit int32")
     return int(window)
 
 
-def _sort_rows(key: torch.Tensor) -> torch.Tensor:
-    """Indices of a stable ascending sort along axis 0."""
-    return torch.sort(key, dim=0, stable=True).indices
+def _sort_rows(key: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Indices of a stable ascending sort along ``dim``."""
+    return torch.sort(key, dim=dim, stable=True).indices
 
 
 def sort_batch(dst, woff, smrank) -> torch.Tensor:
     """The permutation that orders a message batch by ``(dst, woff,
     smrank)``: the reference's 3-key sort as two stable sorts, ``(woff,
-    smrank)`` packed into one int64 (each < 2^31), then ``dst``."""
-    o1 = _sort_rows((woff.long() << 31) | smrank.long())
-    return o1[_sort_rows(dst[o1])]
+    smrank)`` packed into one int64 (each < 2^31), then ``dst``. Along
+    the last axis: a ``[B, S]`` fleet batch sorts each world's row."""
+    o1 = _sort_rows((woff.long() << 31) | smrank.long(), -1)
+    return o1.gather(-1, _sort_rows(dst.gather(-1, o1), -1))
 
 
 def sent_digest(ok, src, dst, tmsg, flight, pay0) -> torch.Tensor:
-    """The SENT digest of a sorted, sampled batch over its ``ok``
-    entries: each message hashed with its absolute deliver time."""
+    """The SENT digest of a sampled batch over its ``ok`` entries: each
+    message hashed with its absolute deliver time (one per batch row)."""
     dt_abs = tmsg + flight
     sent_mix = mix32(SENT, src, dst, tlo(dt_abs), thi(dt_abs), pay0)
-    return u32sum(torch.where(ok, sent_mix, 0))
+    return u32sum(torch.where(ok, sent_mix, 0), dim=-1)
+
+
+def _take(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``x[..., perm]`` per world: ``x`` ``[B, S]`` or ``[B, P, S]``,
+    ``perm`` ``[B, S']``."""
+    if x.dim() == 2:
+        return x.gather(1, perm)
+    return x.gather(2, perm[:, None, :].expand(x.shape[0], x.shape[1],
+                                               perm.shape[1]))
+
+
+def _nodes_minor(x: torch.Tensor) -> torch.Tensor:
+    """A ``[B, R..., N]`` plane as the step's ``[R..., B·N]`` layout: the
+    worlds' nodes side by side on the minor axis (a view at B = 1)."""
+    nd = x.dim()
+    return x.permute(*range(1, nd - 1), 0, nd - 1).reshape(
+        *x.shape[1:-1], x.shape[0] * x.shape[-1])
+
+
+def _worlds_major(x: torch.Tensor, B: int) -> torch.Tensor:
+    """The inverse of :func:`_nodes_minor`: ``[R..., B·N]`` -> ``[B, R...,
+    N]`` (contiguous for a fleet, a view at B = 1)."""
+    if B == 1:
+        return x.unsqueeze(0)
+    lead = x.shape[:-1]
+    y = x.reshape(*lead, B, x.shape[-1] // B)
+    return y.permute(len(lead), *range(len(lead)), len(lead) + 1) \
+        .contiguous()
+
+
+def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A ``[B]`` world mask shaped to broadcast over ``like``."""
+    return mask.view((mask.shape[0],) + (1,) * (like.dim() - 1))
 
 
 class TorchEngine:
@@ -152,24 +218,50 @@ class TorchEngine:
     plain versions on the CPU).
 
     ``window`` is an int µs width or ``"auto"`` (the link's declared
-    floor); it must not exceed ``link.min_delay_us``, and sampled delays
-    shorter than it are counted in ``short_delay``. ``route_cap`` bounds
-    the sorted batch outside the adaptive regime, unrounded (the excess
-    is counted in ``route_drop``); ``insert_cap`` bounds the adaptive
-    regime's fired batch (default ``n_nodes * max_out``: nothing can
-    drop) and is refused in the other regimes. ``record_events`` is the
-    capacity of the event ring (0: off). ``device`` defaults to the card.
-    After ``run``/``run_quiet``, ``last_run_stats`` holds the call's
-    supersteps, wall seconds and compiles (0)."""
+    floor); it must not exceed ``link.min_delay_us`` (under faults: the
+    schedule's degraded floor), and sampled delays shorter than it are
+    counted in ``short_delay``. ``route_cap`` bounds the sorted batch
+    outside the adaptive regime, unrounded (the excess is counted in
+    ``route_drop``); ``insert_cap`` bounds the adaptive regime's fired
+    batch (default ``n_nodes * max_out``: nothing can drop) and is
+    refused in the other regimes. ``record_events`` is the capacity of
+    the event ring (0: off). ``batch`` (a :class:`BatchSpec`) runs a
+    fleet of worlds; ``faults`` is a ``FaultSchedule`` (solo, or every
+    world of a fleet) or a ``FaultFleet`` (one schedule a world).
+    ``device`` defaults to the card. After ``run``/``run_quiet``,
+    ``last_run_stats`` holds the call's supersteps (summed over worlds),
+    its fleet supersteps (loop iterations, each every world's), wall
+    seconds and compiles (0)."""
 
     last_run_stats = None
+    #: the fleet's BatchSpec (None solo) and fault state; subclasses that
+    #: take neither keep these
+    batch = None
+    faults = None
+    _faulted = False
+    _has_skew = _has_reset = False
+    _n_restarts = 0
 
     def __init__(self, scenario: Scenario, link: LinkModel, *,
                  seed: int = 0, window=1, route_cap: Optional[int] = None,
                  record_events: int = 0, insert_cap: Optional[int] = None,
+                 batch: Optional[BatchSpec] = None, faults=None,
                  device=None, **unported) -> None:
         self._hold(scenario, link, seed, device, record_events, unported)
-        self.window = resolve_window(window, link)
+        link_floor = self._setup_batch(batch, link)
+        self._setup_faults(faults)
+        if self._faulted:
+            if route_cap is not None:
+                raise ValueError(
+                    "faults and route_cap cannot combine: the capped "
+                    "lazy-sampling path slices before delays (and so "
+                    "before down-window drops) exist — run the fault "
+                    "study uncapped (adaptive routing never drops)")
+            # a shrink-degradation window can undercut the link's floor:
+            # the window validates against the degraded worst case
+            link_floor = self.faults.min_delay_floor(link_floor)
+        self.window = resolve_window(window, link, link_floor,
+                                     fleet=batch is not None)
         if route_cap is not None and route_cap < 1:
             raise ValueError(f"route_cap must be >= 1, got {route_cap}")
         self.route_cap = None if route_cap is None else int(route_cap)
@@ -202,6 +294,146 @@ class TorchEngine:
         self.s0, self.s1 = seed_words(seed)
         self.comm = LocalComm(sc.n_nodes, self.device)
         self._node_ids = self.comm.node_ids()
+        self._world = _World(self.s0, self.s1, link, None)
+
+    # -- the world axis and the fault schedule ------------------------------
+
+    def _setup_batch(self, batch, link: LinkModel) -> int:
+        """Validate ``batch`` and hold the fleet's per-world identity;
+        returns the link floor the window validates against (the minimum
+        over the worlds' links)."""
+        self.batch = batch
+        if batch is None:
+            self._world_links = None
+            return link.min_delay_us
+        if not isinstance(batch, BatchSpec):
+            raise ValueError(
+                f"batch must be a BatchSpec (got {batch!r}); build "
+                "one with BatchSpec(seeds=...) or BatchSpec.of()")
+        if self.record_events:
+            raise ValueError(
+                "record_events is a solo-run debug ring; to record "
+                "world b's events, run it solo (bit-identical by "
+                "the batch exactness law, batched.py)")
+        #: per-world host-level links — what a solo run must use to
+        #: reproduce world b, and the floor for window validation
+        self._world_links = [batch.world_link(link, b)
+                             for b in range(batch.B)]
+        self._bind_identity(batch)
+        return min(lk.min_delay_us for lk in self._world_links)
+
+    def _bind_identity(self, batch: BatchSpec) -> None:
+        """The fleet's seed words and link-parameter vectors as ``[B,
+        1]`` tensors, and the per-world link they parameterize."""
+        dev = self.device
+        sw = [seed_words(s) for s in batch.seeds]
+        self._s0v = torch.tensor([a for a, _ in sw], dtype=torch.int64,
+                                 device=dev)[:, None]
+        self._s1v = torch.tensor([b for _, b in sw], dtype=torch.int64,
+                                 device=dev)[:, None]
+        self._lpv = {k: torch.as_tensor(np.asarray(v)).to(dev)[:, None]
+                     for k, v in (batch.link_params or {}).items()}
+        link = rebind_link(self.link, self._lpv) if self._lpv else self.link
+        self._world = self._world._replace(s0=self._s0v, s1=self._s1v,
+                                           link=link)
+
+    @property
+    def B(self) -> int:
+        """The number of worlds a superstep runs (1 solo)."""
+        return 1 if self.batch is None else self.batch.B
+
+    def _setup_faults(self, faults) -> None:
+        """Normalize and validate ``faults`` and lower it to tensor
+        tables with a leading world axis (of 1 solo), which every
+        superstep's masks read."""
+        self.faults = faults
+        self._faulted = faults is not None
+        if faults is None:
+            return
+        if self.batch is not None:
+            faults = as_fleet(faults, self.batch.B)
+        elif isinstance(faults, FaultFleet):
+            raise ValueError(
+                "a FaultFleet carries per-world schedules; it needs "
+                "batch=BatchSpec (a solo run takes one FaultSchedule)")
+        elif not isinstance(faults, FaultSchedule):
+            raise ValueError(
+                f"faults must be a FaultSchedule (or a FaultFleet "
+                f"with batch=), got {faults!r}; build one with "
+                "FaultSchedule((NodeCrash(...), ...)) or "
+                "faults.parse_faults()")
+        self.faults = faults
+        self._has_skew = faults.has_skew
+        self._has_reset = faults.has_reset
+        self._n_restarts = faults.n_restarts
+        self._bind_tables(faults)
+        if self._has_reset:
+            # the reboot template: the scenario's initial states (seed-
+            # independent, so one template serves every world)
+            self._reset_states, _ = init_states_wake(self.scenario,
+                                                     self.device)
+
+    def _bind_tables(self, faults) -> None:
+        ft = device_tables(faults.tables(self.scenario.n_nodes), self.device)
+        if self.batch is None:
+            ft = type(ft)(*(x.unsqueeze(0) for x in ft))
+        self._world = self._world._replace(ft=ft)
+
+    def rebind_identity(self, batch: BatchSpec, faults=None) -> bool:
+        """Swap this fleet's per-world identity in place — new seeds, link
+        values and/or fault schedules. Returns True when the new identity
+        is shape-compatible (the reference's test: same B, same
+        link-parameter paths and dtypes, fault tables absent on both sides
+        or of the same padded shape with the same skew/reset/restart
+        gates) and commits it; False when the caller must build a new
+        engine. Raises ``ValueError`` for an identity no engine of this
+        shape could run (a window wider than the new fleet's floor)."""
+        if self.batch is None:
+            raise ValueError(
+                "rebind_identity swaps a fleet's per-world identity; "
+                "a solo engine has none (batch=BatchSpec)")
+        if not isinstance(batch, BatchSpec):
+            raise ValueError(f"batch must be a BatchSpec, got {batch!r}")
+        if batch.B != self.batch.B:
+            return False
+        old_lp = self.batch.link_params or {}
+        new_lp = batch.link_params or {}
+        if set(old_lp) != set(new_lp):
+            return False
+        if any(np.asarray(new_lp[k]).dtype != np.asarray(old_lp[k]).dtype
+               for k in new_lp):
+            return False
+        fleet = None if faults is None else as_fleet(faults, batch.B)
+        if (fleet is None) != (self.faults is None):
+            return False
+        if fleet is not None:
+            if (fleet.has_skew, fleet.has_reset, fleet.n_restarts) != \
+                    (self._has_skew, self._has_reset, self._n_restarts):
+                return False
+            tables = fleet.tables(self.scenario.n_nodes)
+            if any(np.asarray(getattr(tables, f)).shape
+                   != tuple(getattr(self._world.ft, f).shape)
+                   for f in type(tables)._fields):
+                return False
+        world_links = [batch.world_link(self.link, b)
+                       for b in range(batch.B)]
+        link_floor = min(lk.min_delay_us for lk in world_links)
+        if fleet is not None:
+            link_floor = fleet.min_delay_floor(link_floor)
+        if self.window > 1 and self.window > link_floor:
+            raise ValueError(
+                f"rebind_identity: window={self.window} µs exceeds the "
+                f"new fleet's declared min_delay_us={link_floor} (min "
+                "over the batch worlds, fault-degraded); windowed "
+                "supersteps would reorder causally dependent events — "
+                "this identity needs its own engine")
+        self.batch = batch
+        self._world_links = world_links
+        self._bind_identity(batch)
+        if fleet is not None:
+            self.faults = fleet
+            self._bind_tables(fleet)
+        return True
 
     # -- state -------------------------------------------------------------
 
@@ -212,7 +444,7 @@ class TorchEngine:
 
         def scalar(dtype):
             return torch.zeros((), dtype=dtype, device=dev)
-        return EngineState(
+        st = EngineState(
             states=states, wake=wake,
             mb_rel=torch.full((K, n), I32MAX, dtype=torch.int32, device=dev),
             mb_src=torch.zeros((K, n), dtype=torch.int32, device=dev),
@@ -227,57 +459,139 @@ class TorchEngine:
                                 device=dev),
             ev_count=scalar(torch.int64),
             fault_dropped=scalar(torch.int32),
-            restart_done=torch.zeros((0,), dtype=torch.bool, device=dev))
+            restart_done=torch.zeros((self._n_restarts,), dtype=torch.bool,
+                                     device=dev))
+        if self.batch is not None:
+            # the world axis: every leaf gains a leading B dim; the worlds
+            # diverge from superstep 1 through their own entropy
+            B = self.batch.B
+            st = map_state(lambda x: x.unsqueeze(0).repeat(
+                (B,) + (1,) * x.dim()), st)
+        return st
 
     def _next_event(self, st: EngineState) -> torch.Tensor:
-        """The next event time (NEVER = quiesced), an int64 0-d tensor."""
-        mmin = st.mb_rel.min()
+        """The next event time (NEVER = quiesced), an int64 0-d tensor —
+        ``[B]`` for a fleet's state, one per world. (The schedule's
+        deferrals are not applied: the reference's quiet-loop test.)"""
+        if self.batch is None:
+            mmin = st.mb_rel.min()
+            return torch.minimum(
+                st.wake.min(),
+                torch.where(mmin == I32MAX, NEVER, st.time + mmin.long()))
+        B = st.wake.shape[0]
+        mmin = st.mb_rel.reshape(B, -1).amin(dim=1)
         return torch.minimum(
-            st.wake.min(),
+            st.wake.amin(dim=1),
             torch.where(mmin == I32MAX, NEVER, st.time + mmin.long()))
 
     # -- one superstep -----------------------------------------------------
 
+    def _pop(self, st: EngineState):
+        """Step 1 for every world: ``(node_next [B, N], t [B])``, the
+        crash deferrals and injected reboots applied, and the undeferred
+        minimum ``t_raw [B]`` (the quiet loop's test)."""
+        nnr = st.mb_rel.amin(dim=1)                               # [B, N]
+        node_next = torch.minimum(
+            st.wake, torch.where(nnr == I32MAX, NEVER,
+                                 st.time[:, None] + nnr.long()))
+        t_raw = node_next.amin(dim=1)
+        ft = self._world.ft
+        if ft is None:
+            return node_next, t_raw, t_raw
+        node_next = defer_next(ft, self._node_ids, node_next,
+                               st.restart_done)
+        return node_next, node_next.amin(dim=1), t_raw
+
     def _premask(self, out, out_valid):
         """The outbox's destinations with invalid and out-of-range
-        messages as -1 (``pdst`` int32 ``[M, N]``), and the count of
-        valid messages to an out-of-range node (``bad_dst``)."""
+        messages as -1 (``pdst`` int32 ``[B, M, N]``), and each world's
+        count of valid messages to an out-of-range node (``bad_dst``)."""
         dst32 = out.dst.to(torch.int32)
         dst_okf = (dst32 >= 0) & (dst32 < self.comm.n_global)
-        bad_dst_step = (out_valid & ~dst_okf).sum(dtype=torch.int32)
+        bad_dst_step = (out_valid & ~dst_okf).sum(dim=(1, 2),
+                                                  dtype=torch.int32)
         return (torch.where(out_valid & dst_okf, dst32, -1).contiguous(),
                 bad_dst_step)
 
+    def _sample_nodrop(self, src, dst, tmsg, slot, woff, ok):
+        """Link sampling for the no-drop routing paths (lazy, adaptive):
+        each world's draw, its degradation windows applied before the
+        flight clamp (the reference's order), then :func:`flight_times`."""
+        w = self._world
+        delay, _ = link_sample(w.link, w.s0, w.s1, src, dst, tmsg, slot)
+        if w.ft is not None:
+            delay = degrade(w.ft, delay, src, dst, tmsg)
+        return flight_times(delay, woff, ok, self.window)
+
+    def _zeros(self, B: int) -> torch.Tensor:
+        return torch.zeros((B,), dtype=torch.int32, device=self.device)
+
     def _route_firecompact(self, out, out_valid, now_vec, t, mb_rel,
                            mb_src, mb_payload, counts, with_trace):
-        """Step 6: pre-mask, fire-compact (K2), order by ``(dst, woff,
-        smrank)``, sample, insert (K1), and the SENT digest."""
+        """Step 6: pre-mask (and cut partitioned sends), fire-compact
+        (K2), order by ``(dst, woff, smrank)``, sample, insert (K1), and
+        the SENT digest — every world at once. Under faults the batch is
+        sampled before the sort, so the down-window drop can remove
+        messages before insertion ranks exist (reference
+        ``_route_firecompact``'s faulted branch)."""
         sc = self.scenario
         M = sc.max_out
         n = self.comm.n_local
+        ft = self._world.ft
+        B = out.dst.shape[0]
         pdst, bad_dst_step = self._premask(out, out_valid)
-        woff_n = (now_vec - t).to(torch.int32)
+        fault_cut = self._zeros(B)
+        if ft is not None and ft.part_group.shape[1]:
+            # partition cuts are sample-independent: killed before
+            # compaction (counted)
+            cutm = (pdst >= 0) & cut_mask(ft, self._node_ids.view(1, 1, -1),
+                                          pdst, now_vec[:, None, :])
+            fault_cut = cutm.sum(dim=(1, 2), dtype=torch.int32)
+            pdst = torch.where(cutm, -1, pdst)
+        woff_n = (now_vec - t[:, None]).to(torch.int32)
         dst_f, woff_f, smrank, pay_f, route_drop_step = self.stage.compact(
             pdst, woff_n, out.payload.to(torch.int32).contiguous())
         ok = dst_f < n
+        tt = t[:, None]
+        if ft is not None:
+            src_l = torch.div(smrank, M, rounding_mode="floor")
+            tmsg_l = tt + woff_f.long()
+            flight, drel, bad_delay_step, short_step = self._sample_nodrop(
+                src_l, dst_f, tmsg_l, smrank - src_l * M, woff_f, ok)
+            downm = ok & down_mask(ft, dst_f, tmsg_l + flight)
+            fault_down = downm.sum(dim=1, dtype=torch.int32)
+            ok2 = ok & ~downm
+            sent_count = ok2.sum(dim=1, dtype=torch.int32)
+            sent_hash = sent_digest(ok2, src_l, dst_f, tmsg_l, flight,
+                                    pay_f[:, 0]) if with_trace else None
+            sort_dst = torch.where(ok2, dst_f, n)
+            perm = sort_batch(sort_dst, woff_f, smrank)
+            sd, smrank_s = sort_dst.gather(1, perm), smrank.gather(1, perm)
+            drel_s = drel.gather(1, perm)
+            pay_s = _take(pay_f, perm)
+            src_s = torch.div(smrank_s, M, rounding_mode="floor")
+            mrel, msrc, mpay, overflow_step = self.stage.insert(
+                sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts)
+            return (mrel, msrc, mpay, overflow_step, bad_dst_step,
+                    bad_delay_step, short_step, route_drop_step, sent_count,
+                    sent_hash, fault_cut + fault_down)
         perm = sort_batch(dst_f, woff_f, smrank)
-        sd, woff_s, smrank_s = dst_f[perm], woff_f[perm], smrank[perm]
-        pay_s = pay_f[:, perm]
+        sd, woff_s = dst_f.gather(1, perm), woff_f.gather(1, perm)
+        smrank_s = smrank.gather(1, perm)
+        pay_s = _take(pay_f, perm)
         ok_s = sd < n
         src_s = torch.div(smrank_s, M, rounding_mode="floor")
-        tmsg_s = t + woff_s.long()
-        flight_s, drel_s, bad_delay_step, short_step = sample_nodrop(
-            self.link, self.s0, self.s1, self.window, src_s, sd, tmsg_s,
-            smrank_s - src_s * M, woff_s, ok_s)
+        tmsg_s = tt + woff_s.long()
+        flight_s, drel_s, bad_delay_step, short_step = self._sample_nodrop(
+            src_s, sd, tmsg_s, smrank_s - src_s * M, woff_s, ok_s)
         mrel, msrc, mpay, overflow_step = self.stage.insert(
-            sd, drel_s, src_s, pay_s.contiguous(), mb_rel, mb_src,
-            mb_payload, counts)
-        sent_count = ok.sum(dtype=torch.int32)
+            sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts)
+        sent_count = ok.sum(dim=1, dtype=torch.int32)
         sent_hash = sent_digest(ok_s, src_s, sd, tmsg_s, flight_s,
-                                pay_s[0]) if with_trace else None
+                                pay_s[:, 0]) if with_trace else None
         return (mrel, msrc, mpay, overflow_step, bad_dst_step,
                 bad_delay_step, short_step, route_drop_step, sent_count,
-                sent_hash)
+                sent_hash, fault_cut)
 
     def _route_flat(self, out, out_valid, now_vec, t, mb_rel, mb_src,
                     mb_payload, counts, with_trace):
@@ -285,181 +599,246 @@ class TorchEngine:
         slot-major at ``S = N·M``, sampled (eager: every slot, before the
         sort; lazy: the sorted ``route_cap`` prefix), ordered by ``(dst or
         sentinel n, woff, smrank)``, sliced to ``route_cap`` when set,
-        inserted (K1), and the path's SENT digest."""
+        inserted (K1), and the path's SENT digest. Under faults (eager
+        only) partitioned sends are cut before the flight clamp, delays
+        degraded, and deliveries into a down window dropped after it."""
         sc = self.scenario
         M, P = sc.max_out, sc.payload_width
         n = self.comm.n_local
+        B = out.dst.shape[0]
         S = n * M
-        src_f = self._node_ids.repeat(M)
+        w = self._world
+        src_f = self._node_ids.repeat(M)[None, :]               # [1, S]
         slot_f = torch.arange(M, dtype=torch.int32,
-                              device=self.device).repeat_interleave(n)
-        tmsg = now_vec.repeat(M)                                # int64[S]
-        dst_f = out.dst.reshape(S).to(torch.int32)
-        pay_f = out.payload.to(torch.int32).permute(1, 0, 2).reshape(P, S)
-        v_f = out_valid.reshape(S)
+                              device=self.device).repeat_interleave(n)[None]
+        tmsg = now_vec.repeat(1, M)                             # [B, S]
+        dst_f = out.dst.reshape(B, S).to(torch.int32)
+        pay_f = out.payload.to(torch.int32).permute(0, 2, 1, 3) \
+            .reshape(B, P, S)
+        v_f = out_valid.reshape(B, S)
         dst_ok = (dst_f >= 0) & (dst_f < self.comm.n_global)
-        bad_dst_step = (v_f & ~dst_ok).sum(dtype=torch.int32)
-        woff = (tmsg - t).to(torch.int32)                       # [0, W)
-        smrank = src_f * M + slot_f
+        bad_dst_step = (v_f & ~dst_ok).sum(dim=1, dtype=torch.int32)
+        woff = (tmsg - t[:, None]).to(torch.int32)              # [0, W)
+        smrank = (src_f * M + slot_f).expand(B, S)
+        fault_step = self._zeros(B)
         if self.lazy:
             ok = v_f & dst_ok
         else:
             # every slot is drawn, invalid and out-of-range ones too (the
             # draw is elementwise); a droppy link's draw decides validity
-            delay, drop = link_sample(self.link, self.s0, self.s1, src_f,
-                                      dst_f, tmsg, slot_f)
+            delay, drop = link_sample(w.link, w.s0, w.s1, src_f, dst_f,
+                                      tmsg, slot_f)
             ok = v_f & ~drop & dst_ok
+            if w.ft is not None:
+                cutm = ok & cut_mask(w.ft, src_f, dst_f, tmsg)
+                fault_step = cutm.sum(dim=1, dtype=torch.int32)
+                ok = ok & ~cutm
+                delay = degrade(w.ft, delay, src_f, dst_f, tmsg)
             flight, drel, bad_delay_step, short_step = flight_times(
                 delay, woff, ok, self.window)
+            if w.ft is not None:
+                downm = ok & down_mask(w.ft, dst_f, tmsg + flight)
+                fault_step = fault_step + downm.sum(dim=1, dtype=torch.int32)
+                ok = ok & ~downm
         sort_dst = torch.where(ok, dst_f, n)
         perm = sort_batch(sort_dst, woff, smrank)
-        route_drop_step = torch.zeros((), dtype=torch.int32,
-                                      device=self.device)
+        route_drop_step = self._zeros(B)
         if self.route_cap is not None and self.route_cap < S:
             # valid messages sort ahead of the sentinel: the prefix is
             # exact while the active count fits, the excess is counted
-            perm = perm[:self.route_cap]
-            route_drop_step = ok.sum(dtype=torch.int32) \
-                - (sort_dst[perm] < n).sum(dtype=torch.int32)
-        sd, smrank_s = sort_dst[perm], smrank[perm]
+            perm = perm[:, :self.route_cap]
+            route_drop_step = ok.sum(dim=1, dtype=torch.int32) \
+                - (sort_dst.gather(1, perm) < n).sum(dim=1,
+                                                     dtype=torch.int32)
+        sd, smrank_s = sort_dst.gather(1, perm), smrank.gather(1, perm)
         src_s = torch.div(smrank_s, M, rounding_mode="floor")
-        pay_s = pay_f[:, perm].contiguous()
+        pay_s = _take(pay_f, perm).contiguous()
         ok_s = sd < n
         if self.lazy:
-            woff_s = woff[perm]
-            tmsg_s = t + woff_s.long()
-            flight_s, drel_s, bad_delay_step, short_step = sample_nodrop(
-                self.link, self.s0, self.s1, self.window, src_s, sd, tmsg_s,
-                smrank_s - src_s * M, woff_s, ok_s)
+            woff_s = woff.gather(1, perm)
+            tmsg_s = t[:, None] + woff_s.long()
+            flight_s, drel_s, bad_delay_step, short_step = \
+                self._sample_nodrop(src_s, sd, tmsg_s, smrank_s - src_s * M,
+                                    woff_s, ok_s)
         else:
-            drel_s = drel[perm]
+            drel_s = drel.gather(1, perm)
         mrel, msrc, mpay, overflow_step = self.stage.insert(
             sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts)
         # the SENT digest: lazy over the sliced survivors (all that has a
         # delay), eager over every ok message at the unsliced width
         if self.lazy:
-            sent_count = ok_s.sum(dtype=torch.int32)
+            sent_count = ok_s.sum(dim=1, dtype=torch.int32)
             sent_hash = sent_digest(ok_s, src_s, sd, tmsg_s, flight_s,
-                                    pay_s[0]) if with_trace else None
+                                    pay_s[:, 0]) if with_trace else None
         else:
-            sent_count = ok.sum(dtype=torch.int32)
+            sent_count = ok.sum(dim=1, dtype=torch.int32)
             sent_hash = sent_digest(ok, src_f, dst_f, tmsg, flight,
-                                    pay_f[0]) if with_trace else None
+                                    pay_f[:, 0]) if with_trace else None
         return (mrel, msrc, mpay, overflow_step, bad_dst_step,
                 bad_delay_step, short_step, route_drop_step, sent_count,
-                sent_hash)
+                sent_hash, fault_step)
 
     def _route(self, *args):
-        """Step 6, the routing stage, in the engine's regime. An engine
-        subclass replaces it (fused_sparse.py) and keeps everything
-        else."""
+        """Step 6, the routing stage, in the engine's regime, over
+        world-axis tensors. An engine subclass replaces it
+        (fused_sparse.py) and keeps everything else."""
         if self.adaptive:
             return self._route_firecompact(*args)
         return self._route_flat(*args)
 
-    def _superstep(self, st: EngineState, with_trace: bool
-                   ) -> Optional[Tuple[EngineState, Optional[torch.Tensor]]]:
-        """One superstep: ``(new_state, trace_row)`` — the row an int64
-        ``[8]`` tensor when ``with_trace`` — or None once quiesced."""
+    def _superstep(self, st: EngineState, node_next, t, with_trace: bool
+                   ) -> Tuple[EngineState, Optional[torch.Tensor]]:
+        """One superstep of every world of the world-axis state ``st``,
+        from the popped ``node_next`` ``[B, N]`` and ``t`` ``[B]``:
+        ``(new_state, trace_rows)``, the rows int64 ``[B, 8]`` when
+        ``with_trace``. A world with nothing to do computes an unused
+        result (the run loop freezes it)."""
         sc = self.scenario
         K, P = sc.mailbox_cap, sc.payload_width
         n = self.comm.n_local
+        B = st.wake.shape[0]
         node_ids = self._node_ids
-        base = st.time
+        base = st.time                                            # [B]
         W = self.window
-        mb_live = st.mb_rel < I32MAX                            # [K, N]
+        ft = self._world.ft
+        mb_live = st.mb_rel < I32MAX                              # [B, K, N]
+        tt = t[:, None]
 
-        # 1. global next event time (the batched "pop min")
-        nnr = st.mb_rel.amin(dim=0)
-        node_next = torch.minimum(
-            st.wake, torch.where(nnr == I32MAX, NEVER, base + nnr.long()))
-        t = node_next.min()
-        if int(t) >= NEVER:        # the loop's one host sync per superstep
-            return None
         # 2. windowed firing, each node at its own instant
-        fire = (node_next < NEVER) & (node_next - t < W)
-        now_vec = torch.where(fire, node_next, t)               # int64[N]
+        fire = (node_next < NEVER) & (node_next - tt < W)
+        now_vec = torch.where(fire, node_next, tt)                # [B, N]
         shift32 = torch.clamp(t - base, max=I32MAX - 1).to(torch.int32)
-        nrel = torch.clamp(now_vec - base, max=I32MAX - 1).to(torch.int32)
-        deliver = mb_live & (st.mb_rel <= nrel[None, :]) & fire[None, :]
+        nrel = torch.clamp(now_vec - base[:, None],
+                           max=I32MAX - 1).to(torch.int32)
+
+        # restart bookkeeping: reboot rows whose node fires at its t_up
+        # consume; the node's state resets and its mailbox entries older
+        # than the crash are purged (counted, never delivered)
+        restart_done, purge = st.restart_done, None
+        fault_purged = self._zeros(B)
+        states_in = st.states
+        if ft is not None and self._has_reset:
+            reset_now, purge_before = restart_fire(
+                ft, fire, now_vec, node_ids, st.restart_done)
+            restart_done = consume_restarts(ft, fire, now_vec, node_ids,
+                                            st.restart_done)
+            purge = mb_live & ((base[:, None, None] + st.mb_rel.long())
+                               < purge_before[:, None, :])
+            fault_purged = purge.sum(dim=(1, 2), dtype=torch.int32)
+            states_in = {k: torch.where(
+                reset_now.view((B, n) + (1,) * (v.dim() - 2)),
+                self._reset_states[k], v) for k, v in st.states.items()}
+        deliver = mb_live & (st.mb_rel <= nrel[:, None, :]) \
+            & fire[:, None, :]
+        if purge is not None:
+            deliver = deliver & ~purge
 
         # 3. inbox: delivered slots first, by (time, slot) — a stable sort
         #    on the packed (undelivered, rel) key keeps slot order on ties.
         #    Commutative inboxes waive the order.
         if sc.commutative_inbox:
-            inbox = Inbox(
-                valid=deliver,
-                src=torch.where(deliver, st.mb_src, 0) if sc.inbox_src
-                else torch.zeros_like(st.mb_src),
-                time=torch.where(deliver, base + st.mb_rel.long(), NEVER),
-                payload=torch.where(deliver[:, None, :], st.mb_payload, 0))
+            ib_valid, ib_rel = deliver, st.mb_rel
+            ib_src, ib_pay = st.mb_src, st.mb_payload
         else:
             rel_key = torch.where(deliver, st.mb_rel, I32MAX)
             order = _sort_rows(((~deliver).long() << 32)
-                               | (rel_key.long() + 2**31))
-            ib_valid = deliver.gather(0, order)
-            ib_rel = rel_key.gather(0, order)
-            ib_src = st.mb_src.gather(0, order)
+                               | (rel_key.long() + 2**31), 1)
+            ib_valid = deliver.gather(1, order)
+            ib_rel = rel_key.gather(1, order)
+            ib_src = st.mb_src.gather(1, order)
             ib_pay = st.mb_payload.gather(
-                0, order[:, None, :].expand(K, P, n))
-            inbox = Inbox(
-                valid=ib_valid,
-                src=torch.where(ib_valid, ib_src, 0) if sc.inbox_src
-                else torch.zeros_like(ib_src),
-                time=torch.where(ib_valid, base + ib_rel.long(), NEVER),
-                payload=torch.where(ib_valid[:, None, :], ib_pay, 0))
+                1, order[:, :, None, :].expand(B, K, P, n))
+        inbox = Inbox(
+            valid=_nodes_minor(ib_valid),
+            src=_nodes_minor(torch.where(ib_valid, ib_src, 0)
+                             if sc.inbox_src else torch.zeros_like(ib_src)),
+            time=_nodes_minor(torch.where(ib_valid,
+                                          base[:, None, None]
+                                          + ib_rel.long(), NEVER)),
+            payload=_nodes_minor(torch.where(ib_valid[:, :, None, :],
+                                             ib_pay, 0)))
 
-        # 4. fire every node simultaneously; mask non-fired results
-        bits = fire_bits(self.s0, self.s1, node_ids, now_vec) \
-            if sc.needs_key else None
-        new_states, out, new_wake = sc.step(st.states, inbox, now_vec,
-                                            node_ids, bits)
+        # 4. fire every node of every world simultaneously, the worlds'
+        #    nodes side by side (in-world ids); mask non-fired results
+        w = self._world
+        bits = None
+        if sc.needs_key:
+            b0, b1 = fire_bits(w.s0, w.s1, node_ids[None, :], now_vec)
+            bits = (b0.reshape(B * n), b1.reshape(B * n))
+        step = sc.step
+        if ft is not None and self._has_skew:
+            # the node's VIEW of time shifts; entropy keys, digests and
+            # fault windows stay on true time
+            step = skewed_step(sc.step, ft.skew)
+        flat_states = {k: v.reshape((B * n,) + v.shape[2:])
+                       for k, v in states_in.items()}
+        new_states, out, new_wake = step(
+            flat_states, inbox, now_vec.reshape(B * n),
+            self._flat_ids(B), bits)
         states = {k: torch.where(
-            fire.view((n,) + (1,) * (v.dim() - 1)), new_states[k], v)
+            fire.view((B, n) + (1,) * (v.dim() - 2)),
+            new_states[k].reshape(v.shape), v)
             for k, v in st.states.items()}
+        new_wake = new_wake.reshape(B, n)
         new_wake = torch.where(new_wake >= NEVER, NEVER,
                                torch.maximum(new_wake, now_vec + 1))
         wake = torch.where(fire, new_wake, st.wake)
-        out_valid = out.valid & fire[None, :]                   # [M, N]
+        out = Outbox(valid=_worlds_major(out.valid, B),
+                     dst=_worlds_major(out.dst, B),
+                     payload=_worlds_major(out.payload, B))
+        out_valid = out.valid & fire[:, None, :]                  # [B, M, N]
 
         # 5. drop delivered messages, rebase to the new epoch t.
         #    Commutative: freed slots become holes (mb_src / mb_payload
         #    pass on unchanged — stale in holes, never read). Ordered: a
         #    stable sort on `not kept` compacts kept rows in slot order.
         keep = mb_live & ~deliver
+        if purge is not None:
+            keep = keep & ~purge
         if sc.commutative_inbox:
-            mb_rel = torch.where(keep, st.mb_rel - shift32, I32MAX)
+            mb_rel = torch.where(keep, st.mb_rel - shift32[:, None, None],
+                                 I32MAX)
             mb_src, mb_payload, counts = st.mb_src, st.mb_payload, None
         else:
-            order = _sort_rows((~keep).to(torch.int32))
-            kept = keep.gather(0, order)
-            mb_rel = torch.where(kept, st.mb_rel.gather(0, order) - shift32,
-                                 I32MAX)
-            mb_src = st.mb_src.gather(0, order)
+            order = _sort_rows((~keep).to(torch.int32), 1)
+            kept = keep.gather(1, order)
+            mb_rel = torch.where(kept, st.mb_rel.gather(1, order)
+                                 - shift32[:, None, None], I32MAX)
+            mb_src = st.mb_src.gather(1, order)
             mb_payload = st.mb_payload.gather(
-                0, order[:, None, :].expand(K, P, n))
-            counts = kept.sum(dim=0, dtype=torch.int32)
+                1, order[:, :, None, :].expand(B, K, P, n))
+            counts = kept.sum(dim=1, dtype=torch.int32)
 
         # 6. route, sample, insert
+        res = self._route(out, out_valid, now_vec, t, mb_rel, mb_src,
+                          mb_payload, counts, with_trace)
         (mb_rel, mb_src, mb_payload, overflow_step, bad_dst_step,
          bad_delay_step, short_step, route_drop_step, sent_count,
-         sent_hash) = self._route(
-            out, out_valid, now_vec, t, mb_rel, mb_src, mb_payload, counts,
-            with_trace)
+         sent_hash) = res[:10]
+        fault_step = fault_purged + res[10] if len(res) > 10 \
+            else fault_purged
         return self._finish_superstep(
             st, states, wake, mb_rel, mb_src, mb_payload, deliver, fire,
-            now_vec, node_ids, t, base, overflow_step, bad_dst_step,
-            bad_delay_step, short_step, route_drop_step, sent_count,
-            sent_hash, with_trace)
+            now_vec, t, base, overflow_step, bad_dst_step, bad_delay_step,
+            short_step, route_drop_step, sent_count, sent_hash, fault_step,
+            restart_done, with_trace)
 
-    def _record(self, st, deliver, fire, now_vec, node_ids, base):
-        """This superstep's events appended to the ring: fires in
-        ascending node order, then deliveries node-major in slot order.
-        Each ring slot is written at most once; an event past the
+    def _flat_ids(self, B: int) -> torch.Tensor:
+        """The step's node ids for B worlds side by side: in-world ids,
+        ``[B·N]``."""
+        if B == 1:
+            return self._node_ids
+        return self._node_ids.repeat(B)
+
+    def _record(self, st, deliver, fire, now_vec, base):
+        """This superstep's events appended to the ring (solo states):
+        fires in ascending node order, then deliveries node-major in slot
+        order. Each ring slot is written at most once; an event past the
         capacity E goes to a spare slot E that is cut off, while
         ``ev_count`` keeps counting (the overflow evidence)."""
         sc = self.scenario
         K, n, E = sc.mailbox_cap, self.comm.n_local, self.record_events
+        node_ids = self._node_ids
         base_i = torch.clamp(st.ev_count, max=E)
         f = fire.long()
         pos_f = base_i + torch.cumsum(f, 0) - f
@@ -483,20 +862,24 @@ class TorchEngine:
                 st.ev_count + nf + d.sum())
 
     def _finish_superstep(self, st, states, wake, mb_rel, mb_src,
-                          mb_payload, deliver, fire, now_vec, node_ids, t,
-                          base, overflow_step, bad_dst_step, bad_delay_step,
+                          mb_payload, deliver, fire, now_vec, t, base,
+                          overflow_step, bad_dst_step, bad_delay_step,
                           short_step, route_drop_step, sent_count,
-                          sent_hash, with_trace):
+                          sent_hash, fault_step, restart_done, with_trace):
         """Assemble the post-superstep state, the event ring included,
-        and (optionally) the trace row ``(t, fired_count, fired_hash,
-        recv_count, recv_hash, sent_count, sent_hash, overflow)``."""
+        and (optionally) each world's trace row ``(t, fired_count,
+        fired_hash, recv_count, recv_hash, sent_count, sent_hash,
+        overflow)``."""
         sc = self.scenario
         K, n = sc.mailbox_cap, self.comm.n_local
-        recv_count = deliver.sum(dtype=torch.int32)
+        B = st.wake.shape[0]
+        node_ids = self._node_ids
+        recv_count = deliver.sum(dim=(1, 2), dtype=torch.int32)
         ev_time, ev_meta, ev_count = st.ev_time, st.ev_meta, st.ev_count
         if self.record_events:
-            ev_time, ev_meta, ev_count = self._record(
-                st, deliver, fire, now_vec, node_ids, base)
+            one = map_state(lambda x: x[0], st)
+            ev_time, ev_meta, ev_count = (x[None] for x in self._record(
+                one, deliver[0], fire[0], now_vec[0], base[0]))
         new_st = st._replace(
             states=states, wake=wake,
             mb_rel=mb_rel, mb_src=mb_src, mb_payload=mb_payload,
@@ -507,69 +890,197 @@ class TorchEngine:
             route_drop=st.route_drop + route_drop_step,
             delivered=st.delivered + recv_count.long(),
             steps=st.steps + 1,
-            time=t, ev_time=ev_time, ev_meta=ev_meta, ev_count=ev_count)
+            time=t, ev_time=ev_time, ev_meta=ev_meta, ev_count=ev_count,
+            fault_dropped=st.fault_dropped + fault_step,
+            restart_done=restart_done)
         if not with_trace:
             return new_st, None
         # trace digests (order-independent): from the pre-sort mask
-        fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0))
-        d_abs = base + torch.where(deliver, st.mb_rel, 0).long()
+        fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0),
+                            dim=1)
+        d_abs = base[:, None, None] + torch.where(deliver, st.mb_rel,
+                                                  0).long()
         recv_mix = mix32(
-            RECV, node_ids[None, :].expand(K, n),
+            RECV, node_ids.view(1, 1, n),
             st.mb_src if sc.inbox_src else torch.zeros_like(st.mb_src),
-            tlo(d_abs), thi(d_abs), st.mb_payload[:, 0, :])
-        recv_hash = u32sum(torch.where(deliver, recv_mix, 0))
-        row = torch.stack([
-            t, fire.sum().long(), fired_hash, recv_count.long(), recv_hash,
-            sent_count.long(), sent_hash, overflow_step.long()])
-        return new_st, row
+            tlo(d_abs), thi(d_abs), st.mb_payload[:, :, 0, :])
+        recv_hash = u32sum(torch.where(deliver, recv_mix, 0), dim=(1, 2))
+        rows = torch.stack([
+            t, fire.sum(dim=1), fired_hash, recv_count.long(), recv_hash,
+            sent_count.long(), sent_hash, overflow_step.long()], dim=1)
+        return new_st, rows
 
     # -- run loops ---------------------------------------------------------
 
     def _start(self, state: Optional[EngineState]) -> EngineState:
-        """A run's first state: a fresh one, or ``state`` if its event
-        ring has this engine's capacity."""
+        """A run's first state in world form (a solo state gains a world
+        axis of 1, as views): a fresh one, or ``state`` if its event ring
+        has this engine's capacity."""
         if state is None:
-            return self.init_state()
-        if tuple(state.ev_meta.shape) != (4, self.record_events):
+            state = self.init_state()
+        elif tuple(state.ev_meta.shape[-2:]) != (4, self.record_events):
             raise ValueError(
-                f"state's event ring holds {state.ev_meta.shape[1]} "
+                f"state's event ring holds {state.ev_meta.shape[-1]} "
                 f"events, this engine's record_events={self.record_events}")
+        if self.batch is None:
+            return map_state(lambda x: x.unsqueeze(0), state)
         return state
 
-    def run(self, max_steps: int, state: Optional[EngineState] = None
-            ) -> Tuple[EngineState, SuperstepTrace]:
-        """Execute up to ``max_steps`` supersteps (stopping early once
-        quiesced); returns the final state and the trace of the
-        supersteps that fired."""
-        st = self._start(state)
-        steps0 = int(st.steps)
-        t0 = time.perf_counter()
-        rows = []
-        for _ in range(max_steps):
-            res = self._superstep(st, True)
-            if res is None:
-                break
-            st, row = res
-            rows.append(row)
-        cols = torch.stack(rows).cpu().numpy().T if rows else [[]] * 8
-        self.last_run_stats = run_stats(t0, steps0, int(st.steps))
-        return st, SuperstepTrace.from_columns(cols)
+    def _end(self, st: EngineState) -> EngineState:
+        return map_state(lambda x: x[0], st) if self.batch is None else st
 
-    def run_quiet(self, max_steps: int,
+    def _budgets(self, max_steps) -> np.ndarray:
+        """A run's step budget per world: one int (solo, or every world),
+        or — fleets only — one budget per world."""
+        if isinstance(max_steps, (int, np.integer)):
+            if max_steps < 0:
+                raise ValueError("step budgets must be >= 0")
+            return np.full(self.B, int(max_steps), np.int64)
+        budgets = np.asarray(max_steps)
+        if self.batch is None:
+            raise ValueError(
+                "per-world step budgets need batch=BatchSpec; a solo "
+                f"run takes one int budget (got shape {budgets.shape})")
+        if budgets.shape != (self.B,) or budgets.dtype.kind not in "iu":
+            raise ValueError(
+                f"per-world budgets must be one int per world, shape "
+                f"[{self.B}]; got shape {budgets.shape} dtype "
+                f"{budgets.dtype}")
+        if budgets.size and int(budgets.min()) < 0:
+            raise ValueError("step budgets must be >= 0")
+        return budgets.astype(np.int64)
+
+    def _drive(self, max_steps, state, with_trace: bool):
+        """The run loop over every world: each iteration pops every
+        world's ``t`` (the one host sync), steps the worlds that are live
+        and inside their budget, and leaves the others bit-frozen — a
+        world stops exactly where its solo run stops. The traced loop
+        (``run``) tests liveness after the schedule's deferrals, the quiet
+        one (``run_quiet``) keeps going only while some world within its
+        budget has an undeferred pending event, as the reference's two
+        drivers do. Returns the final state and, traced, each world's
+        rows."""
+        st = self._start(state)
+        budgets = self._budgets(max_steps)
+        done = np.zeros(self.B, np.int64)
+        steps0 = int(st.steps.sum())
+        t0 = time.perf_counter()
+        rows, acts, iters = [], [], 0
+        while True:
+            node_next, t, t_raw = self._pop(st)
+            hs = torch.stack([t, t_raw]).cpu().numpy()
+            left = done < budgets
+            act = (hs[0] < NEVER) & left
+            go = act if with_trace else (hs[1] < NEVER) & left
+            if not (go.any() and act.any()):
+                break
+            new, row = self._superstep(st, node_next, t, with_trace)
+            if not act.all():
+                keep = torch.as_tensor(act, device=self.device)
+                new = type(st)(*(
+                    {k: torch.where(_bcast(keep, v), v, st.states[k])
+                     for k, v in x.items()} if isinstance(x, dict)
+                    else torch.where(_bcast(keep, x), x, y)
+                    for x, y in zip(new, st)))
+            st = new
+            done += act
+            iters += 1
+            if with_trace:
+                rows.append(row)
+                acts.append(act)
+        # the sum waits for the device, so the wall time covers the work
+        self.last_run_stats = run_stats(t0, steps0, int(st.steps.sum()))
+        #: the loop's iterations: one superstep of every world each
+        self.last_run_stats["fleet_supersteps"] = iters
+        if not with_trace:
+            return self._end(st), None
+        cols = torch.stack(rows).cpu().numpy() if rows else \
+            np.zeros((0, self.B, 8), np.int64)
+        act = np.asarray(acts, bool).reshape(-1, self.B)
+        traces = [SuperstepTrace.from_columns(cols[act[:, b], b].T)
+                  for b in range(self.B)]
+        return self._end(st), traces
+
+    def run(self, max_steps, state: Optional[EngineState] = None):
+        """Execute up to ``max_steps`` supersteps (each world stopping
+        early once quiesced); returns the final state and the trace of
+        the supersteps that fired — for a fleet, a list of per-world
+        traces, and ``max_steps`` may be one budget per world."""
+        st, traces = self._drive(max_steps, state, True)
+        return st, (traces[0] if self.batch is None else traces)
+
+    def run_quiet(self, max_steps,
                   state: Optional[EngineState] = None) -> EngineState:
         """Traceless run: no digest work. Stops at quiescence or after
-        ``max_steps`` supersteps."""
-        st = self._start(state)
-        steps0 = int(st.steps)
-        t0 = time.perf_counter()
-        for _ in range(max_steps):
-            res = self._superstep(st, False)
-            if res is None:
+        ``max_steps`` supersteps (per world for a fleet, which may take
+        one budget per world)."""
+        return self._drive(max_steps, state, False)[0]
+
+    # -- the streaming fleet driver -----------------------------------------
+
+    def world_active(self, state) -> torch.Tensor:
+        """Per-world liveness: True while world b still has a pending
+        event (a 0-d tensor for a solo state)."""
+        return self._next_event(state) < NEVER
+
+    def fleet_progress(self, state, budgets, start=0):
+        """Host-side fleet bookkeeping: per-world ``(steps_done,
+        remaining, active)``, ``steps_done`` measured from ``start``,
+        ``remaining`` the clipped budgets, and a world active while it
+        has a pending event and budget left."""
+        steps_done = (state.steps.cpu().numpy().astype(np.int64)
+                      - np.asarray(start, np.int64))
+        remaining = np.maximum(np.asarray(budgets, np.int64)
+                               - steps_done, 0)
+        active = self.world_active(state).cpu().numpy() & (remaining > 0)
+        return steps_done, remaining, active
+
+    def run_stream(self, budgets, state: Optional[EngineState] = None,
+                   *, chunk: int = 64, on_chunk=None, on_quiesce=None):
+        """Chunked fleet driver with per-world budgets and quiesce
+        callbacks: ``chunk`` supersteps at a time, each world capped at its
+        own remaining budget — bit-identical to one uninterrupted run.
+        After every chunk ``on_chunk(state, chunk_traces)`` fires;
+        ``on_quiesce(b, state)`` fires once per world, the moment it has
+        quiesced or used its budget. Returns ``(final_state,
+        per_world_traces)`` like :meth:`run`."""
+        if self.batch is None:
+            raise ValueError(
+                "run_stream drives a fleet; solo runs use run()")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        B = self.batch.B
+        budgets = np.broadcast_to(
+            np.asarray(budgets, np.int64), (B,)).copy()
+        if budgets.size and int(budgets.min()) < 0:
+            raise ValueError("step budgets must be >= 0")
+        st = state if state is not None else self.init_state()
+        start = st.steps.cpu().numpy().astype(np.int64)
+        rows = [[] for _ in range(B)]
+        emitted = np.zeros(B, bool)
+        chunk_stats = []
+        while True:
+            _, remaining, active = self.fleet_progress(st, budgets, start)
+            for b in np.nonzero(~active & ~emitted)[0]:
+                emitted[int(b)] = True
+                if on_quiesce is not None:
+                    on_quiesce(int(b), st)
+            if not active.any():
                 break
-            st = res[0]
-        # int() waits for the device, so the wall time covers the work
-        self.last_run_stats = run_stats(t0, steps0, int(st.steps))
-        return st
+            vec = np.where(active, np.minimum(remaining, chunk), 0)
+            st, traces = self.run(vec, state=st)
+            chunk_stats.append(self.last_run_stats)
+            if on_chunk is not None:
+                on_chunk(st, traces)
+            for b in range(B):
+                rows[b].extend(traces[b].row(i)
+                               for i in range(len(traces[b])))
+        if chunk_stats:
+            self.last_run_stats = {
+                "supersteps": sum(s["supersteps"] for s in chunk_stats),
+                "wall_seconds": sum(s["wall_seconds"] for s in chunk_stats),
+                "compiles": 0}
+        return st, [SuperstepTrace.from_rows(r) for r in rows]
 
     def events(self, state: EngineState):
         """The event ring decoded on the host: ``("fire", time, node)`` and

@@ -19,7 +19,9 @@ message granularity), so the two engines differ whenever a run drops.
 
 Scope guards (constructor, never silent): a drop-free link that
 :func:`lower_link` can express, ``window > 1`` or ``max_out > 1``, a
-commutative inbox, and ``max_delay + window < 2^32``. The reference's
+commutative inbox, and ``max_delay + window < 2^32``. Like the
+reference's fused engine it takes no ``batch`` and no ``faults``: both
+are refused as unexpected arguments. The reference's
 ``n % 1024``, ``mailbox_cap <= 128`` and 12 MB VMEM budget are TPU
 artefacts and are not carried over.
 """
@@ -131,11 +133,15 @@ class FusedSparseEngine(TorchEngine):
         first ``A`` live senders by id (the rest counted whole into
         ``route_drop``), sort their messages by ``(dst, woff, smrank)``,
         then K3 samples and inserts. Static shapes throughout: the only
-        host sync stays the pop-min."""
+        host sync stays the pop-min. The engine takes no fleet, so the
+        superstep's world axis is 1 and is dropped here and restored on
+        the results."""
         sc = self.scenario
         M, P = sc.max_out, sc.payload_width
         n, A = self.comm.n_local, self.A
         pdst, bad_dst_step = self._premask(out, out_valid)
+        pdst, now_vec, t = pdst[0], now_vec[0], t[0]
+        mb_rel, mb_src, mb_payload = mb_rel[0], mb_src[0], mb_payload[0]
         sender_live = (pdst >= 0).any(dim=0)                      # [N]
         sids = torch.sort(torch.where(sender_live, self._node_ids,
                                       n)).values[:A]
@@ -150,7 +156,7 @@ class FusedSparseEngine(TorchEngine):
                   + torch.arange(M, dtype=torch.int32,
                                  device=pdst.device)[:, None]).reshape(-1)
         woff_f = woff_a[None, :].expand(M, A).reshape(-1)
-        pay_f = out.payload.to(torch.int32)[:, :, sidc] \
+        pay_f = out.payload[0].to(torch.int32)[:, :, sidc] \
             .permute(1, 0, 2).reshape(P, M * A)
         kept = ok.sum(dtype=torch.int32)
         route_drop_step = (pdst >= 0).sum(dtype=torch.int32) - kept
@@ -176,7 +182,7 @@ class FusedSparseEngine(TorchEngine):
                                      self.window, src_s, sd, tmsg_s,
                                      smrank_s - src_s * M, woff_s, ok_s)[0]
             sent_hash = sent_digest(ok_s, src_s, sd, tmsg_s, flight_s,
-                                    pay_s[0])
-        return (mrel, msrc, mpay, overflow_step, bad_dst_step,
-                bad_delay_step, short_step, route_drop_step, kept,
-                sent_hash)
+                                    pay_s[0])[None]
+        return (mrel[None], msrc[None], mpay[None], overflow_step[None],
+                bad_dst_step, bad_delay_step[None], short_step[None],
+                route_drop_step[None], kept[None], sent_hash)

@@ -4,7 +4,8 @@ leaves to and from the port's state.
 ``state_from_numpy`` takes the leaves of a ``JaxEngine`` state (as
 ``np.asarray`` of each field, the ``states`` field a dict of arrays) and
 places them on ``device`` as an :class:`EngineState`; ``state_to_numpy``
-goes back. ``edge_state_from_numpy`` / ``edge_state_to_numpy`` do the
+goes back. A fleet's state crosses the same way, its leading world axis
+on every leaf. ``edge_state_from_numpy`` / ``edge_state_to_numpy`` do the
 same for the edge engine's :class:`EdgeState` (a fused-ring state crosses
 through ``FusedRingEngine.to_edge_state``). Names and dtypes are checked,
 never coerced: a leaf of another dtype is refused. The one mapping is the
@@ -101,17 +102,20 @@ def _to_numpy(state, scenario) -> Dict[str, object]:
 
 def state_from_numpy(leaves: Dict[str, object], device,
                      scenario=None) -> EngineState:
-    """The port's state from a reference ``EngineState``'s numpy leaves.
-    The ``scenario``'s ``u32_states`` leaves must be uint32; they become
-    int64 words. The event ring carries across at any capacity E
-    (``ev_time`` ``[E]``, ``ev_meta`` ``[4, E]``)."""
+    """The port's state from a reference ``EngineState``'s numpy leaves,
+    solo or a fleet's (a leading world axis B on every leaf). The
+    ``scenario``'s ``u32_states`` leaves must be uint32; they become int64
+    words. The event ring carries across at any capacity E (``ev_time``
+    ``[(B,) E]``, ``ev_meta`` ``[(B,) 4, E]``)."""
     st = _from_numpy(EngineState, LEAF_DTYPES, leaves, device, scenario)
-    E = st.ev_time.shape[0] if st.ev_time.dim() == 1 else -1
-    if tuple(st.ev_meta.shape) != (4, E) or st.ev_count.shape != ():
+    lead = tuple(st.ev_count.shape)
+    E = st.ev_time.shape[-1] if st.ev_time.dim() == len(lead) + 1 else -1
+    if tuple(st.ev_meta.shape) != lead + (4, E) or len(lead) > 1:
         raise ValueError(
             f"event ring leaves disagree: ev_time {tuple(st.ev_time.shape)}"
             f", ev_meta {tuple(st.ev_meta.shape)}, ev_count "
-            f"{tuple(st.ev_count.shape)} (want [E], [4, E], [])")
+            f"{tuple(st.ev_count.shape)} (want [(B,) E], [(B,) 4, E], "
+            "[(B,)])")
     return st
 
 

@@ -2,7 +2,9 @@
 
 A link model is a function of ``(src, dst, send_time, entropy)`` to
 ``(delay_µs, drop)``, written in elementwise torch ops that broadcast
-over whatever layout the engine holds. Entropy is a pair of uint32 words
+over whatever layout the engine holds. A fleet's swept parameters
+(batched.py ``rebind_link``) are ``[B, 1]`` tensors that broadcast over
+its ``[B, S]`` messages. Entropy is a pair of uint32 words
 (int64 carriers) from ``core.rng.msg_bits``; models without randomness
 declare ``needs_key = False``.
 
@@ -38,6 +40,10 @@ def _no_drop(dst: torch.Tensor) -> torch.Tensor:
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    """A parameter as float32: a Python number, or a fleet's per-world
+    ``[B, 1]`` tensor (cast as the reference casts its float64 vector)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.float32)
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
@@ -200,7 +206,8 @@ class Quantize(LinkModel):
 
     def sample(self, src, dst, t, key):
         d, drop = self.inner.sample(src, dst, t, key)
-        q = int(self.quantum_us)
+        q = self.quantum_us    # an int, or a fleet's [B, 1] tensor
+        q = q if isinstance(q, torch.Tensor) else int(q)
         d = torch.clamp(d, min=1)
         return torch.div(d + q - 1, q, rounding_mode="floor") * q, drop
 

@@ -33,11 +33,14 @@ def group_rank(sorted_keys: torch.Tensor) -> torch.Tensor:
     return (iota - first).to(torch.int32)
 
 
-def u32sum(x: torch.Tensor) -> torch.Tensor:
+def u32sum(x: torch.Tensor, dim=None) -> torch.Tensor:
     """Wrapping uint32 sum (the order-independent digest reduction), as
-    an int64 scalar in ``[0, 2**32)``. Exact while the tensor holds
-    fewer than ``2**31`` words (the int64 partial sum cannot wrap)."""
-    return as_u32(x).sum() & MASK32
+    int64 in ``[0, 2**32)``: over every element, or over ``dim`` (an int
+    or a tuple, e.g. each world's row of a fleet). Exact while a sum
+    covers fewer than ``2**31`` words (the int64 partial sum cannot
+    wrap)."""
+    w = as_u32(x)
+    return (w.sum() if dim is None else w.sum(dim=dim)) & MASK32
 
 
 def tlo(t: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,12 @@ class SuperstepTrace:
         return SuperstepTrace(*(np.asarray(c).astype(d)
                                 for c, d in zip(cols, _DTYPES)))
 
+    @staticmethod
+    def from_rows(rows) -> "SuperstepTrace":
+        """Build from a list of 8-tuples in field order."""
+        cols = list(zip(*rows)) if rows else [[]] * 8
+        return SuperstepTrace.from_columns(cols)
+
     def row(self, i: int) -> tuple:
         return tuple(int(getattr(self, f)[i]) for f in _FIELDS)
 
