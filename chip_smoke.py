@@ -134,12 +134,45 @@ width, steady gossip at 2^20):
 30. K2 and K1 on one chaos-fleet superstep's own arguments, taken at
     ``eng.stage``: bit-equal, their times and byte bounds (per world,
     summed over the 8);
-31. where the chaos fleet's time goes, as phase 7.
+31. where the chaos fleet's time goes, as phase 7;
 
-Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed over its
-three main paths, phases 4, 21 and 27, K2's over phases 4 and 27; every
-time from phases 6, 13 and 19), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+then the run-mode planes (telemetry, integrity, the flight recorder and
+controlled runs) on the torch engines:
+
+32. the verified gossip wave at 100 000 nodes (``bench.py``
+    ``gossip_100k_verify``): the detection gate (``flip:7:2``, budget 64,
+    chunk 8: a rollback, and states, traces and digest chain equal the
+    clean run's), then ``run_verified`` to quiescence under ``off``,
+    ``guard``, ``digest`` and ``shadow`` with no false positive, each
+    mode's wall and overhead fraction;
+33. the flight recorder on the same wave (``record_cap`` 4096): ``off``,
+    ``deliveries`` and ``full`` equal over 24 supersteps; events, dropped
+    counts and overheads;
+34. the main path of the planes' slice: the chaos fleet with
+    ``telemetry="full", verify="digest", record="full"`` through
+    ``run_verified`` from 2 warm supersteps to quiescence, one flip at a
+    chunk boundary: a rollback, the final state = phase 27's, K1 and K2
+    once per executed fleet superstep; worlds 0 and 7 over 12 supersteps
+    = their solo runs' frames and flight logs; every fault action in each
+    world's log (recorded with ``record_cap`` 2^18 over the fault
+    windows, cut + down + purge events = ``fault_dropped``);
+35. ``run_controlled`` on ``bench.py`` ``_bursty_gossip(100 000)`` and
+    its replay (the replay law; window and rung pinned), then the
+    telemetry gate on ``gossip_100k_fused`` (K3): counters = off, the
+    overhead fraction;
+36. card against CPU with every plane on: ``TorchEngine`` adaptive (2^14),
+    eager, lazy and a 3-world faulted fleet (2^12), ``FusedSparseEngine``
+    and ``EdgeEngine`` (2^14): frames, flight logs, integrity records,
+    decision traces, traces and states equal;
+37. where the chaos fleet's time goes on the traced driver, planes off
+    and with ``telemetry="full", record="deliveries"``; the state
+    digest's time and launches over the fleet's state.
+
+Wall-clock overheads are printed and gated at 2x at most (the host is
+shared). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
+over its main paths, phases 4, 21, 27 and 34, K2's over phases 4, 27 and
+34; every time from phases 6, 13 and 19), the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
 
@@ -1734,6 +1767,490 @@ def phase_fleet_times(device, eng, state):
     return max(err2, err1), r2, r1
 
 
+# -- the run-mode planes: telemetry, integrity, flight recorder, dispatch ---
+
+def _timed(fn):
+    """``(result, wall seconds)`` of ``fn()``, the device drained at both
+    ends."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same_traces(what, a, b) -> None:
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    for w, (x, y) in enumerate(zip(*(t if isinstance(t, list) else [t]
+                                     for t in (a, b)))):
+        assert_traces_equal(x, y, f"{what} w{w}", "other")
+
+
+def _frames_equal(what, a, b) -> None:
+    if isinstance(a, list):
+        for w, (x, y) in enumerate(zip(a, b)):
+            _frames_equal(f"{what} world {w}", x, y)
+        return
+    same = np.array_equal(a.t_us, b.t_us) and sorted(a.data) == sorted(
+        b.data) and all(np.array_equal(a.data[k], b.data[k]) for k in a.data)
+    if not same:
+        raise AssertionError(f"{what}: telemetry frames differ")
+
+
+def _flights_equal(what, a, b) -> None:
+    if isinstance(a, list):
+        for w, (x, y) in enumerate(zip(a, b)):
+            _flights_equal(f"{what} world {w}", x, y)
+        return
+    cols = ("superstep", "t_sup", "kind", "src", "dst", "send_t", "t", "tag")
+    if a.dropped != b.dropped or not all(
+            np.array_equal(getattr(a, c), getattr(b, c)) for c in cols):
+        raise AssertionError(f"{what}: flight logs differ")
+
+
+def phase_verified_wave(device, n=100_000):
+    """The verified gossip wave at 100 000 nodes (``bench.py``
+    ``gossip_100k_verify``'s configuration): the detection gate of
+    ``bench.py`` ``_verify_detection_gate`` — ``flip:7:2`` between chunks
+    of a digest-mode run, budget 64, chunk 8: at least one rollback, and
+    states, traces and ``digest_chain`` equal the clean run's — then
+    ``run_verified`` to quiescence under each verify mode with no false
+    positive, each mode's wall and its overhead fraction against
+    ``off``."""
+    from timewarp_tpu_torch.integrity import FlipInjector
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link = gossip_wave(n)
+
+    def make(mode):
+        return TorchEngine(sc, link, window="auto", verify=mode,
+                           device=device)
+    clean = make("digest")
+    fc, tc = clean.run_verified(64, chunk=8)
+    injected = make("digest")
+    flip = FlipInjector("flip:7:2")
+    fi, ti = injected.run_verified(64, chunk=8, inject=flip)
+    rec = injected.last_run_integrity
+    _require_all("verified wave: detection gate", {
+        "the flip fired": flip.fired,
+        "at least one rollback": rec["rollbacks"] >= 1,
+        "digest chains equal": clean.last_run_stats["digest_chain"]
+        == injected.last_run_stats["digest_chain"]})
+    _same_traces("verified wave: clean vs recovered", tc, ti)
+    _states_equal("verified wave: clean vs recovered", fc, fi, sc)
+    say(f"verified wave: n={n} flip {flip.desc!r} detected: rollbacks="
+        f"{rec['rollbacks']} violations={[v['kind'] for v in rec['violations']]}"
+        " recovered states, traces and digest chain = the clean run's")
+    make("off").run_verified(1 << 20, chunk=256)          # warm
+    walls, fins = {}, {}
+    for mode in ("off", "guard", "digest", "shadow"):
+        eng = make(mode)
+        (fin, _), walls[mode] = _timed(
+            lambda: eng.run_verified(1 << 20, chunk=256))
+        fins[mode] = fin
+        rec = eng.last_run_integrity
+        _require_all(f"verified wave: verify={mode}", {
+            "no false positive": rec["rollbacks"] == 0
+            and not rec["violations"]})
+        if mode != "off":
+            _states_equal(f"verified wave: {mode} vs off", fins["off"], fin,
+                          sc)
+        say(f"verified wave: verify={mode} to quiescence: supersteps="
+            f"{eng.last_run_stats['supersteps']} chunks={rec['chunks']} "
+            f"checks={rec['checks']} wall_s={walls[mode]} "
+            f"overhead_frac={walls[mode] / walls['off'] - 1.0}")
+    return walls
+
+
+def phase_flight_wave(device, n=100_000, steps=24, cap=4096):
+    """The flight recorder on the same wave (``bench.py``
+    ``gossip_100k_record``, ``record_cap`` 4096): ``off``, ``deliveries``
+    and ``full`` give equal states and trace rows over 24 supersteps;
+    events and dropped counts per mode, and each mode's wall against
+    ``off``."""
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link = gossip_wave(n)
+    walls, base = {}, None
+    for mode in ("off", "deliveries", "full", "off"):
+        eng = TorchEngine(sc, link, window="auto", record=mode,
+                          record_cap=cap, device=device)
+        eng.run(steps)                                    # warm
+        (run, walls[mode]) = _timed(lambda: eng.run(steps))
+        if base is None:
+            base = run
+            continue
+        _same_traces(f"flight wave: off vs {mode}", base[1], run[1])
+        _states_equal(f"flight wave: record={mode}", base[0], run[0], sc)
+        log = eng.last_run_flight
+        say(f"flight wave: n={n} record={mode} supersteps={steps} "
+            f"events={0 if log is None else len(log)} dropped="
+            f"{0 if log is None else log.dropped} wall_s={walls[mode]} "
+            f"overhead_frac={walls[mode] / walls['off'] - 1.0}")
+    return walls
+
+
+def planes_fleet_engine(device, n=CHAOS_N, cap=4096, **planes):
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link, spec, fleet, _ = chaos_fleet(n)
+    return TorchEngine(sc, link, window="auto", batch=spec, faults=fleet,
+                       record_cap=cap, device=device, **planes), sc
+
+
+def phase_planes_main_path(device, quiet_fin, n=CHAOS_N, chunk=64,
+                           window=(18, 116), cap_all=1 << 18):
+    """The slice's main path: the chaos fleet with ``telemetry="full",
+    verify="digest", record="full"`` (``record_cap`` 4096) through
+    ``run_verified`` from 2 warm supersteps to quiescence, one
+    ``FlipInjector`` flip at the third chunk boundary: at least one
+    rollback, the final state = phase 27's plane-off run to quiescence
+    (``quiet_fin``), K1 and K2 once per executed fleet superstep. Worlds
+    0 and B - 1 over 12 supersteps equal their solo runs' frames and
+    flight logs. Then every fault action in the flight log of each world
+    whose schedule has it: the same fleet recorded with ``record_cap``
+    2^18 (every event of a superstep) over the supersteps of the fault
+    windows, each log's cut, down and purge events summing to the
+    ``fault_dropped`` they account for. (A purge needs a mailbox entry
+    older than its node's reset crash; every delivery into a down window
+    is dropped at its send, so these schedules leave none: the count is
+    printed, and tests/test_torch_flight.py holds the purge capture
+    against the reference's on a state that has one.)"""
+    import torch
+    from timewarp_tpu_torch.integrity import FlipInjector
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.obs.flight import ACTION_NAMES, EV_FAULT
+    planes = dict(telemetry="full", verify="digest", record="full")
+    eng, sc = planes_fleet_engine(device, n, **planes)
+    B = eng.B
+    # worlds 0 and B - 1 = their solo runs, planes included
+    _, _ = eng.run(12)
+    frames, logs = eng.last_run_telemetry, eng.last_run_flight
+    for b in (0, B - 1):
+        solo = TorchEngine(sc, eng.link, seed=eng.batch.seeds[b],
+                           window=eng.window,
+                           faults=eng.faults.world_schedule(b),
+                           record_cap=eng.record_cap, device=device,
+                           **planes)
+        solo.run(12)
+        _frames_equal(f"planes main path: world {b} vs solo",
+                      solo.last_run_telemetry, frames[b])
+        _flights_equal(f"planes main path: world {b} vs solo",
+                       solo.last_run_flight, logs[b])
+    warm = eng.run_quiet(2)
+    executed = []
+    run = eng.run
+
+    def counted(*a, **k):
+        out = run(*a, **k)
+        executed.append(eng.last_run_stats["fleet_supersteps"])
+        return out
+    eng.run = counted
+    flip = FlipInjector("flip:7:3")
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    try:
+        (fin, traces), wall = _timed(lambda: eng.run_verified(
+            1 << 20, warm, chunk=chunk, inject=flip))
+    finally:
+        del eng.run
+    launches = dict(ci.LAUNCHES)
+    rec = eng.last_run_integrity
+    iters = sum(executed)
+    log = eng.last_run_flight
+    _states_equal("planes main path = phase 27's plane-off run", quiet_fin,
+                  fin, sc)
+    _require_all("planes main path", {
+        "the flip fired": flip.fired,
+        "at least one rollback": rec["rollbacks"] >= 1,
+        "every world quiesced": not bool(eng.world_active(fin).any()),
+        "K2 launched once per executed fleet superstep":
+            launches["fire_compact"] == iters,
+        "K1 launched once per executed fleet superstep":
+            launches["mailbox_insert"] == iters,
+        "no K3/K4 launch":
+            launches["sample_insert"] == launches["fused_ring"] == 0})
+    say(f"planes main path: chaos fleet B={B} n={n} telemetry=full "
+        f"verify=digest record=full record_cap={eng.record_cap} chunk={chunk}"
+        f": flip {flip.desc!r}, rollbacks={rec['rollbacks']} violations="
+        f"{[v['kind'] for v in rec['violations']]} chunks={rec['chunks']} "
+        f"executed_fleet_supersteps={iters} committed="
+        f"{eng.last_run_stats['fleet_supersteps']} wall_s={wall} "
+        f"wall_ms_per_fleet_superstep={wall / iters * 1e3} "
+        f"events={[len(x) for x in log]} dropped={[x.dropped for x in log]} "
+        f"frames={[len(f) for f in eng.last_run_telemetry]} "
+        f"launches={launches}; final state = phase 27's")
+    # every fault action, from logs that drop nothing
+    rec_eng, _ = planes_fleet_engine(device, n, cap=cap_all, record="full")
+    st = rec_eng.run_quiet(window[0])
+    counts = np.zeros((B, len(ACTION_NAMES)), np.int64)
+    dropped = [0] * B
+    fd0 = st.fault_dropped.cpu().numpy().astype(np.int64)
+    done = window[0]
+    while done < window[1]:
+        st, _ = rec_eng.run(8, st)
+        done += 8
+        for b, lg in enumerate(rec_eng.last_run_flight):
+            tags = lg.tag[lg.kind == EV_FAULT]
+            counts[b] += [int((tags == t).sum()) for t in ACTION_NAMES]
+            dropped[b] += lg.dropped
+    fd = st.fault_dropped.cpu().numpy().astype(np.int64) - fd0
+    names = list(ACTION_NAMES.values())
+    col = {a: names.index(a) for a in names}
+    say(f"planes main path: fault actions over supersteps {window[0]}-"
+        f"{window[1]} (record_cap {cap_all}, dropped 0): " + "; ".join(
+            f"world {b}: " + " ".join(f"{a}={int(counts[b, col[a]])}"
+                                      for a in names)
+            + f" fault_dropped={int(fd[b])}" for b in range(B)))
+    _require_all("planes main path: fault actions", {
+        "no event dropped at cap 2^18": max(dropped) == 0,
+        "restart, cut and down in every world": all(
+            counts[b, col[a]] > 0 for b in range(B)
+            for a in ("restart", "cut", "down")),
+        # a crash defers only a pending event, and steady gossip's idle
+        # nodes may hold none when their window opens
+        "defer in the fleet": counts[:, col["defer"]].sum() > 0,
+        "cut + down + purge events = fault_dropped in every world": all(
+            counts[b, col["cut"]] + counts[b, col["down"]]
+            + counts[b, col["purge"]] == fd[b] for b in range(B))})
+    return launches, eng
+
+
+def bursty_gossip(n):
+    """bench.py _bursty_gossip: burst waves with a 40 ms incubation, an
+    8 ms-floor link, and a degradation window undercutting it to 2 ms."""
+    from timewarp_tpu_torch.faults import FaultSchedule, LinkWindow
+    from timewarp_tpu_torch.models.gossip import gossip, gossip_links
+    from timewarp_tpu_torch.net.delays import Quantize
+    sc = gossip(n, fanout=8, think_us=40_000, burst=True, end_us=5_000_000,
+                mailbox_cap=16)
+    link = Quantize(gossip_links(median_us=20_000, sigma=0.6,
+                                 floor_us=8_000), 1_000)
+    return sc, link, FaultSchedule((LinkWindow(None, None, 100_000, 200_000,
+                                               scale=0.25),))
+
+
+def phase_controlled(device, n=100_000):
+    """Controlled runs and the telemetry gate. ``bench.py``
+    ``_bursty_gossip(100 000)`` through ``run_controlled`` under
+    ``DispatchController(chunk=16, chunk_max=64)`` with
+    ``telemetry="counters"``, then a fresh engine replaying the decision
+    trace: equal states and trace digests (the replay law), the window and
+    rung pinned in every decision (the degraded floor, -1). Then
+    ``bench.py`` ``_telemetry_gate`` on ``gossip_100k_fused``'s
+    configuration (``FusedSparseEngine``, ``max_batch`` 2^18, K3):
+    counters give the states and traces of off; the overhead fraction of
+    the median of 3 traced runs of 24 supersteps each."""
+    import statistics
+    from timewarp_tpu_torch.dispatch import (DecisionTrace,
+                                             DispatchController)
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    sc, link, faults = bursty_gossip(n)
+    eng = TorchEngine(sc, link, window="auto", faults=faults,
+                      telemetry="counters", device=device,
+                      controller=DispatchController(chunk=16, chunk_max=64))
+    (fin, tr), wall = _timed(lambda: eng.run_controlled(1 << 20))
+    decisions = eng.last_run_decisions
+    replay = TorchEngine(sc, link, window="auto", faults=faults,
+                         device=device, controller=DispatchController(
+                             mode="replay",
+                             replay=DecisionTrace.of(decisions)))
+    (rfin, rtr), rwall = _timed(lambda: replay.run_controlled(1 << 20))
+    _same_traces("controlled: replay law", tr, rtr)
+    _states_equal("controlled: replay law", fin, rfin, sc)
+    _require_all("controlled", {
+        "window and rung pinned in every decision": all(
+            d.window_us == eng.window and d.rung_pin == -1
+            for d in decisions),
+        "the degraded floor": eng.window == 2_000,
+        "replayed decisions equal": [d.to_json() for d in decisions]
+        == [d.to_json() for d in replay.last_run_decisions]})
+    say(f"controlled: bursty gossip n={n} window={eng.window} supersteps="
+        f"{len(tr)} delivered={int(fin.delivered)} decisions={len(decisions)}"
+        f" chunk_lens={[d.chunk_len for d in decisions]} wall_s={wall} "
+        f"replay_wall_s={rwall}; replay = the controlled run (states, "
+        "trace digests)")
+    wsc, wlink = gossip_wave(n)
+
+    def fused(mode):
+        return FusedSparseEngine(wsc, wlink, window="auto", max_batch=1 << 18,
+                                 telemetry=mode, device=device)
+    off, on = fused("off"), fused("counters")
+    f_off, tr_off = off.run(24)
+    f_on, tr_on = on.run(24)
+    _same_traces("telemetry gate", tr_off, tr_on)
+    _states_equal("telemetry gate", f_off, f_on, wsc)
+
+    def med(e, st):
+        return statistics.median(_timed(lambda: e.run(24, st))[1]
+                                 for _ in range(3))
+    w_off, w_on = med(off, f_off), med(on, f_on)
+    overhead = w_on / w_off - 1.0
+    _require_all("telemetry gate", {"overhead under 2x": overhead <= 1.0})
+    say(f"telemetry gate: gossip_100k_fused n={n} max_batch={1 << 18} 24 "
+        f"supersteps: counters = off (states, traces); wall_s off={w_off} "
+        f"counters={w_on} overhead_frac={overhead}")
+    return overhead
+
+
+def phase_planes_card_vs_cpu(device, n=1 << 12):
+    """Every plane on, card against CPU, at 2^12 to 2^14 nodes:
+    ``TorchEngine`` adaptive, eager and lazy, solo, and a 3-world faulted
+    fleet; ``FusedSparseEngine``; ``EdgeEngine``. Through ``run_verified``
+    (``telemetry="full", verify="digest", record="full"``): equal traces,
+    states, frames, flight logs and integrity records (guard clean,
+    digests and chain); through ``run_controlled`` (an auto controller):
+    equal decision traces."""
+    from timewarp_tpu_torch.dispatch import DispatchController
+    from timewarp_tpu_torch.faults import (FaultFleet, FaultSchedule,
+                                           LinkWindow, NodeCrash, Partition)
+    from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
+    from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.delays import UniformDelay
+    from timewarp_tpu_torch.net.links import parse_link
+    half = n // 2
+    fleet = FaultFleet(tuple(FaultSchedule((
+        NodeCrash(3 + b, 10_000, 40_000 + 5_000 * b, reset_state=True),
+        NodeCrash(half + b, 15_000, 35_000),
+        Partition((tuple(range(half)), tuple(range(half, n))), 12_000,
+                  30_000 + 2_000 * b),
+        LinkWindow(None, None, 50_000, 70_000, scale=1.5 + 0.5 * b),
+    )) for b in range(3)))
+    steady = gossip(n, fanout=1, think_us=1_000, gossip_interval=1_000,
+                    end_us=80_000, steady=True, mailbox_cap=8)
+    burst = gossip(n, fanout=4, think_us=700, burst=True, end_us=400_000,
+                   mailbox_cap=16)
+    wave = gossip(4 * n, fanout=8, think_us=2_000, burst=True,
+                  end_us=400_000, mailbox_cap=16)
+    qlink = parse_link("quantize:1000:uniform:500:4500")
+    cases = (
+        ("TorchEngine adaptive", TorchEngine, wave,
+         parse_link("quantize:1000:uniform:8000:30000"),
+         dict(window="auto")),
+        ("TorchEngine eager", TorchEngine, steady,
+         parse_link("drop:0.1:quantize:1000:uniform:500:4500"), {}),
+        ("TorchEngine lazy", TorchEngine, burst,
+         parse_link("quantize:1000:uniform:3000:9000"),
+         dict(window=3_000, route_cap=64)),
+        ("TorchEngine fleet, faults", TorchEngine, steady, qlink,
+         dict(window="auto", batch=BatchSpec(seeds=(3, 4, 9)),
+              faults=fleet)),
+        ("FusedSparseEngine", FusedSparseEngine, wave,
+         parse_link("quantize:1000:uniform:8000:30000"),
+         dict(window="auto", max_batch=1 << 15)),
+        ("EdgeEngine", EdgeEngine, dense_ring(4 * n)[0],
+         UniformDelay(500, 2_000), {}),
+    )
+    for tag, cls, sc, link, kw in cases:
+        got = []
+        for dev in (device, "cpu"):
+            eng = cls(sc, link, telemetry="full", verify="digest",
+                      record="full", record_cap=1024, device=dev, **kw)
+            fin, tr = eng.run_verified(96, chunk=16)
+            ctl = cls(sc, link, telemetry="counters", device=dev,
+                      controller=DispatchController(chunk=8, chunk_max=32),
+                      **kw)
+            ctl.run_controlled(96)
+            got.append((fin, tr, eng.last_run_telemetry,
+                        eng.last_run_flight, eng.last_run_integrity,
+                        [d.to_json() for d in ctl.last_run_decisions]))
+        (fa, ta, fra, la, ia, da), (fb, tb, frb, lb, ib, db) = got
+        _same_traces(f"planes card vs CPU, {tag}", ta, tb)
+        _states_equal(f"planes card vs CPU, {tag}", fa, fb, sc)
+        _frames_equal(f"planes card vs CPU, {tag}", fra, frb)
+        _flights_equal(f"planes card vs CPU, {tag}", la, lb)
+        _require_all(f"planes card vs CPU, {tag}", {
+            "integrity records equal (guard clean, digests, chain)":
+                ia == ib and ia["rollbacks"] == 0,
+            "decision traces equal": da == db})
+        one = la[0] if isinstance(la, list) else la
+        say(f"planes card vs CPU: {tag}: n={sc.n_nodes} chunks="
+            f"{ia['chunks']} events={len(one)} dropped={one.dropped} "
+            f"decisions={len(da)} digest_chain[0]={ia['digest_chain'][0][:16]}"
+            " traces, states, frames, flight logs, integrity records and "
+            "decision traces equal")
+
+
+def phase_planes_times(device, eng31, warm=96, steps=16):
+    """Where the chaos fleet's time goes with the planes on: ``run`` (the
+    traced driver) with ``telemetry="full", record="deliveries"`` against
+    ``run`` with every plane off, each as phase 31 measures (wall, then
+    the same supersteps under ``torch.profiler``): launches, device and
+    wall ms per fleet superstep, the idle share. Then each plane alone
+    against none, in turns, by wall; and the state digest's own time
+    (CUDA events) and launches over the fleet's state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from timewarp_tpu_torch.integrity.digest import host_digests
+    mid = eng31.run_quiet(warm)
+    rows = {}
+    for tag, planes in (("planes off", {}),
+                        ("telemetry=full record=deliveries",
+                         dict(telemetry="full", record="deliveries"))):
+        eng, _ = planes_fleet_engine(device, **planes)
+        eng.run(4, mid)                                    # warm
+        _, wall = _timed(lambda: eng.run(steps, mid))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run(steps, mid)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in kernels)
+        launches = sum(e.count for e in kernels)
+        rows[tag] = (wall, dev_us, launches)
+        say(f"where the time goes, chaos fleet traced run, {tag}: {steps} "
+            f"fleet supersteps from superstep {warm}: wall_ms_per_superstep="
+            f"{wall / steps * 1e3} device_ms_per_superstep="
+            f"{dev_us / steps / 1e3} device_idle_share="
+            f"{1 - dev_us / 1e6 / wall} device_launches_per_superstep="
+            f"{launches / steps}")
+    # each plane alone on the traced driver, in turns (A..E, E..A, twice):
+    # the shared host's wall spreads, so only turns within one call compare
+    modes = (("off", {}), ("telemetry=full", dict(telemetry="full")),
+             ("verify=guard", dict(verify="guard")),
+             ("record=deliveries", dict(record="deliveries")),
+             ("record=full", dict(record="full")))
+    engs = [(tag, planes_fleet_engine(device, **planes)[0])
+            for tag, planes in modes]
+    for _, eng in engs:
+        eng.run(2, mid)                                    # warm
+    walls = {tag: [] for tag, _ in modes}
+    for order in (engs, engs[::-1], engs, engs[::-1]):
+        for tag, eng in order:
+            walls[tag].append(_timed(lambda: eng.run(16, mid))[1] / 16 * 1e3)
+    for tag, w in walls.items():
+        say(f"chaos fleet traced run, {tag} alone: wall_ms_per_fleet_"
+            f"superstep={sorted(w)} median={float(np.median(w))} "
+            f"overhead_frac={float(np.median(w)) / float(np.median(walls['off'])) - 1.0}")
+    u32 = eng31.scenario.u32_states
+    host_digests(mid, eng31.batch, u32)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        host_digests(mid, eng31.batch, u32)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    d_launches = sum(e.count for e in kernels)
+    d_dev = sum(e.self_device_time_total for e in kernels) / 1e3
+    d_ms = _time_ms(lambda: host_digests(mid, eng31.batch, u32), reps=5,
+                    queued=False)
+    nbytes = sum(x.numel() * x.element_size() for x in
+                 [*mid.states.values(), *(v for k, v in mid._asdict().items()
+                                          if k != "states")])
+    say(f"state digest over the chaos fleet's state ({nbytes} bytes, 8 "
+        f"worlds): ms={d_ms} (CUDA events, its host read included) "
+        f"device_ms={d_dev} launches={d_launches} ({nvidia_smi()})")
+    return rows, d_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1802,7 +2319,7 @@ def main() -> int:
                           warm=64, steps=32)
 
     err_k2_fleet, err_k1_fleet = phase_fleet_kernels(device)
-    chaos_launches, chaos_eng, _ = phase_chaos_main_path(device)
+    chaos_launches, chaos_eng, chaos_fin = phase_chaos_main_path(device)
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += chaos_launches[k]
     phase_fleet_card_vs_cpu(device)
@@ -1813,6 +2330,19 @@ def main() -> int:
                           warm=96, steps=32)
     err_k2 = max(err_k2, err_k2_fleet, err_fleet)
     err_k1 = max(err_k1, err_k1_fleet, err_fleet)
+
+    def timed(phase, fn, *a):
+        out, wall = _timed(lambda: fn(*a))
+        say(f"phase {phase} wall_s={wall}")
+        return out
+    timed(32, phase_verified_wave, device)
+    timed(33, phase_flight_wave, device)
+    planes_launches, _ = timed(34, phase_planes_main_path, device, chaos_fin)
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += planes_launches[k]
+    timed(35, phase_controlled, device)
+    timed(36, phase_planes_card_vs_cpu, device)
+    timed(37, phase_planes_times, device, chaos_eng)
 
     kernels = []
     for name, src, repl, err, r in (

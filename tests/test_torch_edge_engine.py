@@ -404,11 +404,18 @@ def test_refusals():
         EdgeEngine(tring(8, with_observer=True), td.FixedDelay(1),
                    device="cpu")
     sc = tring(8, n_tokens=8, with_observer=False)
-    for kw in (dict(telemetry="counters"),
-               dict(controller=object()), dict(verify="guard"),
-               dict(record="full"), dict(record_cap=64)):
-        with pytest.raises(ValueError, match="not yet ported"):
+    # the run-mode planes are ported: bad values are refused with the
+    # reference's guidance, and the reference's EdgeEngine has no
+    # speculate option at all
+    for kw, msg in ((dict(telemetry="counters "), "telemetry must be"),
+                    (dict(controller=object()), "DispatchController"),
+                    (dict(verify="guards"), "verify must be"),
+                    (dict(record="all"), "record must be"),
+                    (dict(record_cap=0), "record_cap must be")):
+        with pytest.raises(ValueError, match=msg):
             EdgeEngine(sc, td.FixedDelay(1), device="cpu", **kw)
+    with pytest.raises(TypeError):
+        EdgeEngine(sc, td.FixedDelay(1), device="cpu", speculate="auto")
     # faults are ported: what is not one FaultSchedule is refused, as the
     # reference refuses it
     with pytest.raises(ValueError, match="must be a FaultSchedule"):

@@ -188,9 +188,10 @@ def test_refuses_what_is_not_ported():
     refuse what is not a ``BatchSpec`` / ``FaultSchedule``, as the
     reference does."""
     tsc, tl = _gossip_pair(256, _quantized_uniform)[1]
-    for kw in (dict(telemetry="counters"), dict(speculate="auto")):
-        with pytest.raises(ValueError, match="not yet ported"):
-            TorchEngine(tsc, tl, window="auto", device="cpu", **kw)
+    with pytest.raises(ValueError, match="not yet ported"):
+        TorchEngine(tsc, tl, window="auto", device="cpu", speculate="auto")
+    with pytest.raises(ValueError, match="telemetry must be"):
+        TorchEngine(tsc, tl, window="auto", device="cpu", telemetry="on")
     with pytest.raises(ValueError, match="must be a BatchSpec"):
         TorchEngine(tsc, tl, window="auto", device="cpu", batch=object())
     with pytest.raises(ValueError, match="must be a FaultSchedule"):

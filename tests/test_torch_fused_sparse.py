@@ -173,7 +173,7 @@ def test_scope_guards():
         FusedSparseEngine(sc, td.Quantize(td.UniformDelay(1, 2**31 - 1),
                                           2**31 - 2), window=4, device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
-        FusedSparseEngine(sc, quniform(td), telemetry="counters", **kw)
+        FusedSparseEngine(sc, quniform(td), speculate="auto", **kw)
     with pytest.raises(TypeError):       # the reference's takes none either
         FusedSparseEngine(sc, quniform(td), route_cap=64, **kw)
     with pytest.raises(TypeError):

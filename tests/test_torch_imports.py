@@ -1,7 +1,9 @@
 """The port stands alone: importing ``timewarp_tpu_torch`` (every module
 of it) in a fresh interpreter leaves ``jax`` and the reference package
 ``timewarp_tpu`` out of ``sys.modules``; no source file of the port, nor
-``chip_smoke.py``, imports either; and every engine (``TorchEngine``,
+``chip_smoke.py``, imports either (the run-mode planes' packages ``obs``,
+``integrity``, ``dispatch`` and ``controlled.py`` also imported first and
+alone); and every engine (``TorchEngine``,
 ``FusedSparseEngine``, ``EdgeEngine``, ``FusedRingEngine``) runs on the
 card by default, raising on a machine without CUDA unless the caller
 passes ``device="cpu"``.
@@ -43,12 +45,36 @@ def test_import_leaves_jax_and_reference_out():
     for m in ("interp.torch_engine.engine", "models.ping_pong",
               "models.socket_state", "net.links",
               "interp.torch_engine.batched", "faults", "faults.apply",
-              "faults.schedule", "faults.properties", "utils.checkpoint"):
+              "faults.schedule", "faults.properties", "utils.checkpoint",
+              "obs", "obs.metrics", "obs.telemetry", "obs.flight",
+              "integrity", "integrity.checks", "integrity.digest",
+              "integrity.inject", "integrity.runner", "dispatch",
+              "dispatch.trace", "dispatch.controller",
+              "interp.torch_engine.controlled",
+              "interp.torch_engine.planes"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'timewarp_tpu' or m.startswith('timewarp_tpu.')]\n"
+        "print(len(bad), sorted(bad)[:5])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 "), out.stdout
+
+
+@pytest.mark.parametrize("mod", ["obs", "integrity", "dispatch",
+                                 "interp.torch_engine.controlled"])
+def test_plane_packages_import_alone(mod):
+    """Each run-mode plane's package, imported first and alone in a fresh
+    interpreter (the plane modules copied from the reference keep their
+    own copies of what they need), loads neither."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('timewarp_tpu_torch.{mod}')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'timewarp_tpu' or m.startswith('timewarp_tpu.')]\n"
         "print(len(bad), sorted(bad)[:5])\n")

@@ -8,7 +8,8 @@ import time
 
 import torch
 
-__all__ = ["LocalComm", "init_states_wake", "refuse_unported", "run_stats"]
+__all__ = ["LocalComm", "init_states_wake", "refuse_unported", "run_stats",
+           "stats_merge"]
 
 
 class LocalComm:
@@ -53,3 +54,19 @@ def run_stats(t0: float, steps_before: int, steps_after: int) -> dict:
     return {"supersteps": steps_after - steps_before,
             "wall_seconds": time.perf_counter() - t0,
             "compiles": 0}
+
+
+def stats_merge(chunks) -> dict:
+    """One run-level ``last_run_stats`` from a chunked driver's per-chunk
+    records (``run_stream``, ``run_controlled``, ``run_verified``): the
+    reference's keys (``chunks``, ``per_chunk_compiles``) plus the summed
+    ``fleet_supersteps``."""
+    return {
+        "supersteps": sum(c["supersteps"] for c in chunks),
+        "wall_seconds": sum(c["wall_seconds"] for c in chunks),
+        "compiles": sum(c["compiles"] for c in chunks),
+        "chunks": len(chunks),
+        "per_chunk_compiles": [c["compiles"] for c in chunks],
+        "fleet_supersteps": sum(c.get("fleet_supersteps", c["supersteps"])
+                                for c in chunks),
+    }

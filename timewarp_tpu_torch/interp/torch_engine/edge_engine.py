@@ -29,9 +29,13 @@ one ``FaultSchedule`` (the edge engine runs one world, as the
 reference's): crashes defer and reboot, partitions cut and down windows
 drop at each edge's send, degradation windows stretch the delay — the
 general engine's masks (faults/apply.py), held against the JAX
-``EdgeEngine`` in tests/test_torch_faults.py. The reference's telemetry,
-controller, integrity and flight-recorder planes are not ported and are
-refused at construction.
+``EdgeEngine`` in tests/test_torch_faults.py. The run-mode planes are
+the reference's (planes.py): ``telemetry`` (its own row: no rung, -1, and
+``route_drop`` 0 — per-edge losses are ``overflow``), ``verify`` with
+``run_verified``, ``record``/``record_cap`` (deliveries node-major over
+the ``[E, C]`` queue axes, then defer, restart, purge, and each edge's
+cuts and sends) and ``controller`` (chunk length only; window 1, rung -1
+pinned).
 """
 
 from __future__ import annotations
@@ -52,9 +56,11 @@ from ...faults.schedule import FaultSchedule
 from ...net.delays import LinkModel
 from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
+from ...obs.flight import TAG_DEFER, TAG_PURGE, TAG_RESTART
 from ...trace.hashing import FIRED, RECV, SENT, mix32
 from .common import LocalComm, init_states_wake, refuse_unported, run_stats
 from .engine import _sort_rows, resolve_device
+from .planes import PlaneRows, PlanesMixin
 
 __all__ = ["EdgeEngine", "EdgeState", "EdgeTopology"]
 
@@ -168,26 +174,30 @@ class EdgeState(NamedTuple):
     restart_done: torch.Tensor   # bool[C] — reboot rows consumed
 
 
-#: the reference edge engine's options this port does not carry, with the
-#: value that means "off"
-_UNPORTED = {"telemetry": "off", "controller": None,
-             "verify": "off", "record": "off", "record_cap": None}
-
-
-class EdgeEngine:
+class EdgeEngine(PlanesMixin):
     """Batched engine for static-topology scenarios (module docstring):
     ``run`` (traced, one row per superstep) and ``run_quiet``. ``cap`` is
     the per-edge queue capacity; ``device`` defaults to the card. After a
     run, ``last_run_stats`` holds the call's supersteps, wall seconds and
-    compiles (0)."""
+    compiles (0). ``telemetry``, ``verify``, ``record``/``record_cap`` and
+    ``controller`` are the run-mode planes (module docstring)."""
 
     last_run_stats = None
+    #: the edge engine carries no world axis
+    batch = None
+    #: classic supersteps: the controller's pinned window
+    window = 1
+    _faulted = False
 
     def __init__(self, scenario: Scenario, link: LinkModel, *,
-                 seed: int = 0, cap: int = 2, faults=None, device=None,
+                 seed: int = 0, cap: int = 2, faults=None,
+                 telemetry: str = "off", controller=None,
+                 verify: str = "off", record: str = "off",
+                 record_cap: Optional[int] = None, device=None,
                  **unported) -> None:
         name = type(self).__name__
-        refuse_unported(name, unported, _UNPORTED, "the JAX EdgeEngine")
+        refuse_unported(name, unported, {}, "the JAX EdgeEngine")
+        self._bind_planes(telemetry, verify, record, record_cap)
         if scenario.static_dst is None:
             raise ValueError(
                 f"scenario {scenario.name!r} declares no static_dst; "
@@ -218,11 +228,13 @@ class EdgeEngine:
                         for e, sh in enumerate(topo.shift)]
         self._sd = tab(np.asarray(scenario.static_dst, np.int32).T)  # [M, N]
         self._setup_faults(faults)
+        self._bind_controller(controller)
 
     def _setup_faults(self, faults) -> None:
         """Hold one schedule's tensor tables (the edge engine runs one
         world, as the reference's) and the reboot template."""
         self.faults, self._ft = faults, None
+        self._faulted = faults is not None
         self._has_skew = self._has_reset = False
         self._n_restarts = 0
         if faults is None:
@@ -272,6 +284,11 @@ class EdgeEngine:
         return torch.minimum(
             st.wake.min(),
             torch.where(qmin < I32MAX, st.time + qmin.long(), NEVER))
+
+    def world_active(self, state) -> torch.Tensor:
+        """Liveness: True (a 0-d tensor) while an event is pending — what
+        the chunked drivers test between chunks."""
+        return self._next_event(state) < NEVER
 
     # -- one superstep -----------------------------------------------------
 
@@ -333,7 +350,12 @@ class EdgeEngine:
             # crash suppression: events inside a down window slide to its
             # t_up, unconsumed reboots inject their restart firing
             t_raw = node_next.min()
+            pre = node_next
             node_next = defer_next(ft, node_ids, node_next, st.restart_done)
+            if self._rec_extra is not None:
+                self._rec_fault(TAG_DEFER,
+                                ((node_next > pre) & (pre < NEVER))[None],
+                                node_ids, node_ids, pre, node_next)
             t = node_next.min()
             if int(torch.stack([t, t_raw])[0 if with_trace else 1]) \
                     >= NEVER:
@@ -358,6 +380,17 @@ class EdgeEngine:
             states_in = {k: torch.where(
                 reset_now.view((n,) + (1,) * (v.dim() - 1)),
                 self._reset_states[k], v) for k, v in st.states.items()}
+            if self._rec_extra is not None:
+                # the injected reboot firing, then the purged queue
+                # entries (node-major over [E, C])
+                self._rec_fault(TAG_RESTART, reset_now[None], node_ids,
+                                node_ids, -1, now)
+                self._rec_fault(
+                    TAG_PURGE, purge.permute(2, 0, 1)[None],
+                    self._src_rows[:, None, :].expand(E, C, n)
+                    .permute(2, 0, 1) if sc.inbox_src else 0,
+                    node_ids.view(n, 1, 1), -1,
+                    st.q_rel.permute(2, 0, 1), t_off=base.view(1))
 
         # 2. deliverable messages: every queued one due at a fired node
         shift32 = torch.clamp(t - base, max=I32MAX - 1).to(torch.int32)
@@ -382,6 +415,8 @@ class EdgeEngine:
                                torch.maximum(new_wake, t + 1))  # contract #5
         wake = torch.where(fire, new_wake, st.wake)
         out_valid = out.valid & fire[None, :]                # [M, N]
+        senders = out_valid.any(dim=0).sum(dtype=torch.int32) \
+            if with_trace and self.telemetry != "off" else None
         out_pay = out.payload.to(torch.int32)                # [M, P, N]
         # never silent: a valid send on an undeclared slot (static_dst -1)
         # has nowhere to go, and one whose dst disagrees with the
@@ -430,7 +465,16 @@ class EdgeEngine:
                     ft, node_ids, t + torch.clamp(delay, min=1))
                 fault_step = fault_step + (cutm | downm).sum(
                     dtype=torch.int32)
+                if self._rec_extra is not None:
+                    # this edge's cuts, then its sends (down-dropped ones
+                    # re-tagged)
+                    self._rec_cut(cutm[None], src_e, node_ids, t)
+                    self._rec_sends((ok & ~cutm)[None], downm[None], src_e,
+                                    node_ids, t, t + torch.clamp(delay, min=1))
                 ok = ok & ~cutm & ~downm
+            elif self._rec_extra is not None:
+                self._rec_sends(ok[None], None, src_e, node_ids, t,
+                                t + torch.clamp(delay, min=1))
             flight = torch.clamp(delay, min=1)                 # contract #4
             # queue times are int32-relative: a delay >= 2^31 - 1 µs is
             # clamped and counted, never wrapped
@@ -473,7 +517,11 @@ class EdgeEngine:
             fault_dropped=st.fault_dropped + fault_step,
             restart_done=restart_done)
         if not with_trace:
-            return new_st, None
+            return new_st, None, None
+        planes = None
+        if self._planes_on:
+            planes = self._plane_rows(st, new_st, deliver, t, base, senders,
+                                      fault_step)
 
         # 8. trace digests (order-independent): from the pre-sort mask
         fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0))
@@ -486,7 +534,40 @@ class EdgeEngine:
         row = torch.stack([
             t, fire.sum().long(), fired_hash, recv_count.long(), recv_hash,
             sent_count.long(), sent_hash & 0xFFFFFFFF, overflow_step.long()])
-        return new_st, row
+        return new_st, row, planes
+
+    def _plane_rows(self, st, new_st, deliver, t, base, senders,
+                    fault_step) -> PlaneRows:
+        """This superstep's plane rows (the reference edge engine's
+        ``telem``/``rec``/``integ``), with a world axis of 1."""
+        sc = self.scenario
+        E, C, n = self.topo.n_edges, self.cap, self.comm.n_local
+        one = t.view(1)
+        telem = integ = rec = None
+        if self.telemetry != "off":
+            telem = self._telemetry_row(
+                senders.view(1), torch.zeros_like(fault_step).view(1),
+                fault_step.view(1), new_st.wake[None], new_st.q_rel[None],
+                one)
+        if self.record != "off":
+            rec = self._record_row(
+                deliver.permute(2, 0, 1)[None],
+                self._src_rows[:, None, :].expand(E, C, n).permute(2, 0, 1)
+                if sc.inbox_src else 0,
+                self._node_ids.view(n, 1, 1), st.q_rel.permute(2, 0, 1),
+                base.view(1))
+        if self.verify != "off":
+            from ...integrity.checks import make_guard_row
+            m = new_st
+            integ = torch.stack(make_guard_row(
+                one, st.time.view(1),
+                tuple(x.view(1) for x in (
+                    m.overflow, m.unrouted, m.misrouted, m.bad_delay,
+                    m.fault_dropped, m.delivered, m.steps, m.time)),
+                m.wake[None], NEVER, (m.q_rel[None],),
+                st.restart_done[None], m.restart_done[None],
+                self._faulted), dim=1)
+        return PlaneRows(telem, integ, rec)
 
     # -- run loops ---------------------------------------------------------
 
@@ -508,26 +589,39 @@ class EdgeEngine:
             ) -> Tuple[EdgeState, SuperstepTrace]:
         """Execute up to ``max_steps`` supersteps (stopping early once
         quiesced); returns the final state and the trace of the
-        supersteps that fired."""
+        supersteps that fired (and captures the planes' rows)."""
         st = self.init_state() if state is None else state
         steps0 = int(st.steps)
         t0 = time.perf_counter()
-        rows = []
-        for _ in range(max_steps):
-            res = self._superstep(st, True)
-            if res is None:
-                break
-            st, row = res
-            rows.append(row)
-        cols = torch.stack(rows).cpu().numpy().T if rows else [[]] * 8
+        rows, planes = [], []
+        rec_full = self._planes_on and self.record == "full"
+        try:
+            for _ in range(max_steps):
+                if rec_full:
+                    self._rec_extra = []
+                res = self._superstep(st, True)
+                if res is None:
+                    break
+                st, row, pl = res
+                rows.append(row)
+                if pl is not None:
+                    planes.append(pl)
+        finally:
+            self._rec_extra = None
+        cols = torch.stack(rows).cpu().numpy().T if rows \
+            else np.zeros((8, 0), np.int64)
         self.last_run_stats = run_stats(t0, steps0, int(st.steps))
+        if self._planes_on:
+            self._capture_planes(planes, np.ones((len(rows), 1), bool),
+                                 cols[0][:, None], np.asarray([steps0]))
         self._warn_on_overflow(st)
         return st, SuperstepTrace.from_columns(cols)
 
     def run_quiet(self, max_steps: int,
                   state: Optional[EdgeState] = None) -> EdgeState:
-        """Traceless run: no digest work. Stops at quiescence or after
-        ``max_steps`` supersteps."""
+        """Traceless run: no digest work and no plane rows (under
+        ``verify != "off"`` the final state is guarded). Stops at
+        quiescence or after ``max_steps`` supersteps."""
         st = self.init_state() if state is None else state
         steps0 = int(st.steps)
         t0 = time.perf_counter()
@@ -538,4 +632,5 @@ class EdgeEngine:
             st = res[0]
         # int() waits for the device, so the wall time covers the work
         self.last_run_stats = run_stats(t0, steps0, int(st.steps))
+        self._quiet_guard(st)
         return st

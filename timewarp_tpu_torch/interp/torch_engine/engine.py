@@ -41,16 +41,23 @@ fleet equals the solo run with world b's seed, link and schedule.
 With ``record_events > 0`` every superstep also appends its fires and
 deliveries to an on-device event ring (:meth:`TorchEngine.events`).
 
+The run-mode planes (planes.py): ``telemetry``, ``verify`` (with
+``run_verified``), ``record``/``record_cap`` (the flight recorder) and
+``controller`` (``run_controlled``, chunk length only), each giving what
+``JaxEngine(insert="pallas")`` gives; with every plane off the superstep
+is unchanged. ``speculate`` is refused.
+
 The emitted traces and final states equal ``JaxEngine``'s bit for bit
 (tests/test_torch_engine.py, test_torch_routing.py,
-test_torch_world_batch.py, test_torch_faults.py). The run-mode planes
-are refused at construction.
+test_torch_world_batch.py, test_torch_faults.py), and so do the planes'
+outputs (tests/test_torch_telemetry.py, test_torch_integrity.py,
+test_torch_flight.py, test_torch_dispatch.py).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,12 +69,15 @@ from ...faults.apply import (consume_restarts, cut_mask, defer_next,
                              restart_fire, skewed_step)
 from ...faults.schedule import FaultFleet, FaultSchedule, as_fleet
 from ...net.delays import LinkModel
+from ...obs.flight import TAG_DEFER, TAG_PURGE, TAG_RESTART
 from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...trace.hashing import FIRED, RECV, SENT, mix32
 from .batched import BatchSpec, map_state, rebind_link
-from .common import LocalComm, init_states_wake, refuse_unported, run_stats
+from .common import (LocalComm, init_states_wake, refuse_unported,
+                     run_stats, stats_merge)
 from .cuda_insert import InsertStage, flight_times, link_sample
+from .planes import PlaneRows, PlanesMixin
 
 __all__ = ["TorchEngine", "EngineState", "resolve_device", "resolve_window",
            "sort_batch", "sent_digest"]
@@ -98,10 +108,9 @@ class EngineState(NamedTuple):
     restart_done: torch.Tensor   # bool[C] — reboot rows consumed
 
 
-#: the reference engine's options this slice does not port, with the
+#: the reference engine's options the port does not carry, with the
 #: value that means "off" — any other value is refused at construction
-_UNPORTED = {"telemetry": "off", "controller": None, "verify": "off",
-             "record": "off", "speculate": "off"}
+_UNPORTED = {"speculate": "off"}
 
 
 class _World(NamedTuple):
@@ -211,7 +220,7 @@ def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.view((mask.shape[0],) + (1,) * (like.dim() - 1))
 
 
-class TorchEngine:
+class TorchEngine(PlanesMixin):
     """Single-device engine for dynamic-destination scenarios —
     ``JaxEngine(insert="pallas")`` on one device, with the
     fire-compaction and mailbox-insertion kernels on the card (their
@@ -231,7 +240,17 @@ class TorchEngine:
     ``device`` defaults to the card. After ``run``/``run_quiet``,
     ``last_run_stats`` holds the call's supersteps (summed over worlds),
     its fleet supersteps (loop iterations, each every world's), wall
-    seconds and compiles (0)."""
+    seconds and compiles (0).
+
+    The run-mode planes, as the reference's kernel path: ``telemetry``
+    (``"off"``, ``"counters"``, ``"full"``; frames on
+    ``last_run_telemetry``, the ``rung`` column the compacted batch's
+    sender width on the adaptive path, -1 on the eager and lazy ones),
+    ``verify`` (``"off"``, ``"guard"``, ``"digest"``, ``"shadow"``;
+    ``run_verified``), ``record``/``record_cap`` (``"off"``,
+    ``"deliveries"``, ``"full"``; ``last_run_flight``) and ``controller``
+    (a ``DispatchController``; ``run_controlled`` adapts chunk length
+    only)."""
 
     last_run_stats = None
     #: the fleet's BatchSpec (None solo) and fault state; subclasses that
@@ -246,8 +265,12 @@ class TorchEngine:
                  seed: int = 0, window=1, route_cap: Optional[int] = None,
                  record_events: int = 0, insert_cap: Optional[int] = None,
                  batch: Optional[BatchSpec] = None, faults=None,
+                 telemetry: str = "off", controller=None,
+                 verify: str = "off", record: str = "off",
+                 record_cap: Optional[int] = None,
                  device=None, **unported) -> None:
-        self._hold(scenario, link, seed, device, record_events, unported)
+        self._hold(scenario, link, seed, device, record_events, unported,
+                   telemetry, verify, record, record_cap)
         link_floor = self._setup_batch(batch, link)
         self._setup_faults(faults)
         if self._faulted:
@@ -275,14 +298,22 @@ class TorchEngine:
                                  window=self.window, insert_cap=insert_cap,
                                  adaptive=self.adaptive,
                                  route_cap=self.route_cap)
+        if self.adaptive:
+            # the kernel path's "rung": the compacted batch's static
+            # width in senders
+            self._t_rung = self.stage.S // scenario.max_out
+        self._bind_controller(controller)
 
     def _hold(self, sc: Scenario, link: LinkModel, seed: int, device,
-              record_events: int, unported: dict) -> None:
+              record_events: int, unported: dict, telemetry="off",
+              verify="off", record="off", record_cap=None) -> None:
         """What every engine of this package checks and holds, before its
-        own regime guards: the unported options, the device, the event
-        ring's capacity, the seed words and the node axis."""
+        own regime guards: the unported options, the planes' modes, the
+        device, the event ring's capacity, the seed words and the node
+        axis."""
         name = type(self).__name__
         refuse_unported(name, unported, _UNPORTED, "JaxEngine")
+        self._bind_planes(telemetry, verify, record, record_cap)
         self.device = resolve_device(device, name)
         if sc.n_nodes * sc.max_out >= 2**31:
             raise ValueError(
@@ -498,8 +529,15 @@ class TorchEngine:
         ft = self._world.ft
         if ft is None:
             return node_next, t_raw, t_raw
+        pre = node_next
         node_next = defer_next(ft, self._node_ids, node_next,
                                st.restart_done)
+        if self._rec_extra is not None:
+            # a crash window slid the node's pending event later: send_t
+            # carries the original instant, t the deferred-to one
+            ids = self._node_ids
+            self._rec_fault(TAG_DEFER, (node_next > pre) & (pre < NEVER),
+                            ids, ids, pre, node_next)
         return node_next, node_next.amin(dim=1), t_raw
 
     def _premask(self, out, out_valid):
@@ -547,6 +585,9 @@ class TorchEngine:
             cutm = (pdst >= 0) & cut_mask(ft, self._node_ids.view(1, 1, -1),
                                           pdst, now_vec[:, None, :])
             fault_cut = cutm.sum(dim=(1, 2), dtype=torch.int32)
+            if self._rec_extra is not None:
+                self._rec_cut(cutm, self._node_ids.view(1, 1, -1), pdst,
+                              now_vec[:, None, :])
             pdst = torch.where(cutm, -1, pdst)
         woff_n = (now_vec - t[:, None]).to(torch.int32)
         dst_f, woff_f, smrank, pay_f, route_drop_step = self.stage.compact(
@@ -564,6 +605,9 @@ class TorchEngine:
             sent_count = ok2.sum(dim=1, dtype=torch.int32)
             sent_hash = sent_digest(ok2, src_l, dst_f, tmsg_l, flight,
                                     pay_f[:, 0]) if with_trace else None
+            if self._rec_extra is not None:
+                self._rec_sends(ok, downm, src_l, dst_f, tmsg_l,
+                                tmsg_l + flight)
             sort_dst = torch.where(ok2, dst_f, n)
             perm = sort_batch(sort_dst, woff_f, smrank)
             sd, smrank_s = sort_dst.gather(1, perm), smrank.gather(1, perm)
@@ -589,6 +633,8 @@ class TorchEngine:
         sent_count = ok.sum(dim=1, dtype=torch.int32)
         sent_hash = sent_digest(ok_s, src_s, sd, tmsg_s, flight_s,
                                 pay_s[:, 0]) if with_trace else None
+        if self._rec_extra is not None:
+            self._rec_sends(ok_s, None, src_s, sd, tmsg_s, tmsg_s + flight_s)
         return (mrel, msrc, mpay, overflow_step, bad_dst_step,
                 bad_delay_step, short_step, route_drop_step, sent_count,
                 sent_hash, fault_cut)
@@ -632,13 +678,19 @@ class TorchEngine:
             if w.ft is not None:
                 cutm = ok & cut_mask(w.ft, src_f, dst_f, tmsg)
                 fault_step = cutm.sum(dim=1, dtype=torch.int32)
+                if self._rec_extra is not None:
+                    self._rec_cut(cutm, src_f, dst_f, tmsg)
                 ok = ok & ~cutm
                 delay = degrade(w.ft, delay, src_f, dst_f, tmsg)
             flight, drel, bad_delay_step, short_step = flight_times(
                 delay, woff, ok, self.window)
+            downm = None
             if w.ft is not None:
                 downm = ok & down_mask(w.ft, dst_f, tmsg + flight)
                 fault_step = fault_step + downm.sum(dim=1, dtype=torch.int32)
+            if self._rec_extra is not None:
+                self._rec_sends(ok, downm, src_f, dst_f, tmsg, tmsg + flight)
+            if downm is not None:
                 ok = ok & ~downm
         sort_dst = torch.where(ok, dst_f, n)
         perm = sort_batch(sort_dst, woff, smrank)
@@ -660,6 +712,9 @@ class TorchEngine:
             flight_s, drel_s, bad_delay_step, short_step = \
                 self._sample_nodrop(src_s, sd, tmsg_s, smrank_s - src_s * M,
                                     woff_s, ok_s)
+            if self._rec_extra is not None:
+                self._rec_sends(ok_s, None, src_s, sd, tmsg_s,
+                                tmsg_s + flight_s)
         else:
             drel_s = drel.gather(1, perm)
         mrel, msrc, mpay, overflow_step = self.stage.insert(
@@ -686,13 +741,13 @@ class TorchEngine:
             return self._route_firecompact(*args)
         return self._route_flat(*args)
 
-    def _superstep(self, st: EngineState, node_next, t, with_trace: bool
-                   ) -> Tuple[EngineState, Optional[torch.Tensor]]:
+    def _superstep(self, st: EngineState, node_next, t, with_trace: bool):
         """One superstep of every world of the world-axis state ``st``,
         from the popped ``node_next`` ``[B, N]`` and ``t`` ``[B]``:
-        ``(new_state, trace_rows)``, the rows int64 ``[B, 8]`` when
-        ``with_trace``. A world with nothing to do computes an unused
-        result (the run loop freezes it)."""
+        ``(new_state, trace_rows, plane_rows)``, the rows int64 ``[B, 8]``
+        when ``with_trace``, the plane rows a :class:`PlaneRows` when a
+        plane is on (else None). A world with nothing to do computes an
+        unused result (the run loop freezes it)."""
         sc = self.scenario
         K, P = sc.mailbox_cap, sc.payload_width
         n = self.comm.n_local
@@ -728,6 +783,15 @@ class TorchEngine:
             states_in = {k: torch.where(
                 reset_now.view((B, n) + (1,) * (v.dim() - 2)),
                 self._reset_states[k], v) for k, v in st.states.items()}
+            if self._rec_extra is not None:
+                # the injected reboot firing, and every mailbox entry its
+                # memory loss purged (slot-major, as the reference's)
+                self._rec_fault(TAG_RESTART, reset_now, node_ids, node_ids,
+                                -1, now_vec)
+                self._rec_fault(TAG_PURGE, purge,
+                                st.mb_src if sc.inbox_src else 0,
+                                node_ids.view(1, 1, n), -1, st.mb_rel,
+                                t_off=base)
         deliver = mb_live & (st.mb_rel <= nrel[:, None, :]) \
             & fire[:, None, :]
         if purge is not None:
@@ -787,6 +851,8 @@ class TorchEngine:
                      dst=_worlds_major(out.dst, B),
                      payload=_worlds_major(out.payload, B))
         out_valid = out.valid & fire[:, None, :]                  # [B, M, N]
+        senders = out_valid.any(dim=1).sum(dim=1, dtype=torch.int32) \
+            if with_trace and self.telemetry != "off" else None
 
         # 5. drop delivered messages, rebase to the new epoch t.
         #    Commutative: freed slots become holes (mb_src / mb_payload
@@ -821,7 +887,7 @@ class TorchEngine:
             st, states, wake, mb_rel, mb_src, mb_payload, deliver, fire,
             now_vec, t, base, overflow_step, bad_dst_step, bad_delay_step,
             short_step, route_drop_step, sent_count, sent_hash, fault_step,
-            restart_done, with_trace)
+            restart_done, with_trace, senders)
 
     def _flat_ids(self, B: int) -> torch.Tensor:
         """The step's node ids for B worlds side by side: in-world ids,
@@ -865,11 +931,12 @@ class TorchEngine:
                           mb_payload, deliver, fire, now_vec, t, base,
                           overflow_step, bad_dst_step, bad_delay_step,
                           short_step, route_drop_step, sent_count,
-                          sent_hash, fault_step, restart_done, with_trace):
+                          sent_hash, fault_step, restart_done, with_trace,
+                          senders=None):
         """Assemble the post-superstep state, the event ring included,
         and (optionally) each world's trace row ``(t, fired_count,
         fired_hash, recv_count, recv_hash, sent_count, sent_hash,
-        overflow)``."""
+        overflow)`` and plane rows."""
         sc = self.scenario
         K, n = sc.mailbox_cap, self.comm.n_local
         B = st.wake.shape[0]
@@ -894,7 +961,11 @@ class TorchEngine:
             fault_dropped=st.fault_dropped + fault_step,
             restart_done=restart_done)
         if not with_trace:
-            return new_st, None
+            return new_st, None, None
+        planes = None
+        if self._planes_on:
+            planes = self._plane_rows(st, new_st, deliver, mb_rel, t, base,
+                                      senders, route_drop_step, fault_step)
         # trace digests (order-independent): from the pre-sort mask
         fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0),
                             dim=1)
@@ -908,7 +979,35 @@ class TorchEngine:
         rows = torch.stack([
             t, fire.sum(dim=1), fired_hash, recv_count.long(), recv_hash,
             sent_count.long(), sent_hash, overflow_step.long()], dim=1)
-        return new_st, rows
+        return new_st, rows, planes
+
+    def _plane_rows(self, st, new_st, deliver, mb_rel, t, base, senders,
+                    route_drop_step, fault_step) -> PlaneRows:
+        """This superstep's plane rows (reference ``_finish_superstep``'s
+        ``telem``/``rec``/``integ``), from values it already computed."""
+        telem = integ = rec = None
+        if self.telemetry != "off":
+            telem = self._telemetry_row(senders, route_drop_step,
+                                        fault_step, new_st.wake, mb_rel, t)
+        if self.record != "off":
+            # deliveries node-major, slot order, then the captures
+            sc = self.scenario
+            rec = self._record_row(
+                deliver.transpose(1, 2),
+                st.mb_src.transpose(1, 2) if sc.inbox_src else 0,
+                self._node_ids.view(1, -1, 1), st.mb_rel.transpose(1, 2),
+                base)
+        if self.verify != "off":
+            from ...integrity.checks import make_guard_row
+            n = new_st
+            integ = torch.stack(make_guard_row(
+                t, st.time,
+                (n.overflow, n.bad_dst, n.bad_delay, n.short_delay,
+                 n.route_drop, n.fault_dropped, n.delivered, n.steps,
+                 n.time, n.ev_count),
+                n.wake, NEVER, (mb_rel,), st.restart_done, n.restart_done,
+                self._faulted), dim=1)
+        return PlaneRows(telem, integ, rec)
 
     # -- run loops ---------------------------------------------------------
 
@@ -959,35 +1058,54 @@ class TorchEngine:
         one (``run_quiet``) keeps going only while some world within its
         budget has an undeferred pending event, as the reference's two
         drivers do. Returns the final state and, traced, each world's
-        rows."""
+        rows; a traced run with a plane on also captures the planes'
+        rows (planes.py)."""
         st = self._start(state)
         budgets = self._budgets(max_steps)
         done = np.zeros(self.B, np.int64)
+        planes_on = with_trace and self._planes_on
+        steps_at = st.steps.cpu().numpy() if planes_on else None
         steps0 = int(st.steps.sum())
         t0 = time.perf_counter()
-        rows, acts, iters = [], [], 0
-        while True:
-            node_next, t, t_raw = self._pop(st)
-            hs = torch.stack([t, t_raw]).cpu().numpy()
-            left = done < budgets
-            act = (hs[0] < NEVER) & left
-            go = act if with_trace else (hs[1] < NEVER) & left
-            if not (go.any() and act.any()):
-                break
-            new, row = self._superstep(st, node_next, t, with_trace)
-            if not act.all():
-                keep = torch.as_tensor(act, device=self.device)
-                new = type(st)(*(
-                    {k: torch.where(_bcast(keep, v), v, st.states[k])
-                     for k, v in x.items()} if isinstance(x, dict)
-                    else torch.where(_bcast(keep, x), x, y)
-                    for x, y in zip(new, st)))
-            st = new
-            done += act
-            iters += 1
-            if with_trace:
-                rows.append(row)
-                acts.append(act)
+        rows, acts, planes, iters = [], [], [], 0
+        rec_full = planes_on and self.record == "full"
+        steps_first, budgets_dev = st.steps, None
+        try:
+            while True:
+                if rec_full:
+                    self._rec_extra = []
+                node_next, t, t_raw = self._pop(st)
+                hs = torch.stack([t, t_raw]).cpu().numpy()
+                left = done < budgets
+                act = (hs[0] < NEVER) & left
+                go = act if with_trace else (hs[1] < NEVER) & left
+                if not (go.any() and act.any()):
+                    break
+                new, row, pl = self._superstep(st, node_next, t, with_trace)
+                if not act.all():
+                    if budgets_dev is None:     # one copy a run, not a step
+                        budgets_dev = torch.as_tensor(budgets,
+                                                      device=self.device)
+                    # the host's `act` computed on the device: a world is
+                    # live and inside its budget (its steps count the
+                    # supersteps it ran) — no copy from the host here
+                    keep = (t < NEVER) & (st.steps - steps_first
+                                          < budgets_dev)
+                    new = type(st)(*(
+                        {k: torch.where(_bcast(keep, v), v, st.states[k])
+                         for k, v in x.items()} if isinstance(x, dict)
+                        else torch.where(_bcast(keep, x), x, y)
+                        for x, y in zip(new, st)))
+                st = new
+                done += act
+                iters += 1
+                if with_trace:
+                    rows.append(row)
+                    acts.append(act)
+                    if pl is not None:
+                        planes.append(pl)
+        finally:
+            self._rec_extra = None
         # the sum waits for the device, so the wall time covers the work
         self.last_run_stats = run_stats(t0, steps0, int(st.steps.sum()))
         #: the loop's iterations: one superstep of every world each
@@ -997,6 +1115,8 @@ class TorchEngine:
         cols = torch.stack(rows).cpu().numpy() if rows else \
             np.zeros((0, self.B, 8), np.int64)
         act = np.asarray(acts, bool).reshape(-1, self.B)
+        if planes_on:
+            self._capture_planes(planes, act, cols[:, :, 0], steps_at)
         traces = [SuperstepTrace.from_columns(cols[act[:, b], b].T)
                   for b in range(self.B)]
         return self._end(st), traces
@@ -1011,10 +1131,13 @@ class TorchEngine:
 
     def run_quiet(self, max_steps,
                   state: Optional[EngineState] = None) -> EngineState:
-        """Traceless run: no digest work. Stops at quiescence or after
-        ``max_steps`` supersteps (per world for a fleet, which may take
-        one budget per world)."""
-        return self._drive(max_steps, state, False)[0]
+        """Traceless run: no digest work and no plane rows (under
+        ``verify != "off"`` the final state is guarded). Stops at
+        quiescence or after ``max_steps`` supersteps (per world for a
+        fleet, which may take one budget per world)."""
+        final = self._drive(max_steps, state, False)[0]
+        self._quiet_guard(final)
+        return final
 
     # -- the streaming fleet driver -----------------------------------------
 
@@ -1043,7 +1166,10 @@ class TorchEngine:
         After every chunk ``on_chunk(state, chunk_traces)`` fires;
         ``on_quiesce(b, state)`` fires once per world, the moment it has
         quiesced or used its budget. Returns ``(final_state,
-        per_world_traces)`` like :meth:`run`."""
+        per_world_traces)`` like :meth:`run`; the whole run's telemetry
+        frames and flight log land on ``last_run_telemetry`` and
+        ``last_run_flight`` (each chunk flushed to an attached metrics
+        registry as it ran)."""
         if self.batch is None:
             raise ValueError(
                 "run_stream drives a fleet; solo runs use run()")
@@ -1058,7 +1184,7 @@ class TorchEngine:
         start = st.steps.cpu().numpy().astype(np.int64)
         rows = [[] for _ in range(B)]
         emitted = np.zeros(B, bool)
-        chunk_stats = []
+        chunk_stats, frame_chunks, flight_chunks = [], [], []
         while True:
             _, remaining, active = self.fleet_progress(st, budgets, start)
             for b in np.nonzero(~active & ~emitted)[0]:
@@ -1070,16 +1196,21 @@ class TorchEngine:
             vec = np.where(active, np.minimum(remaining, chunk), 0)
             st, traces = self.run(vec, state=st)
             chunk_stats.append(self.last_run_stats)
+            frame_chunks.append(self.last_run_telemetry)
+            flight_chunks.append(self.last_run_flight)
             if on_chunk is not None:
                 on_chunk(st, traces)
             for b in range(B):
                 rows[b].extend(traces[b].row(i)
                                for i in range(len(traces[b])))
+        if self.telemetry != "off":
+            from ...obs.telemetry import concat_frames
+            self.last_run_telemetry = concat_frames(frame_chunks)
+        if self.record != "off":
+            from ...obs.flight import concat_flight
+            self.last_run_flight = concat_flight(flight_chunks)
         if chunk_stats:
-            self.last_run_stats = {
-                "supersteps": sum(s["supersteps"] for s in chunk_stats),
-                "wall_seconds": sum(s["wall_seconds"] for s in chunk_stats),
-                "compiles": 0}
+            self.last_run_stats = stats_merge(chunk_stats)
         return st, [SuperstepTrace.from_rows(r) for r in rows]
 
     def events(self, state: EngineState):

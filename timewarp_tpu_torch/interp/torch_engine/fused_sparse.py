@@ -17,6 +17,12 @@ sender, and counted in ``route_drop``. This is not K2's cut (block order,
 message granularity), so the two engines differ whenever a run drops.
 ``max_batch >= n_nodes * max_out`` never drops.
 
+The run-mode planes are ``TorchEngine``'s (``telemetry``, ``verify``,
+``record``/``record_cap``, ``controller``), as the reference's fused
+engine takes them: the telemetry ``rung`` is the static batch ``A``, the
+flight recorder's sends re-derive each message's flight outside K3 (as
+the SENT digest does), and a controller adapts chunk length only.
+
 Scope guards (constructor, never silent): a drop-free link that
 :func:`lower_link` can express, ``window > 1`` or ``max_out > 1``, a
 commutative inbox, and ``max_delay + window < 2^32``. Like the
@@ -101,11 +107,14 @@ class FusedSparseEngine(TorchEngine):
 
     def __init__(self, scenario: Scenario, link: LinkModel, *,
                  seed: int = 0, window=1, record_events: int = 0,
-                 max_batch: int = 1 << 16, device=None,
+                 max_batch: int = 1 << 16, telemetry: str = "off",
+                 controller=None, verify: str = "off",
+                 record: str = "off", record_cap=None, device=None,
                  **unported) -> None:
         sc = scenario
         # TorchEngine's holdings, not its K2/K1 stage: _route replaces it
-        self._hold(sc, link, seed, device, record_events, unported)
+        self._hold(sc, link, seed, device, record_events, unported,
+                   telemetry, verify, record, record_cap)
         if link.can_drop:
             raise ValueError(
                 "FusedSparseEngine requires a drop-free link (message "
@@ -126,6 +135,9 @@ class FusedSparseEngine(TorchEngine):
                              "kernel's uint32 deliver arithmetic")
         #: live senders per superstep that fit the batch
         self.A = min(sc.n_nodes, max(1, int(max_batch) // sc.max_out))
+        #: the telemetry rung: the static batch slice, in senders
+        self._t_rung = self.A
+        self._bind_controller(controller)
 
     def _route(self, out, out_valid, now_vec, t, mb_rel, mb_src,
                mb_payload, counts, with_trace):
@@ -183,6 +195,9 @@ class FusedSparseEngine(TorchEngine):
                                      smrank_s - src_s * M, woff_s, ok_s)[0]
             sent_hash = sent_digest(ok_s, src_s, sd, tmsg_s, flight_s,
                                     pay_s[0])[None]
+            if self._rec_extra is not None:
+                self._rec_sends(ok_s[None], None, src_s[None], sd[None],
+                                tmsg_s[None], (tmsg_s + flight_s)[None])
         return (mrel[None], msrc[None], mpay[None], overflow_step[None],
                 bad_dst_step, bad_delay_step[None], short_step[None],
                 route_drop_step[None], kept[None], sent_hash)

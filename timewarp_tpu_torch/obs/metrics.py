@@ -1,0 +1,282 @@
+"""MetricsRegistry: a schema-validated JSONL metrics stream (the port's
+copy of ``timewarp_tpu/obs/metrics.py``: it holds no arrays, and a stream
+written by either package validates under the other).
+
+One line per observation, every line self-describing::
+
+    {"schema": 2, "kind": "supersteps", "label": "...", ...}
+
+Kinds:
+
+- ``supersteps`` — one chunk of per-superstep telemetry, aggregated
+  (obs/telemetry.py ``summarize_frames``): supersteps covered, virtual
+  time span, load-signal min/mean/max, drop-counter sums, minimum
+  quiescence slack. Batched engines flush one line per world.
+- ``span`` — a wall-clock span (name + ``wall_s``): sweep bucket
+  attempts, retry backoffs, checkpoint writes, journal fsyncs.
+- ``run_summary`` — one line per driver run: the engine's uniform
+  ``last_run_stats`` (supersteps, wall seconds, driver compiles).
+- ``utilization`` — per-bucket sweep utilization (sweep/runner.py):
+  worlds-active occupancy, budget-mask efficiency, pow2 scan-pad
+  waste.
+- ``decision`` — one online-dispatch controller decision per chunk
+  (dispatch/, docs/dispatch.md): window width, rung pin, chunk
+  length.
+- ``integrity`` — one state-integrity verification event per checked
+  chunk (integrity/, docs/integrity.md): the verify mode, the chunk,
+  and whether the chunk verified or rolled back.
+- ``speculation`` — one optimistic-execution outcome per chunk
+  (speculate/, docs/speculation.md): the speculative window the
+  chunk ran with, and whether it committed or rolled back (rollback
+  lines carry the violation scalars — superstep/horizon/straggler).
+- ``event`` — a point event (OOM split, terminal failure,
+  integrity violation, …).
+
+The registry validates every line at emit time AND the file is
+re-validatable after the fact — ``python -m timewarp_tpu_torch.obs.metrics
+validate FILE`` is the CI gate (a malformed stream fails loudly,
+never parses "close enough").
+
+A registry with no path accumulates lines in memory only (the CLI's
+summary aggregation); with a path it appends one flushed line per
+emit, so a crashed run keeps every line up to the crash.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional
+
+__all__ = ["METRICS_SCHEMA", "MetricsRegistry", "validate_line",
+           "validate_metrics_file"]
+
+#: bump when a kind's required fields change shape (or the kind
+#: inventory grows: v2 added the dispatch-controller `decision`
+#: kind, v3 the state-integrity `integrity` kind, v4 the flight-
+#: recorder event form — `event` lines with name="flight" carry the
+#: per-message provenance fields below — v5 the optimistic-execution
+#: `speculation` kind — a v1 reader would mis-skip lines it cannot
+#: interpret)
+METRICS_SCHEMA = 5
+
+_NUM = (int, float)
+#: kind -> {required field: type tuple}; extra fields are allowed
+#: (forward-compatible), missing/badly-typed required ones are not
+_KINDS: Dict[str, Dict[str, tuple]] = {
+    "supersteps": {"label": (str,), "supersteps": (int,)},
+    "span": {"name": (str,), "wall_s": _NUM},
+    "run_summary": {"label": (str,), "supersteps": (int,),
+                    "wall_seconds": _NUM, "compiles": (int,)},
+    "utilization": {"bucket": (str,), "worlds": (int,),
+                    "chunks": (int,), "world_supersteps": (int,),
+                    "scan_supersteps": (int,),
+                    "budget_efficiency": _NUM,
+                    "pad_waste_frac": _NUM,
+                    "worlds_active_mean": _NUM},
+    # one online-dispatch controller decision per chunk (dispatch/,
+    # docs/dispatch.md): the knob values a chunk ran with — the same
+    # record the decision trace and the sweep journal carry
+    "decision": {"chunk": (int,), "window_us": (int,),
+                 "rung_pin": (int,), "chunk_len": (int,)},
+    # one state-integrity verification event per checked chunk
+    # (integrity/runner.py, docs/integrity.md): event is "verified"
+    # (the chunk passed every check) or "rollback" (a violation was
+    # detected and the run restored its last verified snapshot)
+    "integrity": {"label": (str,), "mode": (str,), "chunk": (int,),
+                  "event": (str,)},
+    # one optimistic-execution outcome per chunk (speculate/,
+    # docs/speculation.md): outcome is "committed" (the chunk's
+    # causality plane decoded clean) or "rollback" (a straggler
+    # violated the committed horizon; the run restored its snapshot
+    # and re-ran at the conservative floor)
+    "speculation": {"label": (str,), "chunk": (int,),
+                    "window_us": (int,), "outcome": (str,)},
+    "event": {"name": (str,)},
+}
+
+#: extra required fields of the flight-recorder event form (v4,
+#: obs/flight.py): an `event` line with name="flight" is one recorded
+#: message/fault event and must carry the full provenance tuple
+_FLIGHT_FIELDS: Dict[str, tuple] = {
+    "ev": (str,), "superstep": (int,), "src": (int,), "dst": (int,),
+    "send_t_us": (int,), "t_us": (int,),
+}
+
+
+def validate_line(rec: Any) -> None:
+    """Validate one metrics record against the schema; raises
+    ``ValueError`` naming the offense (never a KeyError/TypeError)."""
+    if not isinstance(rec, dict):
+        raise ValueError(f"metrics line must be a JSON object, got "
+                         f"{type(rec).__name__}")
+    sv = rec.get("schema")
+    # accept every schema this reader understands: bumps so far are
+    # purely additive (v2 added the `decision` kind, v3 `integrity`),
+    # so a v1 archive must keep validating — only a FUTURE schema is
+    # unreadable
+    if isinstance(sv, bool) or not isinstance(sv, int) \
+            or not 1 <= sv <= METRICS_SCHEMA:
+        raise ValueError(
+            f"metrics line schema {sv!r} outside this reader's range "
+            f"[1, {METRICS_SCHEMA}]")
+    kind = rec.get("kind")
+    if kind not in _KINDS:
+        raise ValueError(f"unknown metrics kind {kind!r}; known: "
+                         f"{sorted(_KINDS)}")
+    for field, types in _KINDS[kind].items():
+        v = rec.get(field)
+        if isinstance(v, bool) or not isinstance(v, types):
+            raise ValueError(
+                f"metrics kind {kind!r}: field {field!r} must be "
+                f"{'/'.join(t.__name__ for t in types)}, got {v!r}")
+    if kind == "event" and rec.get("name") == "flight":
+        # the flight-recorder event form (v4): name="flight" promises
+        # the per-message provenance tuple — a half-written event is
+        # worse than none (the causal-query layer would join garbage)
+        for field, types in _FLIGHT_FIELDS.items():
+            v = rec.get(field)
+            if isinstance(v, bool) or not isinstance(v, types):
+                raise ValueError(
+                    f"flight event: field {field!r} must be "
+                    f"{'/'.join(t.__name__ for t in types)}, got "
+                    f"{v!r} (obs/flight.py)")
+
+
+def validate_metrics_file(path: str) -> int:
+    """Validate every line of a metrics JSONL file; returns the line
+    count, raises ``ValueError`` naming file and line on the first
+    offense — the CI telemetry-smoke gate."""
+    n = 0
+    with open(path) as f:
+        for i, line in enumerate(f, 1):
+            if not line.strip():
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError as e:
+                raise ValueError(
+                    f"{path}:{i}: not JSON ({e})") from None
+            try:
+                validate_line(rec)
+            except ValueError as e:
+                raise ValueError(f"{path}:{i}: {e}") from None
+            n += 1
+    if n == 0:
+        # an empty stream validating "OK" would let a CI gate pass on
+        # a run that never recorded anything — fail actionably,
+        # naming the file
+        raise ValueError(
+            f"{path}: contains no metrics records (empty or "
+            "whitespace-only file) — the producing run wrote "
+            "nothing; check its --telemetry/--record/--metrics-out "
+            "flags (docs/observability.md)")
+    return n
+
+
+class MetricsRegistry:
+    """Aggregating sink for telemetry frames, spans, and summaries
+    (module docstring). ``tracer`` (an obs.perfetto.TraceBuilder)
+    optionally mirrors spans/events onto the Perfetto timeline so one
+    instrumentation call feeds both outputs."""
+
+    def __init__(self, path: Optional[str] = None,
+                 run: Optional[str] = None, tracer=None) -> None:
+        self.path = path
+        self.run = run
+        self.tracer = tracer
+        self.lines: List[dict] = []
+        self._fh = None
+        #: emits may race: the sweep's chunk executor flushes engine
+        #: telemetry while the supervisor thread emits spans — and a
+        #: watchdog-abandoned zombie chunk may still flush after its
+        #: retry started. Metrics are observability (a duplicate
+        #: chunk line is harmless), but a TORN line would fail the
+        #: validate gate, so writes serialize under one lock.
+        self._lock = threading.Lock()
+
+    # -- emission ----------------------------------------------------------
+
+    def emit(self, kind: str, **fields) -> dict:
+        rec = {"schema": METRICS_SCHEMA, "kind": kind}
+        if self.run is not None:
+            rec["run"] = self.run
+        rec.update(fields)
+        validate_line(rec)  # never write a line the gate would reject
+        with self._lock:
+            self.lines.append(rec)
+            if self.path is not None:
+                if self._fh is None:
+                    self._fh = open(self.path, "a")
+                self._fh.write(json.dumps(rec, sort_keys=True) + "\n")
+                self._fh.flush()
+        return rec
+
+    def superstep_chunk(self, label: str, frames,
+                        world: Optional[int] = None) -> None:
+        """Flush one chunk of decoded telemetry (a TelemetryFrames, or
+        the batched engines' per-world list) as ``supersteps`` lines."""
+        from .telemetry import summarize_frames
+        if isinstance(frames, list):
+            for b, fr in enumerate(frames):
+                self.emit("supersteps", label=label, world=b,
+                          **summarize_frames(fr))
+            return
+        extra = {} if world is None else {"world": world}
+        self.emit("supersteps", label=label, **extra,
+                  **summarize_frames(frames))
+
+    def run_summary(self, label: str, stats: dict, **fields) -> None:
+        """One line per driver run from the engine's uniform
+        ``last_run_stats``."""
+        self.emit("run_summary", label=label,
+                  supersteps=int(stats["supersteps"]),
+                  wall_seconds=float(stats["wall_seconds"]),
+                  compiles=int(stats["compiles"]), **fields)
+
+    def event(self, name: str, **fields) -> None:
+        self.emit("event", name=name, **fields)
+        if self.tracer is not None:
+            self.tracer.instant(name, args=fields or None)
+
+    @contextmanager
+    def span(self, name: str, **fields):
+        """Wall-clock span, mirrored onto the Perfetto timeline when a
+        tracer is attached."""
+        t0 = time.perf_counter()
+        ts = None if self.tracer is None else self.tracer.now_us()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.emit("span", name=name, wall_s=round(dt, 6), **fields)
+            if self.tracer is not None:
+                self.tracer.complete(name, dur_us=dt * 1e6, ts_us=ts,
+                                     args=fields or None)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+
+
+def _main(argv) -> int:
+    if len(argv) != 2 or argv[0] != "validate":
+        raise SystemExit(
+            "usage: python -m timewarp_tpu_torch.obs.metrics validate FILE")
+    try:
+        n = validate_metrics_file(argv[1])
+    except (OSError, ValueError) as e:
+        # the CLI convention everywhere else (test_zgrammar): exit 1
+        # with the actionable message, never a raw traceback
+        raise SystemExit(str(e))
+    print(json.dumps({"file": argv[1], "lines": n, "ok": True}))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(_main(sys.argv[1:]))

@@ -1,0 +1,188 @@
+"""Telemetry rows and their host-side decode (the port's copy of
+``timewarp_tpu/obs/telemetry.py``; the torch engines build the rows from
+tensors on their device, one stacked row per superstep, and bring a run's
+rows to the host once, as numpy columns this module decodes).
+
+A :class:`TelemetryRow` is the fixed-shape per-superstep counter plane
+an engine threads through its traced scan when ``telemetry != "off"``:
+every field is derived from values the superstep already computes
+(the firing mask, the routed outbox, the post-insertion mailbox, the
+post-step wake array), so turning telemetry on can never change a
+digest, a counter, or a checkpoint — and turning it off removes the
+ops entirely (the zero-overhead-when-off law, obs/__init__.py).
+
+The row rides as the ``telem`` field of the engines' per-superstep
+trace row (``StepOut``, interp/jax_engine/common.py). ``None`` is a
+registered empty pytree in JAX, so the off-mode default adds zero
+leaves, zero scan outputs, and zero jaxpr equations — off mode is not
+a cheap mode, it is the *absence* of the subsystem.
+
+Modes:
+
+- ``"counters"`` — cheap scalars only: no reduction the superstep was
+  not already paying for, plus one O(N) wake/mailbox min it shares
+  with the quiescence check. Bench-gated at <= 5% throughput cost on
+  the traced driver (bench.py gossip_100k_fused).
+- ``"full"`` — adds the mailbox occupancy plane ([K, N] / [E, C, N]
+  reductions): total live entries and the per-node fill high-water
+  mark. Costs one extra pass over the mailbox per superstep.
+
+Batched engines vmap the row like everything else, so every field is
+per-world ([B]) for free — per-world quiescence slack is exactly the
+signal the ROADMAP's online-adaptive-dispatch item needs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+
+__all__ = ["TELEMETRY_MODES", "TelemetryRow", "TelemetryFrames",
+           "validate_mode", "decode_frames", "summarize_frames",
+           "concat_frames"]
+
+#: the engine knob's legal values, in increasing cost order
+TELEMETRY_MODES = ("off", "counters", "full")
+
+
+def validate_mode(mode: str, who: str = "engine") -> str:
+    """Loud knob validation — a typo'd mode must not silently run
+    without (or with unexpected) telemetry."""
+    if mode not in TELEMETRY_MODES:
+        raise ValueError(
+            f"{who}: telemetry must be one of {TELEMETRY_MODES}, got "
+            f"{mode!r} ('off' = zero overhead, 'counters' = cheap "
+            "per-superstep scalars, 'full' = + mailbox occupancy)")
+    return mode
+
+
+class TelemetryRow(NamedTuple):
+    """One superstep's counter plane (all device scalars; [B] per
+    world under the batch vmap). ``mb_fill``/``mb_peak`` are ``None``
+    outside ``"full"`` mode — None is an empty pytree node, so the
+    counters-mode row carries exactly its five populated leaves."""
+    #: int32 — senders that emitted >= 1 valid outbox message
+    active_senders: Any
+    #: int32 — static width of the routing rung this superstep ran at
+    #: (the adaptive ladder's selected branch / the fused engine's
+    #: batch slice); -1 = the path has no rung ladder
+    rung: Any
+    #: int32 — messages dropped by engine routing capacity this step
+    route_drop: Any
+    #: int32 — messages the fault schedule killed this step
+    fault_dropped: Any
+    #: int64 — virtual µs from this superstep's instant to the next
+    #: pending event (-1 = quiesced): the dispatch-slack signal
+    qslack_us: Any
+    #: int32 — total live mailbox entries after insertion (full mode)
+    mb_fill: Any = None
+    #: int32 — max per-node mailbox occupancy after insertion (the
+    #: high-water mark against mailbox_cap; full mode)
+    mb_peak: Any = None
+
+
+#: row fields in stable (schema) order
+FIELDS = TelemetryRow._fields
+
+
+@dataclass
+class TelemetryFrames:
+    """Host-side decode of one run's telemetry: per-superstep virtual
+    times plus one column per populated row field, already filtered to
+    the supersteps that actually fired."""
+    t_us: np.ndarray                  # int64[S]
+    data: Dict[str, np.ndarray]       # field -> [S]
+
+    def __len__(self) -> int:
+        return len(self.t_us)
+
+    def to_json(self) -> dict:
+        return {"t_us": self.t_us.tolist(),
+                **{k: v.tolist() for k, v in self.data.items()}}
+
+
+def _col(x, mask, world: Optional[int]) -> np.ndarray:
+    a = np.asarray(x)
+    if world is not None:
+        return a[mask, world]
+    return a[mask]
+
+
+def decode_frames(telem, valid, t_us, n_worlds: Optional[int] = None):
+    """Decode the scan's stacked telemetry rows ([T] leaves; [T, B]
+    batched) into a :class:`TelemetryFrames` (solo) or one per world
+    (batched), masked to the valid supersteps — the host-side mirror
+    of the engines' trace decode."""
+    valid = np.asarray(valid)
+    t_us = np.asarray(t_us)
+
+    def one(world: Optional[int]) -> TelemetryFrames:
+        m = valid if world is None else valid[:, world]
+        data = {f: _col(getattr(telem, f), m, world)
+                for f in FIELDS if getattr(telem, f) is not None}
+        return TelemetryFrames(t_us=_col(t_us, m, world), data=data)
+
+    if n_worlds is None:
+        return one(None)
+    return [one(b) for b in range(n_worlds)]
+
+
+def concat_frames(chunks):
+    """Concatenate per-chunk decodes into one run-level view — what
+    the controller drivers (interp/jax_engine/controlled.py) leave on
+    ``last_run_telemetry`` so post-run exporters (the CLI's
+    ``--metrics-out``/``--trace-out``) see the WHOLE run, not the
+    final chunk. ``chunks`` is a list of ``TelemetryFrames`` (solo)
+    or a list of per-world lists (batched) — returns the same shape
+    as one chunk."""
+    chunks = [c for c in chunks if c is not None]
+    if not chunks:
+        return None
+    if isinstance(chunks[0], list):
+        B = len(chunks[0])
+        return [concat_frames([c[b] for c in chunks])
+                for b in range(B)]
+    keys = [k for k in FIELDS if k in chunks[0].data]
+    return TelemetryFrames(
+        t_us=np.concatenate([c.t_us for c in chunks]),
+        data={k: np.concatenate([c.data[k] for c in chunks])
+              for k in keys})
+
+
+def _stats(v: np.ndarray) -> dict:
+    if v.size == 0:
+        return {"min": 0, "mean": 0.0, "max": 0}
+    return {"min": int(v.min()), "mean": round(float(v.mean()), 3),
+            "max": int(v.max())}
+
+
+def summarize_frames(frames: TelemetryFrames) -> dict:
+    """One aggregate dict per chunk of supersteps — what the metrics
+    registry flushes as a ``supersteps`` line. Sums for the
+    never-silent drop counters, min/mean/max for load signals, and the
+    minimum observed quiescence slack (ignoring quiesced -1 rows)."""
+    d = frames.data
+    out: dict = {"supersteps": len(frames)}
+    if len(frames):
+        out["t_first_us"] = int(frames.t_us[0])
+        out["t_last_us"] = int(frames.t_us[-1])
+    for f in ("active_senders", "mb_fill", "mb_peak"):
+        if f in d:
+            out[f] = _stats(d[f])
+    if "rung" in d:
+        # -1 is the "no ladder ran" sentinel, not a width — aggregate
+        # only real rung selections (absent = the ladder never ran),
+        # or the adaptive-dispatch signal would average flags with
+        # widths
+        ran = d["rung"][d["rung"] >= 0]
+        if ran.size:
+            out["rung"] = _stats(ran)
+    for f in ("route_drop", "fault_dropped"):
+        if f in d:
+            out[f] = int(d[f].sum())
+    if "qslack_us" in d:
+        live = d["qslack_us"][d["qslack_us"] >= 0]
+        out["qslack_us_min"] = int(live.min()) if live.size else -1
+    return out

@@ -33,10 +33,11 @@ def _mul32(x, c: int):
 
 
 def mix32(*xs) -> torch.Tensor:
-    """Mix integer tensors (or ints, broadcasting) into one uint32 word
-    per element, int64 carrier."""
-    device = next(x.device for x in xs if isinstance(x, torch.Tensor))
-    h = torch.tensor(_SEED, dtype=torch.int64, device=device)
+    """Mix integer tensors (or ints, broadcasting; at least one tensor)
+    into one uint32 word per element, int64 carrier. Leading int
+    arguments fold on the host: no number is copied to the device, which
+    would wait for the device's queue to drain."""
+    h = _SEED
     for x in xs:
         x = as_u32(x) if isinstance(x, torch.Tensor) else int(x) & MASK32
         h = h ^ _mul32(x, _M1)
