@@ -156,23 +156,49 @@ controlled runs) on the torch engines:
     = their solo runs' frames and flight logs; every fault action in each
     world's log (recorded with ``record_cap`` 2^18 over the fault
     windows, cut + down + purge events = ``fault_dropped``);
-35. ``run_controlled`` on ``bench.py`` ``_bursty_gossip(100 000)`` and
-    its replay (the replay law; window and rung pinned), then the
-    telemetry gate on ``gossip_100k_fused`` (K3): counters = off, the
-    overhead fraction;
+35. ``run_controlled`` on ``bench.py`` ``_bursty_gossip(100 000)``: the
+    dynamic window at the undegraded 8 000 µs bound, clamped per superstep
+    inside the degradation window (``short_delay`` 0), strictly fewer
+    supersteps than the static engine at the degraded 2 000 µs with the
+    same events, and its replay (the replay law); then the telemetry gate
+    on ``gossip_100k_fused`` (K3): counters = off, the overhead fraction;
 36. card against CPU with every plane on: ``TorchEngine`` adaptive (2^14),
     eager, lazy and a 3-world faulted fleet (2^12), ``FusedSparseEngine``
     and ``EdgeEngine`` (2^14): frames, flight logs, integrity records,
     decision traces, traces and states equal;
 37. where the chaos fleet's time goes on the traced driver, planes off
     and with ``telemetry="full", record="deliveries"``; the state
-    digest's time and launches over the fleet's state.
+    digest's time and launches over the fleet's state;
+
+then speculation (the dynamic window, optimistic execution and its
+rollback) on ``TorchEngine``:
+
+38. the main path: ``bench.py`` ``gossip_100k_spec`` (burst gossip at
+    100 000 nodes over ``Quantize(ParetoDelay(4 000, 1.2), 500)``) through
+    ``run_speculative(2^14, chunk=64)`` under ``speculate="auto"`` to
+    quiescence, against the conservative ``window="auto"`` run: the
+    equivalence law on the canonical surface bit for bit, strictly fewer
+    supersteps, overflow 0; both superstep counts, windows, chunks and
+    rollbacks, both walls (the conservative one through ``run_quiet``),
+    and K1's and K2's launches, those of rolled-back chunks apart;
+39. a speculative fleet with a masked rollback: 8 worlds of that gossip
+    at 100 000 nodes under ``fixed:8000``, Pareto ``xm_us`` below 8 ms in
+    the even worlds and above it in the odd ones: ``1 <= rerun_worlds <=
+    7``, every world equal to its row of one conservative fleet run, K1
+    and K2 once per fleet superstep;
+40. speculation card against CPU at 2^12 nodes on an integer link with
+    the same floor gap: solo ``auto``, a 2-world fleet under a shrink
+    ``LinkWindow`` and a forced rollback — states, traces, decisions and
+    ``last_run_speculation`` equal;
+41. where a speculative chunk's time goes (phase 38's engine through the
+    traced ``run`` at its widest committed window) beside the
+    conservative engine's, as phase 7.
 
 Wall-clock overheads are printed and gated at 2x at most (the host is
 shared). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
-over its main paths, phases 4, 21, 27 and 34, K2's over phases 4, 27 and
-34; every time from phases 6, 13 and 19), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.
+over its main paths, phases 4, 21, 27, 34, 38 and 39, K2's over phases 4,
+27, 34, 38 and 39; every time from phases 6, 13 and 19), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
 
@@ -581,20 +607,26 @@ def _time_ms(fn, reps=20, queued=True):
     return total / reps
 
 
-def phase_where_time_goes(tag, eng, warm, steps):
-    """``steps`` supersteps of ``eng``'s run from superstep ``warm``: their
-    wall time unprofiled, then the same supersteps under
-    ``torch.profiler`` for the device's kernel time and launch count."""
+def phase_where_time_goes(tag, eng, warm, steps, run=None, mid=None):
+    """``steps`` supersteps of ``eng``'s run from superstep ``warm`` (or
+    from the state ``mid``): their wall time unprofiled, then the same
+    supersteps under ``torch.profiler`` for the device's kernel time and
+    launch count. ``run(k, state)`` drives them (default
+    ``eng.run_quiet``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    mid = eng.run_quiet(warm)
+    run = eng.run_quiet if run is None else run
+    if mid is None:
+        mid = run(warm, None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run_quiet(steps, mid)
+    run(steps, mid)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.run_quiet(steps, mid)
+    # the device's activity only: the host's operator events are not read,
+    # and recording them costs seconds of host time a phase
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(steps, mid)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1707,6 +1739,39 @@ def phase_fleet_checkpoint(device, eng, steps=40):
         f"{steps} more; world {b} forked solo = world {b}")
 
 
+def _stage_args(eng, drive):
+    """K2's and K1's arguments (``fire_compact``'s and
+    ``mailbox_insert``'s, every world at once) of the busiest superstep
+    ``drive()`` runs on ``eng`` (the most messages K1 inserts, the first
+    of equals), taken where the engine's stage receives them."""
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    taken = {"valid": -1}
+    compact, insert = eng.stage.compact, eng.stage.insert
+
+    def take_compact(pdst, woff_n, payload):
+        taken["pending"] = (pdst, woff_n if eng.stage.W > 1 else None,
+                            payload, eng.stage.S)
+        return compact(pdst, woff_n, payload)
+
+    def take_insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
+                    counts):
+        start, cnt = ci.bucket_bounds(sd, eng.stage.n)
+        valid = int(cnt.sum())
+        if valid > taken["valid"]:
+            taken.update(valid=valid, k2=taken["pending"], k1=(
+                start, cnt, counts, drel_s,
+                src_s if eng.stage.inbox_src else None, pay_s, mb_rel,
+                mb_src, mb_payload))
+        return insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
+                      counts)
+    eng.stage.compact, eng.stage.insert = take_compact, take_insert
+    try:
+        drive()
+    finally:
+        del eng.stage.compact, eng.stage.insert
+    return taken["k2"], taken["k1"]
+
+
 def phase_fleet_times(device, eng, state):
     """K2 and K1 on one chaos-fleet superstep's own arguments, taken where
     the engine's stage receives them (every world at once): bit-equal to
@@ -1714,28 +1779,7 @@ def phase_fleet_times(device, eng, state):
     over the B worlds)."""
     import torch
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
-    taken = {}
-    compact, insert = eng.stage.compact, eng.stage.insert
-
-    def take_compact(pdst, woff_n, payload):
-        taken["k2"] = (pdst, woff_n if eng.stage.W > 1 else None, payload,
-                       eng.stage.S)
-        return compact(pdst, woff_n, payload)
-
-    def take_insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
-                    counts):
-        start, cnt = ci.bucket_bounds(sd, eng.stage.n)
-        taken["k1"] = (start, cnt, counts, drel_s,
-                       src_s if eng.stage.inbox_src else None, pay_s,
-                       mb_rel, mb_src, mb_payload)
-        return insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
-                      counts)
-    eng.stage.compact, eng.stage.insert = take_compact, take_insert
-    try:
-        eng.run_quiet(1, state)
-    finally:
-        del eng.stage.compact, eng.stage.insert
-    a2, a1 = taken["k2"], taken["k1"]
+    a2, a1 = _stage_args(eng, lambda: eng.run_quiet(1, state))
     err2 = _equal("K2 fleet superstep", ci.fire_compact(*a2),
                   ci.fire_compact_plain(*a2))
     err1 = _equal("K1 fleet superstep", ci.mailbox_insert(*a1),
@@ -2031,13 +2075,43 @@ def bursty_gossip(n):
                                                scale=0.25),))
 
 
+def _same_events(what, a, b, sc) -> None:
+    """Two final states of the same events at different superstep
+    granularity: every leaf equal but ``steps`` and ``time``, the mailbox
+    planes compared in occupied slots only (an emptied slot keeps the
+    src and payload of whatever message last held it)."""
+    from timewarp_tpu_torch.interp.torch_engine.state_io import state_to_numpy
+    sa, sb = state_to_numpy(a, sc), state_to_numpy(b, sc)
+    live = sa["mb_rel"] < 2**31 - 1
+    same = {
+        "mb_src": np.array_equal(np.where(live, sa["mb_src"], 0),
+                                 np.where(live, sb["mb_src"], 0)),
+        "mb_payload": np.array_equal(
+            np.where(live[..., None, :], sa["mb_payload"], 0),
+            np.where(live[..., None, :], sb["mb_payload"], 0))}
+    for name in sa:
+        if name in ("steps", "time", "mb_src", "mb_payload"):
+            continue
+        x, y = sa[name], sb[name]
+        same[name] = all(np.array_equal(x[k], y[k]) for k in x) \
+            if name == "states" else np.array_equal(x, y)
+    bad = [k for k, ok in same.items() if not ok]
+    if bad:
+        raise AssertionError(f"{what}: state {bad} differ")
+
+
 def phase_controlled(device, n=100_000):
     """Controlled runs and the telemetry gate. ``bench.py``
     ``_bursty_gossip(100 000)`` through ``run_controlled`` under
     ``DispatchController(chunk=16, chunk_max=64)`` with
-    ``telemetry="counters"``, then a fresh engine replaying the decision
-    trace: equal states and trace digests (the replay law), the window and
-    rung pinned in every decision (the degraded floor, -1). Then
+    ``telemetry="counters"``: the engine threads the dynamic window, so its
+    bound is the undegraded 8 000 µs floor and each superstep that the
+    degradation window overlaps is clamped to 2 000 µs on the device
+    (``short_delay`` 0). It takes strictly fewer supersteps than the static
+    ``TorchEngine(window="auto", faults=...)`` at the degraded 2 000 µs
+    (``bench.py`` ``gossip_100k_auto``'s gate), with the same events (every
+    leaf but ``steps`` and ``time``). Then a fresh engine replays the
+    decision trace: equal states and trace digests (the replay law). Then
     ``bench.py`` ``_telemetry_gate`` on ``gossip_100k_fused``'s
     configuration (``FusedSparseEngine``, ``max_batch`` 2^18, K3):
     counters give the states and traces of off; the overhead fraction of
@@ -2054,6 +2128,10 @@ def phase_controlled(device, n=100_000):
                       controller=DispatchController(chunk=16, chunk_max=64))
     (fin, tr), wall = _timed(lambda: eng.run_controlled(1 << 20))
     decisions = eng.last_run_decisions
+    static = TorchEngine(sc, link, window="auto", faults=faults,
+                         device=device)
+    sfin, swall = _timed(lambda: static.run_quiet(1 << 20))
+    _same_events("controlled vs static-auto", fin, sfin, sc)
     replay = TorchEngine(sc, link, window="auto", faults=faults,
                          device=device, controller=DispatchController(
                              mode="replay",
@@ -2061,17 +2139,26 @@ def phase_controlled(device, n=100_000):
     (rfin, rtr), rwall = _timed(lambda: replay.run_controlled(1 << 20))
     _same_traces("controlled: replay law", tr, rtr)
     _states_equal("controlled: replay law", fin, rfin, sc)
+    windows = sorted({d.window_us for d in decisions})
     _require_all("controlled", {
-        "window and rung pinned in every decision": all(
-            d.window_us == eng.window and d.rung_pin == -1
+        "the undegraded bound": eng._dyn_ok and eng.window == 8_000,
+        "static-auto at the degraded floor": static.window == 2_000,
+        "strictly fewer supersteps than static-auto":
+            len(tr) < int(sfin.steps),
+        "short_delay == 0 (the per-superstep clamp)":
+            int(fin.short_delay) == 0,
+        "windows within the bound, rung -1": all(
+            1 <= d.window_us <= eng.window and d.rung_pin == -1
             for d in decisions),
-        "the degraded floor": eng.window == 2_000,
         "replayed decisions equal": [d.to_json() for d in decisions]
         == [d.to_json() for d in replay.last_run_decisions]})
-    say(f"controlled: bursty gossip n={n} window={eng.window} supersteps="
-        f"{len(tr)} delivered={int(fin.delivered)} decisions={len(decisions)}"
-        f" chunk_lens={[d.chunk_len for d in decisions]} wall_s={wall} "
-        f"replay_wall_s={rwall}; replay = the controlled run (states, "
+    say(f"controlled: bursty gossip n={n} bound={eng.window} supersteps="
+        f"{len(tr)} static_auto_supersteps={int(sfin.steps)} (window "
+        f"{static.window}) delivered={int(fin.delivered)} decisions="
+        f"{len(decisions)} decision_windows={windows} chunk_lens="
+        f"{[d.chunk_len for d in decisions]} wall_s={wall} "
+        f"static_auto_run_quiet_wall_s={swall} replay_wall_s={rwall}; "
+        "the static run's events, replay = the controlled run (states, "
         "trace digests)")
     wsc, wlink = gossip_wave(n)
 
@@ -2251,6 +2338,342 @@ def phase_planes_times(device, eng31, warm=96, steps=16):
     return rows, d_ms
 
 
+# the speculative slice: bench.py gossip_100k_spec at 100 000 nodes, its
+# fleet of 8 worlds, and fixed:8000 for the masked rollback
+SPEC_N, SPEC_B, SPEC_W = 100_000, 8, 8_000
+# phase 39: Pareto xm_us of the even worlds (below W: they violate) and the
+# odd ones (above W: never), the tail capped at 50 ms (at the floor, a
+# superstep per 500 µs of the tail's span)
+SPEC_XM_US, SPEC_CAP_US = (4_000, 9_000), 50_000
+
+
+def spec_gossip(n, cap_us=60_000_000):
+    """bench.py gossip_100k_spec: burst gossip over a long-tail link —
+    Pareto delays from 4 ms (capped at ``cap_us``), declared floor the
+    500 µs quantize grid."""
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.delays import ParetoDelay, Quantize
+    sc = gossip(n, fanout=8, think_us=40_000, burst=True, end_us=5_000_000,
+                mailbox_cap=16)
+    return sc, Quantize(ParetoDelay(4_000, 1.2, cap_us=cap_us), 500)
+
+
+def _wave_done(what, eng, fin, n) -> None:
+    """bench.py _assert_wave_done, and overflow 0: every world quiesced,
+    ``short_delay`` and ``route_drop`` 0, at most ``max(n // 500, 8)`` nodes
+    never infected in any world."""
+    missed = (fin.states["hop"].reshape(-1, n) < 0).sum(dim=1).tolist()
+    _require_all(what, {
+        "quiesced": not bool(eng.world_active(fin).any()),
+        "short_delay == 0": int(fin.short_delay.sum()) == 0,
+        "route_drop == 0": int(fin.route_drop.sum()) == 0,
+        "overflow == 0": int(fin.overflow.sum()) == 0,
+        f"missed {missed} <= max(n // 500, 8)":
+            max(missed) <= max(n // 500, 8)})
+
+
+def _record_runs(eng):
+    """Wrap ``eng.run`` (an instance attribute, so the speculative
+    driver's ``self.run`` goes through it) to record each call: its start
+    state and window, K2's and K1's launches during it, the fleet
+    supersteps it executed (``last_run_stats``, set before a violation is
+    raised) and whether it violated (a solo run raises, a fleet run's
+    decode reports on ``last_run_spec``). Returns the list of records;
+    ``del eng.run`` unwraps."""
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    calls, run = [], eng.run
+
+    def record(max_steps, state=None, *, _dyn=None):
+        before = dict(ci.LAUNCHES)
+        call = dict(state=state, dyn=_dyn, violated=True)
+        calls.append(call)
+        try:
+            out = run(max_steps, state, _dyn=_dyn)
+            call["violated"] = eng.last_run_spec is not None
+            return out
+        finally:
+            call["iters"] = eng.last_run_stats["fleet_supersteps"]
+            for k in ("fire_compact", "mailbox_insert"):
+                call[k] = ci.LAUNCHES[k] - before[k]
+    eng.run = record
+    return calls
+
+
+def _once_per_superstep(what, calls) -> None:
+    """Every recorded run call launched K2 and K1 exactly once per fleet
+    superstep it executed, rolled back or committed."""
+    _require_all(what, {
+        f"call {i}: K2 = K1 = its {c['iters']} supersteps":
+            c["fire_compact"] == c["mailbox_insert"] == c["iters"]
+        for i, c in enumerate(calls)})
+
+
+def phase_spec_kernels(tag, eng, state, dyn, steps):
+    """K2 and K1 on the busiest superstep's own arguments of a chunk of
+    ``steps`` supersteps from ``state`` at the window ``dyn`` (a
+    speculating engine's ``run``, taken where the stage receives them; a
+    straggler raises after the kernels ran, and is ignored), each
+    bit-equal to its plain version."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.speculate import SpeculationViolation
+
+    def drive():
+        try:
+            eng.run(steps, state, _dyn=dyn)
+        except SpeculationViolation:
+            pass
+    a2, a1 = _stage_args(eng, drive)
+    err2 = _equal(f"K2 {tag}", ci.fire_compact(*a2),
+                  ci.fire_compact_plain(*a2))
+    err1 = _equal(f"K1 {tag}", ci.mailbox_insert(*a1),
+                  ci.mailbox_insert_plain(*a1))
+    torch.cuda.synchronize()
+    B, M, n = a2[0].shape
+    say(f"K2 and K1 on the busiest superstep of a chunk of the {tag} "
+        f"({steps} supersteps at {int(dyn.window)} us from virtual time "
+        f"{state.time.cpu().tolist()} us): B={B} n={n} M={M} "
+        f"P={a2[2].shape[2]} S={a2[3]} fired="
+        f"{(a2[0] >= 0).sum(dim=(1, 2)).tolist()} K={a1[6].shape[1]} "
+        f"valid={a1[1].sum(dim=1).tolist()}; bit-equal to their plain "
+        f"versions max_abs_err={max(err2, err1)}")
+    return err2, err1
+
+
+def phase_spec_main_path(device, n=SPEC_N, chunk=64):
+    """The speculative slice's main path: ``bench.py`` ``gossip_100k_spec``
+    through ``TorchEngine(speculate="auto").run_speculative(2^14,
+    chunk=64)`` to quiescence, and the conservative
+    ``TorchEngine(window="auto")`` through ``run`` (the equivalence law's
+    right-hand side) and ``run_quiet`` (its wall), as the bench measures.
+    Gates: the wave done in both, the canonical surfaces equal bit for
+    bit, strictly fewer supersteps, K2 and K1 launched once per superstep
+    of every run call, the committed calls' supersteps the committed
+    count and the rolled-back calls' the launches beyond it, one
+    rolled-back call per rollback. Then K2 and K1 against their plain
+    versions on the run's busiest committed superstep. The wall
+    ratio is printed, not gated. Returns the launches, both engines, the
+    kernels' errors and the start state and index of the first committed
+    chunk at the widest window (phase 41's)."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.speculate import assert_spec_equiv, canonical_rows
+    sc, link = spec_gossip(n)
+    spec = TorchEngine(sc, link, window="auto", speculate="auto",
+                       device=device)
+    cons = TorchEngine(sc, link, window="auto", device=device)
+    calls = _record_runs(spec)
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    try:
+        (sfin, strc), wall_spec = _timed(
+            lambda: spec.run_speculative(1 << 14, chunk=chunk))
+    finally:
+        del spec.run
+    launches = dict(ci.LAUNCHES)
+    si = spec.last_run_speculation
+    committed = spec.last_run_stats["supersteps"]
+    cfin, ctrc = cons.run(1 << 14)
+    qfin, wall_cons = _timed(lambda: cons.run_quiet(1 << 14))
+    _states_equal("conservative run_quiet = run", qfin, cfin, sc)
+    _wave_done("speculative wave", spec, sfin, n)
+    _wave_done("conservative wave", cons, cfin, n)
+    assert_spec_equiv(canonical_rows(cfin, ctrc), canonical_rows(sfin, strc),
+                      "gossip_100k_spec")
+    _once_per_superstep("speculative main path", calls)
+    kept = [c for c in calls if not c["violated"]]
+    rolled = sum(c["iters"] for c in calls if c["violated"])
+    decs = spec.last_run_decisions
+    _require_all("speculative main path", {
+        "floor 500, auto bound": spec.spec_floor == cons.window == 500
+        and spec.window == 2**31 - 2,
+        "strictly fewer supersteps": len(strc) < len(ctrc),
+        "committed supersteps = trace rows": committed == len(strc),
+        "committed calls' supersteps = committed supersteps":
+            sum(c["iters"] for c in kept) == committed,
+        "one committed call per decision": len(kept) == len(decs),
+        "one rolled-back call per rollback":
+            len(calls) - len(kept) == si["rollbacks"],
+        "K2 launches = committed + rolled-back supersteps":
+            launches["fire_compact"] == committed + rolled,
+        "K1 launches = committed + rolled-back supersteps":
+            launches["mailbox_insert"] == committed + rolled,
+        "no K3/K4 launch":
+            launches["sample_insert"] == launches["fused_ring"] == 0})
+    viols = si["violations"]
+    say(f"speculative main path: gossip_100k_spec n={n} chunk={chunk} "
+        f"supersteps spec={len(strc)} conservative={len(ctrc)} "
+        f"delivered={int(sfin.delivered)} windows={si['windows']} "
+        f"chunks={si['chunks']} rollbacks={si['rollbacks']} violations="
+        f"{[(v['chunk'], v['window_us'], v['count']) for v in viols]}"
+        f" wall_s spec={wall_spec} conservative_run_quiet={wall_cons} "
+        f"wall_ratio={wall_cons / wall_spec} launches={launches} "
+        f"committed_launches_each={committed} rolled_back_launches_each="
+        f"{rolled} run_calls={len(calls)} supersteps_per_call="
+        f"{[(c['iters'], c['violated']) for c in calls]}; canonical "
+        "surfaces equal")
+    # the committed chunk that holds the run's busiest superstep (the
+    # most messages sent), re-run from its start state at its window
+    busy = int(np.searchsorted(np.cumsum([c["iters"] for c in kept]),
+                               int(np.argmax(strc.sent_count)), "right"))
+    errs = phase_spec_kernels("speculative main path", spec,
+                              kept[busy]["state"], kept[busy]["dyn"],
+                              kept[busy]["iters"])
+    # the first committed chunk at the widest window the chain committed
+    k = max(range(len(decs)), key=lambda i: (decs[i].window_us, -i))
+    return launches, spec, cons, errs, (k, kept[k]["state"])
+
+
+def phase_spec_fleet(device, n=SPEC_N, B=SPEC_B, W=SPEC_W, chunk=64,
+                     xm_us=SPEC_XM_US, cap_us=SPEC_CAP_US):
+    """A speculative fleet with a masked rollback: 8 worlds of the gossip
+    at 100 000 nodes under ``speculate="fixed:8000"``, Pareto ``xm_us``
+    ``xm_us[0]`` in the even worlds (below W: they violate) and
+    ``xm_us[1]`` in the odd ones (above W: never), the tail capped at
+    ``cap_us``. Gates: ``1 <=
+    rerun_worlds <= 7``, rollbacks in every even world's committed chain
+    and in no odd world's, K1 and K2 each launched once per fleet
+    superstep of every run call (speculative chunks and masked re-runs),
+    and every world's canonical row equal to its row of one conservative
+    fleet run. Then K2 and K1 against their plain versions on the
+    busiest superstep of the first chunk that violated. Returns the
+    launches and the kernels' errors."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.speculate import assert_spec_equiv, canonical_rows
+    sc, link = spec_gossip(n, cap_us)
+    xm = np.array([xm_us[b % 2] for b in range(B)])
+    batch = BatchSpec(seeds=tuple(range(B)), link_params={"inner.xm_us": xm})
+    spec = TorchEngine(sc, link, window="auto", speculate=f"fixed:{W}",
+                       batch=batch, device=device)
+    calls = _record_runs(spec)
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    try:
+        (sfin, strc), wall = _timed(
+            lambda: spec.run_speculative(1 << 14, chunk=chunk))
+    finally:
+        del spec.run
+    launches = dict(ci.LAUNCHES)
+    si = spec.last_run_speculation
+    iters = spec.last_run_stats["fleet_supersteps"]
+    cons = TorchEngine(sc, link, window="auto", batch=batch, device=device)
+    (cfin, ctrc), cwall = _timed(lambda: cons.run(1 << 14))
+    _wave_done("speculative fleet", spec, sfin, n)
+    assert_spec_equiv(canonical_rows(cfin, ctrc, B=B),
+                      canonical_rows(sfin, strc, B=B), "speculative fleet")
+    _once_per_superstep("speculative fleet", calls)
+    _require_all("speculative fleet", {
+        f"1 <= rerun_worlds {si['rerun_worlds']} <= {B - 1}":
+            1 <= si["rerun_worlds"] <= B - 1,
+        "rolled back in the xm < W worlds only": [
+            any(d.obs.get("rolled_back") for d in chain)
+            for chain in spec.last_run_decisions_world]
+        == [b % 2 == 0 for b in range(B)],
+        "run calls' supersteps = fleet supersteps":
+            sum(c["iters"] for c in calls) == iters,
+        "K2 launched once per fleet superstep":
+            launches["fire_compact"] == iters,
+        "K1 launched once per fleet superstep":
+            launches["mailbox_insert"] == iters})
+    say(f"speculative fleet: B={B} n={n} fixed:{W} xm_us={xm.tolist()} "
+        f"cap_us={cap_us} fleet_supersteps={iters} chunks={si['chunks']} "
+        f"rollbacks={si['rollbacks']} rerun_worlds={si['rerun_worlds']} "
+        f"violating_worlds={sorted({v['world'] for v in si['violations']})}"
+        f" world_supersteps={[len(t) for t in strc]} "
+        f"conservative_world_supersteps={[len(t) for t in ctrc]} "
+        f"wall_s={wall} conservative_wall_s={cwall} launches={launches} "
+        f"supersteps_per_call={[(c['iters'], c['violated']) for c in calls]}"
+        "; every world = its conservative fleet row")
+    hit = next(c for c in calls if c["violated"])
+    errs = phase_spec_kernels("speculative fleet", spec, hit["state"],
+                              hit["dyn"], chunk)
+    return launches, errs
+
+
+def phase_spec_card_vs_cpu(device, n=1 << 12):
+    """Speculation card against CPU at 2^12 nodes (gossip, fanout 4, 10 ms
+    incubation) on an integer link with the long-tail floor gap (delays
+    uniform in [4 ms, 40 ms] from the message key's first word behind a
+    1 ms grid: declared 1 000 µs, exact on every device): solo ``auto``, a
+    2-world fleet under a shrink ``LinkWindow``, and a forced rollback
+    (``fixed:16000``) — equal states, traces, decisions (per world too)
+    and ``last_run_speculation``."""
+    import torch
+    from timewarp_tpu_torch.faults import FaultFleet, FaultSchedule, LinkWindow
+    from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.delays import FnDelay, Quantize
+
+    class DropFree(FnDelay):
+        # FnDelay's conservative can_drop would take the eager regime
+        can_drop = False
+
+    def gap(src, dst, t, key):
+        return 4_000 + key[0] % 36_001, torch.zeros_like(dst, dtype=torch.bool)
+    sc = gossip(n, fanout=4, think_us=10_000, burst=True, end_us=5_000_000,
+                mailbox_cap=16)
+    link = Quantize(DropFree(gap), 1_000)
+    shrink = FaultSchedule((LinkWindow(None, None, 40_000, 80_000,
+                                       scale=0.25),))
+    cases = {
+        "solo auto": dict(speculate="auto"),
+        "fleet under a shrink window": dict(
+            speculate="auto", batch=BatchSpec(seeds=(0, 1)),
+            faults=FaultFleet((shrink, FaultSchedule(())))),
+        "forced rollback": dict(speculate="fixed:16000")}
+    for tag, kw in cases.items():
+        runs = []
+        for dev in (device, "cpu"):
+            eng = TorchEngine(sc, link, window="auto", seed=11, device=dev,
+                              **kw)
+            fin, tr = eng.run_speculative(1 << 16, chunk=64)
+            runs.append((eng, fin, tr))
+        (ea, fa, ta), (eb, fb, tb) = runs
+        _same_traces(f"speculation card vs CPU, {tag}", ta, tb)
+        _states_equal(f"speculation card vs CPU, {tag}", fa, fb, sc)
+        chains = [ea.last_run_decisions_world, eb.last_run_decisions_world]
+        _require_all(f"speculation card vs CPU, {tag}", {
+            "last_run_speculation equal":
+                ea.last_run_speculation == eb.last_run_speculation,
+            "decisions equal": [d.to_json() for d in ea.last_run_decisions]
+            == [d.to_json() for d in eb.last_run_decisions],
+            "per-world chains equal": None in chains or [
+                [d.to_json() for d in c] for c in chains[0]]
+            == [[d.to_json() for d in c] for c in chains[1]]})
+        si = ea.last_run_speculation
+        say(f"speculation card vs CPU: {tag} n={n} supersteps="
+            f"{[len(t) for t in ta] if isinstance(ta, list) else len(ta)} "
+            f"windows={si['windows']} rollbacks={si['rollbacks']} "
+            f"rerun_worlds={si['rerun_worlds']}; states, traces, decisions "
+            "and speculation records equal")
+
+
+def phase_spec_times(device, spec, cons, wide, steps=32, warm=16):
+    """Where a speculative chunk's time goes: phase 38's speculating
+    engine through the traced ``run`` (the causality plane's rows on) over
+    the first ``steps`` supersteps of the first chunk its committed
+    decision chain ran at its widest window — ``wide``, that chunk's index
+    and start state as phase 38's run kept them — beside the conservative
+    engine through the same driver from superstep ``warm``, as phase 7
+    measures."""
+    k, st = wide
+    dec = spec.last_run_decisions[k]
+    dyn = spec.dyn_values(dec)
+    phase_where_time_goes(
+        f"speculative chunk {k} at {dec.window_us} us (TorchEngine, "
+        f"traced run, from virtual time {int(st.time)} us)",
+        spec, int(st.steps), steps,
+        run=lambda n, s: spec.run(n, s, _dyn=dyn)[0], mid=st)
+    phase_where_time_goes(
+        "conservative at 500 us (TorchEngine, traced run)", cons, warm,
+        steps, run=lambda n, s: cons.run(n, s)[0])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2343,6 +2766,16 @@ def main() -> int:
     timed(35, phase_controlled, device)
     timed(36, phase_planes_card_vs_cpu, device)
     timed(37, phase_planes_times, device, chaos_eng)
+
+    spec_launches, spec_eng, cons_eng, spec_errs, wide = timed(
+        38, phase_spec_main_path, device)
+    fleet_launches, fleet_errs = timed(39, phase_spec_fleet, device)
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += spec_launches[k] + fleet_launches[k]
+    err_k2 = max(err_k2, spec_errs[0], fleet_errs[0])
+    err_k1 = max(err_k1, spec_errs[1], fleet_errs[1])
+    timed(40, phase_spec_card_vs_cpu, device)
+    timed(41, phase_spec_times, device, spec_eng, cons_eng, wide)
 
     kernels = []
     for name, src, repl, err, r in (

@@ -1,14 +1,18 @@
 """Controlled runs on the port (``timewarp_tpu_torch/dispatch/``,
 ``interp/torch_engine/controlled.py``) against the JAX package, mirroring
-tests/test_zzzdispatch.py on the reference's kernel path:
+tests/test_zzzdispatch.py:
 
-- the decision trace equals ``JaxEngine(insert="interpret",
-  controller=...)``'s, decision for decision (knobs and the telemetry the
-  controller read), solo and on a faulted fleet, and the reference
-  ``EdgeEngine``'s likewise;
+- ``TorchEngine`` threads the dynamic window (``_dyn_ok``): its decision
+  trace equals ``JaxEngine(insert="xla", controller=...)``'s, decision
+  for decision (knobs and the telemetry the controller read), solo, on a
+  faulted fleet, and solo under a degradation window with the mailbox
+  pressure that makes the controller narrow and re-widen the window; the
+  reference ``EdgeEngine``'s likewise;
 - the replay law: a fresh engine replaying the decision trace gives the
   same states, traces and checkpoint bytes;
-- a faulted engine with a controller takes the schedule's degraded floor;
+- a faulted engine with a controller keeps the undegraded floor as its
+  bound and takes the degraded floor per superstep (the clamp
+  ``faults.apply.window_floor``); a static one takes it schedule-wide;
 - ``FusedSparseEngine`` and ``EdgeEngine`` pin their knobs (window and
   rung recorded pinned; chunk boundaries change nothing);
 - an auto controller without telemetry is refused; decision-trace
@@ -54,9 +58,9 @@ from timewarp_tpu_torch.utils.checkpoint import save_state
 BUDGET = 1 << 14
 
 
-def _wave(G, D, n=1024, end_us=80_000):
+def _wave(G, D, n=1024, end_us=80_000, mailbox_cap=16):
     return (G.gossip(n, fanout=4, think_us=2_000, burst=True, end_us=end_us,
-                     mailbox_cap=16),
+                     mailbox_cap=mailbox_cap),
             D.Quantize(D.UniformDelay(8_000, 30_000), 1_000))
 
 
@@ -73,15 +77,31 @@ def _ring(R, D):
             D.UniformDelay(500, 2_000))
 
 
+def _pressed(G, D):
+    """The wave with mailboxes of 6: full enough that the controller
+    halves its window under pressure (``telemetry="full"``'s ``mb_peak``)
+    and widens it again."""
+    sc, link = _wave(G, D, mailbox_cap=6)
+    return sc, link
+
+
 #: name -> (jax?) -> engine with an auto controller (chunk 8, and up to 16
 #: where the reference's scan is cheap to compile twice)
 CASES = {
-    "solo": lambda j: (JaxEngine(*_wave(jg, jd), insert="interpret",
+    "solo": lambda j: (JaxEngine(*_wave(jg, jd), insert="xla",
                                  lint="off", **_kw(j, jdisp, chunk_max=8))
                        if j else TorchEngine(*_wave(tg, td), device="cpu",
                                              **_kw(j, tdisp, chunk_max=8))),
+    "window-adapt": lambda j: (
+        JaxEngine(*_pressed(jg, jd), insert="xla", lint="off",
+                  faults=_shrink(jf),
+                  **_kw(j, jdisp, chunk_max=8, telemetry="full"))
+        if j else TorchEngine(*_pressed(tg, td), device="cpu",
+                              faults=_shrink(tf),
+                              **_kw(j, tdisp, chunk_max=8,
+                                    telemetry="full"))),
     "faulted-fleet": lambda j: (
-        JaxEngine(*_wave(jg, jd), insert="interpret",
+        JaxEngine(*_wave(jg, jd), insert="xla",
                   lint="off", batch=JSpec(seeds=(0, 3)), faults=jf.FaultFleet(
                       (_shrink(jf), jf.FaultSchedule(()))),
                   **_kw(j, jdisp, chunk_max=8))
@@ -103,8 +123,8 @@ CASES = {
 }
 
 
-def _kw(j, disp, window="auto", chunk_max=16):
-    kw = dict(telemetry="counters",
+def _kw(j, disp, window="auto", chunk_max=16, telemetry="counters"):
+    kw = dict(telemetry=telemetry,
               controller=disp.DispatchController(chunk=8,
                                                  chunk_max=chunk_max))
     if window is not None:
@@ -144,7 +164,7 @@ def _as_json(decisions):
 
 #: the cases held against the reference's decision traces (the fused
 #: engine's pins are held port-side: test_chunk_boundaries_change_nothing)
-REFERENCE = ("solo", "faulted-fleet", "edge")
+REFERENCE = ("solo", "window-adapt", "faulted-fleet", "edge")
 
 
 @pytest.fixture(scope="module")
@@ -165,7 +185,7 @@ def reference():
 def test_decision_trace_and_replay_law(case, reference, tmp_path):
     jfin, jtrace, jdecisions, jlines = reference[case]
     eng = CASES[case](False)
-    assert not eng._dyn_ok
+    assert eng._dyn_ok == (case != "edge")
     eng.metrics, eng.metrics_label = MetricsRegistry(run="r"), case
     fin, trace = eng.run_controlled(BUDGET)
     # the `decision` and `supersteps` metrics lines equal the reference's
@@ -176,9 +196,15 @@ def test_decision_trace_and_replay_law(case, reference, tmp_path):
     _traces(jtrace, trace, f"{case} reference vs port")
     _states_equal(jfin, fin, f"{case} reference vs port")
     window = 1 if case == "edge" else eng.window
-    assert all(d.window_us == window and d.rung_pin == -1
-               for d in decisions)
-    if case == "edge":      # the kernel-path cases hold their chunk at 8
+    assert all(d.rung_pin == -1 for d in decisions)
+    if case == "window-adapt":
+        # under pressure the window halves, then widens back to the bound
+        windows = [d.window_us for d in decisions]
+        assert min(windows) < window == max(windows), windows
+        assert int(fin.short_delay) == 0
+    else:
+        assert all(d.window_us == window for d in decisions)
+    if case == "edge":      # the other cases hold their chunk at 8
         assert len({d.chunk_len for d in decisions}) > 1, \
             "the controller never adapted the chunk length"
     # the replay law, through a trace file
@@ -220,7 +246,17 @@ def test_chunk_boundaries_change_nothing():
 
 
 def test_faulted_engine_takes_the_degraded_floor():
-    for P, F, disp, extra in ((jg, jf, jdisp, dict(insert="interpret",
+    """A faulted engine with a controller keeps the undegraded floor as
+    its bound and takes the degraded floor per superstep, inside the
+    degradation window only (the clamp, equal in both packages); without
+    a controller it takes the degraded floor schedule-wide. The reference's
+    kernel path keeps the degraded floor with a controller too."""
+    import torch
+    from jax import numpy as jnp
+    from timewarp_tpu.faults.apply import window_floor as jfloor
+    from timewarp_tpu_torch.faults.apply import device_tables
+    from timewarp_tpu_torch.faults.apply import window_floor as tfloor
+    for P, F, disp, extra in ((jg, jf, jdisp, dict(insert="xla",
                                                     lint="off")),
                               (tg, tf, tdisp, dict(device="cpu"))):
         cls = JaxEngine if P is jg else TorchEngine
@@ -228,9 +264,25 @@ def test_faulted_engine_takes_the_degraded_floor():
         eng = cls(sc, link, window="auto", faults=_shrink(F),
                   telemetry="counters",
                   controller=disp.DispatchController(chunk=8), **extra)
-        assert not eng._dyn_ok
-        assert eng.window == 2_000 == _shrink(F).min_delay_floor(
+        assert eng._dyn_ok
+        assert eng.window == 8_000 == link.min_delay_us
+        static = cls(sc, link, window="auto", faults=_shrink(F), **extra)
+        assert static.window == 2_000 == _shrink(F).min_delay_floor(
             link.min_delay_us)
+    kernel = JaxEngine(*_wave(jg, jd, end_us=60_000), window="auto",
+                       faults=_shrink(jf), telemetry="counters",
+                       insert="interpret", lint="off",
+                       controller=jdisp.DispatchController(chunk=8))
+    assert not kernel._dyn_ok and kernel.window == 2_000
+    # the clamp: 8 ms requested, 2 ms wherever [t, t + 8 ms) meets the
+    # degradation window [40 ms, 90 ms)
+    jft = _shrink(jf).tables(1024)
+    tft = device_tables(_shrink(tf).tables(1024), torch.device("cpu"))
+    ts = (0, 31_999, 32_001, 60_000, 89_999, 90_000, 120_000)
+    want = [8_000, 8_000, 2_000, 2_000, 2_000, 8_000, 8_000]
+    assert [int(jfloor(jft, jnp.int64(t), jnp.int64(8_000), 8_000))
+            for t in ts] == want
+    assert tfloor(tft, torch.tensor(ts), 8_000, 8_000).tolist() == want
 
 
 def test_auto_controller_needs_telemetry():

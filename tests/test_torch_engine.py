@@ -181,15 +181,17 @@ def test_insert_cap_drops_match_pallas_stage():
 
 
 def test_refuses_what_is_not_ported():
-    """The options still unported are refused by name; the knobs of the
-    other regimes are refused where the reference refuses them:
-    ``insert_cap`` outside the adaptive regime, ``route_cap < 1`` and a
-    negative ``record_events``. ``batch`` and ``faults`` are ported and
-    refuse what is not a ``BatchSpec`` / ``FaultSchedule``, as the
-    reference does."""
+    """A keyword the reference takes and the port does not (``insert``)
+    is refused as unexpected; the knobs of the other regimes are refused
+    where the reference refuses them: ``insert_cap`` outside the adaptive
+    regime, ``route_cap < 1``, a negative ``record_events``, and a
+    ``fixed:W`` speculation at or below the conservative floor.
+    ``batch`` and ``faults`` refuse what is not a ``BatchSpec`` /
+    ``FaultSchedule``, as the reference does."""
     tsc, tl = _gossip_pair(256, _quantized_uniform)[1]
-    with pytest.raises(ValueError, match="not yet ported"):
-        TorchEngine(tsc, tl, window="auto", device="cpu", speculate="auto")
+    with pytest.raises(ValueError, match="does not exceed"):
+        TorchEngine(tsc, tl, window="auto", device="cpu",
+                    speculate="fixed:8000")
     with pytest.raises(ValueError, match="telemetry must be"):
         TorchEngine(tsc, tl, window="auto", device="cpu", telemetry="on")
     with pytest.raises(ValueError, match="must be a BatchSpec"):

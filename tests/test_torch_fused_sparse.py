@@ -172,7 +172,7 @@ def test_scope_guards():
     with pytest.raises(ValueError, match="uint32"):
         FusedSparseEngine(sc, td.Quantize(td.UniformDelay(1, 2**31 - 1),
                                           2**31 - 2), window=4, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="kernel arithmetic"):
         FusedSparseEngine(sc, quniform(td), speculate="auto", **kw)
     with pytest.raises(TypeError):       # the reference's takes none either
         FusedSparseEngine(sc, quniform(td), route_cap=64, **kw)

@@ -2,8 +2,8 @@
 of it) in a fresh interpreter leaves ``jax`` and the reference package
 ``timewarp_tpu`` out of ``sys.modules``; no source file of the port, nor
 ``chip_smoke.py``, imports either (the run-mode planes' packages ``obs``,
-``integrity``, ``dispatch`` and ``controlled.py`` also imported first and
-alone); and every engine (``TorchEngine``,
+``integrity``, ``dispatch``, ``speculate`` and ``controlled.py`` also
+imported first and alone); and every engine (``TorchEngine``,
 ``FusedSparseEngine``, ``EdgeEngine``, ``FusedRingEngine``) runs on the
 card by default, raising on a machine without CUDA unless the caller
 passes ``device="cpu"``.
@@ -51,7 +51,8 @@ def test_import_leaves_jax_and_reference_out():
               "integrity.inject", "integrity.runner", "dispatch",
               "dispatch.trace", "dispatch.controller",
               "interp.torch_engine.controlled",
-              "interp.torch_engine.planes"):
+              "interp.torch_engine.planes", "speculate", "speculate.plane",
+              "speculate.policy", "speculate.equiv", "speculate.runner"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -66,7 +67,7 @@ def test_import_leaves_jax_and_reference_out():
     assert out.stdout.startswith("0 "), out.stdout
 
 
-@pytest.mark.parametrize("mod", ["obs", "integrity", "dispatch",
+@pytest.mark.parametrize("mod", ["obs", "integrity", "dispatch", "speculate",
                                  "interp.torch_engine.controlled"])
 def test_plane_packages_import_alone(mod):
     """Each run-mode plane's package, imported first and alone in a fresh

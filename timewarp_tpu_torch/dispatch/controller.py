@@ -1,9 +1,11 @@
 """The online adaptive dispatch controller (the port's copy of
 ``timewarp_tpu/dispatch/controller.py``, host code; ROADMAP "Online
 adaptive dispatch"; TempoNet's slack-quantized deadline-centric framing,
-PAPERS.md). The torch engines' kernels take the window at construction,
-so on every one of them the controller adapts chunk length only
-(``_dyn_ok`` False) and records the window and rung pinned.
+PAPERS.md). On ``TorchEngine`` (``_dyn_ok``) it adapts the window and the
+chunk length; the port routes at one static width and has no rung
+ladder, so ``begin`` finds none and the rung pin stays -1. On
+``FusedSparseEngine`` and ``EdgeEngine`` (``_dyn_ok`` False) it adapts
+chunk length only and records the window and rung pinned.
 
 A :class:`DispatchController` sits **between** jitted chunks of the
 chunked drivers (``run_controlled`` — interp/jax_engine/controlled.py;

@@ -202,9 +202,11 @@ def window_floor(ft, t, w_req, base_floor: int):
     w_req)``, clamped to ``[1, w_req]`` (the reference's greedy fold over
     the rows whose window overlaps that span; inert pad rows never
     match). With world tables ``t`` is ``[B]`` and so is the result.
-    (The reference engine calls this only under its dispatch controller,
-    which the port does not carry: a faulted engine runs at the
-    schedule-wide degraded floor instead.)"""
+    ``TorchEngine`` calls this every superstep of a controlled or
+    speculative chunk (its bound then the undegraded floor), so only the
+    supersteps a degradation window overlaps run narrow; a static faulted
+    engine runs at the schedule-wide degraded floor instead. Device
+    tensors throughout: no host sync."""
     L = ft.link_start.shape[-1]
     t = torch.as_tensor(t, dtype=torch.int64)
     w = torch.as_tensor(w_req, dtype=torch.int64, device=t.device)

@@ -1,15 +1,32 @@
 """Shared machinery of the torch engines (port of the single-device part
 of ``timewarp_tpu/interp/jax_engine/common.py``): the node-ownership
-object, the scenario's initial state, and host-side run accounting."""
+object, the scenario's initial state, the dynamic dispatch values and
+host-side run accounting."""
 
 from __future__ import annotations
 
 import time
+from typing import Any, NamedTuple
 
 import torch
 
-__all__ = ["LocalComm", "init_states_wake", "refuse_unported", "run_stats",
+__all__ = ["LocalComm", "init_states_wake", "DynDispatch", "run_stats",
            "stats_merge"]
+
+
+class DynDispatch(NamedTuple):
+    """A chunk's dispatch values (dispatch/, speculate/), handed to
+    ``TorchEngine.run`` as tensors on the engine's device, made once per
+    chunk: new values between chunks cost no host sync inside the run.
+
+    ``window`` — the requested superstep window, int64 µs (0-d), clamped
+    on the device to ``[1, engine.window]`` and, under a fault schedule,
+    to each world's degraded link floor of the superstep
+    (``faults.apply.window_floor``). ``rung_pin`` — the reference's floor
+    on its adaptive routing ladder's rung, int32 (-1 = unpinned); the
+    port routes at one static width and has no ladder, so it stays -1."""
+    window: Any     # int64[] requested window µs
+    rung_pin: Any   # int32[] ladder index floor, -1 = unpinned
 
 
 class LocalComm:
@@ -32,18 +49,6 @@ def init_states_wake(scenario, device: torch.device):
     """The scenario's stacked initial ``(states, wake)`` on ``device``."""
     states, wake = scenario.init_batched(scenario.n_nodes, device)
     return states, wake.to(torch.int64)
-
-
-def refuse_unported(who: str, unported: dict, off: dict, ref: str) -> None:
-    """Refuse, by name, a reference option the port does not carry:
-    ``off`` maps each such option to the value that means "off"; any
-    other value raises ValueError, an unknown name TypeError."""
-    for k, v in unported.items():
-        if k not in off:
-            raise TypeError(f"{who} got an unexpected keyword argument {k!r}")
-        if v != off[k]:
-            raise ValueError(f"{who}: {k}={v!r} is not yet ported "
-                             f"(run {ref})")
 
 
 def run_stats(t0: float, steps_before: int, steps_after: int) -> dict:

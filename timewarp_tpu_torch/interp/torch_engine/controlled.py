@@ -5,18 +5,27 @@
 solo run) executes one ``run`` chunk at a time, and between chunks the
 bound :class:`~timewarp_tpu_torch.dispatch.DispatchController` reads the
 chunk's telemetry (``engine.last_run_telemetry``) and picks the next
-chunk's length. Every torch engine takes its window at construction (K1
-and K2 are launched with it, K3 bakes it into its draw, the edge engine
-runs classic supersteps), as the reference's kernel-path engines do
-(``insert="pallas"``, ``FusedSparseEngine``, ``EdgeEngine``): the
-controller adapts **chunk length only**, and the window and rung ride the
-decision trace pinned (``window_us`` the engine's window, ``rung_pin``
--1). A faulted engine's window is the schedule's degraded floor.
+chunk's dispatch values.
+
+- On ``TorchEngine`` (``_dyn_ok``), as on the reference's
+  ``JaxEngine(insert="xla")``: the chunk's window and chunk length. The
+  window reaches the run as a ``DynDispatch`` tensor made once per chunk;
+  the superstep clamps it to the engine's bound (a faulted engine keeps
+  the undegraded link floor as its bound) and to each world's degraded
+  floor of the superstep (``faults.apply.window_floor``), so only the
+  supersteps a degradation window overlaps run narrow. K1 and K2 never
+  see the window. The port routes at one static width and has no rung
+  ladder, so ``rung_pin`` stays -1.
+- On ``FusedSparseEngine`` (K3 draws against the window inside the
+  kernel) and ``EdgeEngine`` (classic supersteps), as on the reference's
+  counterparts: **chunk length only**, the window and rung riding the
+  decision trace pinned (``window_us`` the engine's window, ``rung_pin``
+  -1).
 
 The replay law (tests/test_torch_dispatch.py): re-running with
 ``mode="replay"`` over the emitted decision trace is bit-identical on
 states, traces and checkpoints, and the trace equals the reference's
-kernel-path engine's for the same configuration.
+counterpart engine's for the same configuration.
 """
 
 from __future__ import annotations
@@ -33,8 +42,8 @@ class ControlledRunMixin:
 
     #: the bound DispatchController (None = static dispatch)
     controller = None
-    #: whether the engine threads dynamic window/rung values: never on
-    #: the torch engines (the controller adapts chunk length only)
+    #: whether the engine threads a dynamic window (TorchEngine); False =
+    #: the controller adapts chunk length only
     _dyn_ok = False
     #: the emitted decision list of the last run_controlled call
     last_run_decisions = None
@@ -58,6 +67,22 @@ class ControlledRunMixin:
                 "with telemetry='counters' (or 'full') — replay mode "
                 "alone runs with telemetry off (docs/dispatch.md)")
         self.controller = controller
+
+    def dyn_values(self, decision):
+        """A decision's dispatch values as tensors on the engine's device
+        (a ``DynDispatch``; ``torch.full`` launches a fill, with no copy
+        from the host) — None when this engine's window is fixed at
+        construction (chunk-length-only adaptation)."""
+        if not self._dyn_ok:
+            return None
+        import torch
+
+        from .common import DynDispatch
+        return DynDispatch(
+            window=torch.full((), decision.window_us, dtype=torch.int64,
+                              device=self.device),
+            rung_pin=torch.full((), decision.rung_pin, dtype=torch.int32,
+                                device=self.device))
 
     def _controlled_progress(self, state, budgets, start):
         """(steps_done, remaining, active) — ``fleet_progress``'s law
@@ -110,22 +135,30 @@ class ControlledRunMixin:
                 break
             t_now = int(np.min(st.time.cpu().numpy()))
             dec, fresh = ctrl.decide(ci, self.last_run_telemetry, t_now)
+            if self._dyn_ok and dec.window_us > self.window:
+                from ...dispatch.trace import DispatchTraceError
+                raise DispatchTraceError(
+                    f"chunk {ci} decision requests window "
+                    f"{dec.window_us} µs beyond the engine bound "
+                    f"{self.window} µs")
             if fresh and self.metrics is not None:
                 self.metrics.emit("decision", label=self.metrics_label,
                                   chunk=dec.chunk,
                                   window_us=dec.window_us,
                                   rung_pin=dec.rung_pin,
                                   chunk_len=dec.chunk_len)
+            dyn = self.dyn_values(dec)
+            kw = {} if dyn is None else {"_dyn": dyn}
             if batch is not None:
                 vec = np.where(active,
                                np.minimum(remaining, dec.chunk_len), 0)
-                st, traces = self.run(vec, state=st)
+                st, traces = self.run(vec, state=st, **kw)
                 for b in range(batch.B):
                     rows[b].extend(traces[b].row(i)
                                    for i in range(len(traces[b])))
             else:
                 step_n = int(min(int(remaining), dec.chunk_len))
-                st, tr = self.run(step_n, state=st)
+                st, tr = self.run(step_n, state=st, **kw)
                 rows.extend(tr.row(i) for i in range(len(tr)))
             chunk_stats.append(self.last_run_stats)
             frame_chunks.append(self.last_run_telemetry)

@@ -438,17 +438,20 @@ def link_sample(link, s0, s1, src, dst, tmsg, slot):
     return link.sample(src, dst, tmsg, mbits)
 
 
-def flight_times(delay, woff, ok, W: int):
+def flight_times(delay, woff, ok, W: int, w_now=None):
     """The ``>= 1 µs`` flight clamp, the epoch-relative deliver time
     ``woff + flight`` saturated to int32, and the ``bad_delay`` /
     ``short_delay`` counts over the ``ok`` entries of each batch row (the
-    last axis; ``short`` only when the window ``W > 1``). Returns
-    ``(flight int64, drel int32, bad, short)``."""
+    last axis; ``short`` only when the window bound ``W > 1``, counting
+    flights shorter than the superstep's effective window ``w_now``: ``W``
+    itself by default, or a dynamic window's int64 ``[B, 1]`` tensor).
+    Returns ``(flight int64, drel int32, bad, short)``."""
     flight = torch.clamp(delay, min=1)                     # contract #4
     drel64 = woff.long() + flight
     bad = (ok & (drel64 > I32MAX - 1)).sum(dim=-1, dtype=torch.int32)
     if W > 1:
-        short = (ok & (flight < W)).sum(dim=-1, dtype=torch.int32)
+        short = (ok & (flight < (W if w_now is None else w_now))).sum(
+            dim=-1, dtype=torch.int32)
     else:
         short = torch.zeros(ok.shape[:-1], dtype=torch.int32,
                             device=ok.device)

@@ -58,7 +58,7 @@ from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...obs.flight import TAG_DEFER, TAG_PURGE, TAG_RESTART
 from ...trace.hashing import FIRED, RECV, SENT, mix32
-from .common import LocalComm, init_states_wake, refuse_unported, run_stats
+from .common import LocalComm, init_states_wake, run_stats
 from .engine import _sort_rows, resolve_device
 from .planes import PlaneRows, PlanesMixin
 
@@ -193,10 +193,8 @@ class EdgeEngine(PlanesMixin):
                  seed: int = 0, cap: int = 2, faults=None,
                  telemetry: str = "off", controller=None,
                  verify: str = "off", record: str = "off",
-                 record_cap: Optional[int] = None, device=None,
-                 **unported) -> None:
+                 record_cap: Optional[int] = None, device=None) -> None:
         name = type(self).__name__
-        refuse_unported(name, unported, {}, "the JAX EdgeEngine")
         self._bind_planes(telemetry, verify, record, record_cap)
         if scenario.static_dst is None:
             raise ValueError(

@@ -42,10 +42,17 @@ With ``record_events > 0`` every superstep also appends its fires and
 deliveries to an on-device event ring (:meth:`TorchEngine.events`).
 
 The run-mode planes (planes.py): ``telemetry``, ``verify`` (with
-``run_verified``), ``record``/``record_cap`` (the flight recorder) and
-``controller`` (``run_controlled``, chunk length only), each giving what
-``JaxEngine(insert="pallas")`` gives; with every plane off the superstep
-is unchanged. ``speculate`` is refused.
+``run_verified``), ``record``/``record_cap`` (the flight recorder),
+``controller`` (``run_controlled``) and ``speculate`` (with
+``run_speculative``, speculate/), each giving what
+``JaxEngine(insert="xla")`` gives; with every plane off the superstep is
+unchanged. A controller or speculation hands each ``run`` chunk its
+window as a tensor (``DynDispatch``): the superstep clamps it to the
+engine's bound and, under a fault schedule, to each world's degraded link
+floor (``faults.apply.window_floor``), and uses it for the firing mask,
+the ``short_delay`` count and the causality plane's straggler. K1 and K2
+never see the window: K2 compacts the window-offset plane whenever the
+bound exceeds 1, and K1 inserts epoch-relative deliver times.
 
 The emitted traces and final states equal ``JaxEngine``'s bit for bit
 (tests/test_torch_engine.py, test_torch_routing.py,
@@ -66,7 +73,7 @@ from ...core.rng import fire_bits, seed_words
 from ...core.scenario import NEVER, Inbox, Outbox, Scenario
 from ...faults.apply import (consume_restarts, cut_mask, defer_next,
                              degrade, device_tables, down_mask,
-                             restart_fire, skewed_step)
+                             restart_fire, skewed_step, window_floor)
 from ...faults.schedule import FaultFleet, FaultSchedule, as_fleet
 from ...net.delays import LinkModel
 from ...obs.flight import TAG_DEFER, TAG_PURGE, TAG_RESTART
@@ -74,8 +81,7 @@ from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...trace.hashing import FIRED, RECV, SENT, mix32
 from .batched import BatchSpec, map_state, rebind_link
-from .common import (LocalComm, init_states_wake, refuse_unported,
-                     run_stats, stats_merge)
+from .common import LocalComm, init_states_wake, run_stats, stats_merge
 from .cuda_insert import InsertStage, flight_times, link_sample
 from .planes import PlaneRows, PlanesMixin
 
@@ -108,11 +114,6 @@ class EngineState(NamedTuple):
     restart_done: torch.Tensor   # bool[C] — reboot rows consumed
 
 
-#: the reference engine's options the port does not carry, with the
-#: value that means "off" — any other value is refused at construction
-_UNPORTED = {"speculate": "off"}
-
-
 class _World(NamedTuple):
     """What distinguishes the worlds of a superstep: seed words (ints,
     or ``[B, 1]`` tensors), the link (its swept parameters ``[B, 1]``
@@ -141,25 +142,40 @@ def resolve_device(device, who: str = "TorchEngine") -> torch.device:
 
 
 def resolve_window(window, link: LinkModel, floor=None,
-                   fleet: bool = False) -> int:
+                   fleet: bool = False, speculating: bool = False) -> int:
     """The superstep window in µs: an int, or ``"auto"`` for the link's
     declared floor (``floor`` when given: a fleet's minimum over its
     worlds, degraded by a fault schedule). A window wider than that floor
-    would reorder causally dependent events and is refused."""
+    would reorder causally dependent events and is refused, with the
+    reference's advice (``speculating``: the window names a speculating
+    engine's conservative floor)."""
     floor = link.min_delay_us if floor is None else floor
     if isinstance(window, str) and window != "auto":
-        raise ValueError(f"window must be an int µs count or 'auto', "
-                         f"got {window!r}")
+        raise ValueError(f"window must be an int µs count or the string "
+                         f"'auto', got {window!r}")
     if window == "auto":
         window = max(1, min(int(floor), I32MAX - 1))
     if window < 1:
         raise ValueError(f"window must be >= 1 µs, got {window}")
     if window > 1 and window > floor:
+        hint = (
+            "speculate= is already on and window= names its "
+            "CONSERVATIVE floor, which must stay provable (<= "
+            "the declared min); put the speculative bound in the "
+            "spec instead — speculate='fixed:W', or 'auto' to "
+            "ladder it (docs/speculation.md)"
+        ) if speculating else (
+            "to run wider than the provable floor, speculate: "
+            "speculate='auto'|'fixed:W' detects and rolls back "
+            "the violations statically ruled out here "
+            "(docs/speculation.md)")
         raise ValueError(
             f"window={window} µs exceeds the link model's declared "
             f"min_delay_us={floor}"
-            f"{' (min over the batch worlds)' if fleet else ''}; windowed "
-            "supersteps would reorder causally dependent events")
+            f"{' (min over the batch worlds)' if fleet else ''}; "
+            "windowed supersteps would reorder causally dependent "
+            f"events (engine.py windowed-execution precondition) "
+            f"— {hint}")
     if window >= I32MAX:
         raise ValueError("window must fit int32")
     return int(window)
@@ -222,14 +238,16 @@ def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 class TorchEngine(PlanesMixin):
     """Single-device engine for dynamic-destination scenarios —
-    ``JaxEngine(insert="pallas")`` on one device, with the
-    fire-compaction and mailbox-insertion kernels on the card (their
-    plain versions on the CPU).
+    ``JaxEngine(insert="xla")`` on one device (the reference's default
+    engine, which threads the dynamic window), with the fire-compaction
+    and mailbox-insertion kernels on the card (their plain versions on
+    the CPU).
 
     ``window`` is an int µs width or ``"auto"`` (the link's declared
     floor); it must not exceed ``link.min_delay_us`` (under faults: the
-    schedule's degraded floor), and sampled delays shorter than it are
-    counted in ``short_delay``. ``route_cap`` bounds the sorted batch
+    schedule's degraded floor, unless a controller or speculation clamps
+    each superstep to it), and sampled delays shorter than the
+    superstep's window are counted in ``short_delay``. ``route_cap`` bounds the sorted batch
     outside the adaptive regime, unrounded (the excess is counted in
     ``route_drop``); ``insert_cap`` bounds the adaptive regime's fired
     batch (default ``n_nodes * max_out``: nothing can drop) and is
@@ -242,15 +260,18 @@ class TorchEngine(PlanesMixin):
     its fleet supersteps (loop iterations, each every world's), wall
     seconds and compiles (0).
 
-    The run-mode planes, as the reference's kernel path: ``telemetry``
-    (``"off"``, ``"counters"``, ``"full"``; frames on
-    ``last_run_telemetry``, the ``rung`` column the compacted batch's
-    sender width on the adaptive path, -1 on the eager and lazy ones),
-    ``verify`` (``"off"``, ``"guard"``, ``"digest"``, ``"shadow"``;
+    The run-mode planes: ``telemetry`` (``"off"``, ``"counters"``,
+    ``"full"``; frames on ``last_run_telemetry``, the ``rung`` column the
+    compacted batch's static sender width on the adaptive path, -1 on the
+    eager and lazy ones — the port has no routing ladder), ``verify``
+    (``"off"``, ``"guard"``, ``"digest"``, ``"shadow"``;
     ``run_verified``), ``record``/``record_cap`` (``"off"``,
-    ``"deliveries"``, ``"full"``; ``last_run_flight``) and ``controller``
-    (a ``DispatchController``; ``run_controlled`` adapts chunk length
-    only)."""
+    ``"deliveries"``, ``"full"``; ``last_run_flight``), ``controller`` (a
+    ``DispatchController``; ``run_controlled`` adapts the window and the
+    chunk length) and ``speculate`` (``"off"``, ``"auto"``,
+    ``"fixed:W"``; ``run_speculative``). Speculating, ``window`` names the
+    conservative floor (``spec_floor``) and ``self.window`` becomes the
+    speculative bound: W for ``fixed:W``, ``I32MAX - 1`` for ``auto``."""
 
     last_run_stats = None
     #: the fleet's BatchSpec (None solo) and fault state; subclasses that
@@ -261,16 +282,33 @@ class TorchEngine(PlanesMixin):
     _has_skew = _has_reset = False
     _n_restarts = 0
 
+    #: the engine threads the dynamic window (controlled.py, speculate/)
+    _dyn_ok = True
+    #: the run's dispatch values while a controlled or speculative chunk
+    #: runs (None otherwise), and the superstep's effective window (set by
+    #: each superstep): the Python int ``self.window`` on the static path,
+    #: else an int64 ``[B, 1]`` tensor
+    _dyn = None
+    _w_now = None
+
     def __init__(self, scenario: Scenario, link: LinkModel, *,
                  seed: int = 0, window=1, route_cap: Optional[int] = None,
                  record_events: int = 0, insert_cap: Optional[int] = None,
                  batch: Optional[BatchSpec] = None, faults=None,
                  telemetry: str = "off", controller=None,
                  verify: str = "off", record: str = "off",
-                 record_cap: Optional[int] = None,
-                 device=None, **unported) -> None:
-        self._hold(scenario, link, seed, device, record_events, unported,
-                   telemetry, verify, record, record_cap)
+                 record_cap: Optional[int] = None, speculate: str = "off",
+                 device=None) -> None:
+        if speculate not in (None, "off"):
+            from ...speculate.plane import parse_speculate
+            self.speculate, self._spec_w = parse_speculate(
+                speculate, type(self).__name__)
+        self._hold(scenario, link, seed, device, record_events, telemetry,
+                   verify, record, record_cap)
+        spec = self.speculate != "off"
+        if spec:
+            # the causality plane is a per-superstep plane row
+            self._planes_on = True
         link_floor = self._setup_batch(batch, link)
         self._setup_faults(faults)
         if self._faulted:
@@ -280,11 +318,43 @@ class TorchEngine(PlanesMixin):
                     "lazy-sampling path slices before delays (and so "
                     "before down-window drops) exist — run the fault "
                     "study uncapped (adaptive routing never drops)")
-            # a shrink-degradation window can undercut the link's floor:
-            # the window validates against the degraded worst case
-            link_floor = self.faults.min_delay_floor(link_floor)
-        self.window = resolve_window(window, link, link_floor,
-                                     fleet=batch is not None)
+            # a shrink-degradation window can undercut the link's floor.
+            # A static engine validates against the degraded worst case;
+            # an engine under a controller or speculating keeps the
+            # undegraded floor as its bound, because every one of its
+            # chunks clamps each superstep to the degraded floor of the
+            # span it covers (faults.apply.window_floor)
+            if controller is None and not spec:
+                link_floor = self.faults.min_delay_floor(link_floor)
+        window = resolve_window(window, link, link_floor,
+                                fleet=batch is not None, speculating=spec)
+        if spec:
+            # `window` is the CONSERVATIVE floor; the engine's window
+            # becomes the speculative bound beyond it, and the causality
+            # plane re-proves the exactness precondition chunk by chunk
+            if controller is not None:
+                raise ValueError(
+                    "speculate and controller are both per-chunk "
+                    "window decision sources — an engine runs under "
+                    "exactly one (docs/speculation.md)")
+            self.spec_floor = window
+            if self.speculate == "fixed":
+                if self._spec_w <= self.spec_floor:
+                    raise ValueError(
+                        f"speculate='fixed:{self._spec_w}' does not "
+                        f"exceed the conservative floor "
+                        f"{self.spec_floor} µs — at or below the "
+                        "floor the static window already proves "
+                        "exactness; nothing to speculate "
+                        "(docs/speculation.md)")
+                if self._spec_w >= I32MAX:
+                    raise ValueError("window must fit int32")
+                window = self._spec_w
+            else:
+                # auto: the widest representable window — the ladder
+                # policy doubles up from the floor, so it is a ceiling
+                window = I32MAX - 1
+        self.window = window
         if route_cap is not None and route_cap < 1:
             raise ValueError(f"route_cap must be >= 1, got {route_cap}")
         self.route_cap = None if route_cap is None else int(route_cap)
@@ -305,14 +375,12 @@ class TorchEngine(PlanesMixin):
         self._bind_controller(controller)
 
     def _hold(self, sc: Scenario, link: LinkModel, seed: int, device,
-              record_events: int, unported: dict, telemetry="off",
-              verify="off", record="off", record_cap=None) -> None:
+              record_events: int, telemetry="off", verify="off",
+              record="off", record_cap=None) -> None:
         """What every engine of this package checks and holds, before its
-        own regime guards: the unported options, the planes' modes, the
-        device, the event ring's capacity, the seed words and the node
-        axis."""
+        own regime guards: the planes' modes, the device, the event ring's
+        capacity, the seed words and the node axis."""
         name = type(self).__name__
-        refuse_unported(name, unported, _UNPORTED, "JaxEngine")
         self._bind_planes(telemetry, verify, record, record_cap)
         self.device = resolve_device(device, name)
         if sc.n_nodes * sc.max_out >= 2**31:
@@ -446,18 +514,27 @@ class TorchEngine(PlanesMixin):
                    != tuple(getattr(self._world.ft, f).shape)
                    for f in type(tables)._fields):
                 return False
+        # the window re-validates against the NEW fleet's floor, as at
+        # construction: degraded unless a controller or speculation
+        # clamps each superstep; a speculating engine checks its
+        # conservative floor (the bound is checked on the device)
         world_links = [batch.world_link(self.link, b)
                        for b in range(batch.B)]
         link_floor = min(lk.min_delay_us for lk in world_links)
-        if fleet is not None:
+        if fleet is not None and (
+                (self.controller is None and self.speculate == "off")
+                or not self._dyn_ok):
             link_floor = fleet.min_delay_floor(link_floor)
-        if self.window > 1 and self.window > link_floor:
+        floor_ref = (self.spec_floor if self.speculate != "off"
+                     else self.window)
+        if floor_ref > 1 and floor_ref > link_floor:
             raise ValueError(
-                f"rebind_identity: window={self.window} µs exceeds the "
+                f"rebind_identity: window={floor_ref} µs exceeds the "
                 f"new fleet's declared min_delay_us={link_floor} (min "
-                "over the batch worlds, fault-degraded); windowed "
-                "supersteps would reorder causally dependent events — "
-                "this identity needs its own engine")
+                "over the batch worlds, fault-degraded where the "
+                "engine has no dynamic clamp); windowed supersteps "
+                "would reorder causally dependent events — this "
+                "identity needs its own engine")
         self.batch = batch
         self._world_links = world_links
         self._bind_identity(batch)
@@ -554,12 +631,26 @@ class TorchEngine(PlanesMixin):
     def _sample_nodrop(self, src, dst, tmsg, slot, woff, ok):
         """Link sampling for the no-drop routing paths (lazy, adaptive):
         each world's draw, its degradation windows applied before the
-        flight clamp (the reference's order), then :func:`flight_times`."""
+        flight clamp (the reference's order), then :meth:`_flights`."""
         w = self._world
         delay, _ = link_sample(w.link, w.s0, w.s1, src, dst, tmsg, slot)
         if w.ft is not None:
             delay = degrade(w.ft, delay, src, dst, tmsg)
-        return flight_times(delay, woff, ok, self.window)
+        return self._flights(delay, woff, ok, tmsg)
+
+    def _flights(self, delay, woff, ok, tmsg):
+        """:func:`flight_times` against the superstep's effective window
+        ``_w_now``, plus the causality plane's straggler column while
+        speculating: each batch row's earliest absolute delivery among
+        the same ``ok`` sends that ``short_delay`` counts (``[B]`` int64,
+        NEVER when clean; None when not speculating)."""
+        flight, drel, bad, short = flight_times(delay, woff, ok, self.window,
+                                                self._w_now)
+        strag = None
+        if self.speculate != "off":
+            strag = torch.where(ok & (flight < self._w_now), tmsg + flight,
+                                NEVER).amin(dim=-1)
+        return flight, drel, bad, short, strag
 
     def _zeros(self, B: int) -> torch.Tensor:
         return torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -597,8 +688,9 @@ class TorchEngine(PlanesMixin):
         if ft is not None:
             src_l = torch.div(smrank, M, rounding_mode="floor")
             tmsg_l = tt + woff_f.long()
-            flight, drel, bad_delay_step, short_step = self._sample_nodrop(
-                src_l, dst_f, tmsg_l, smrank - src_l * M, woff_f, ok)
+            flight, drel, bad_delay_step, short_step, strag = \
+                self._sample_nodrop(src_l, dst_f, tmsg_l,
+                                    smrank - src_l * M, woff_f, ok)
             downm = ok & down_mask(ft, dst_f, tmsg_l + flight)
             fault_down = downm.sum(dim=1, dtype=torch.int32)
             ok2 = ok & ~downm
@@ -618,7 +710,7 @@ class TorchEngine(PlanesMixin):
                 sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts)
             return (mrel, msrc, mpay, overflow_step, bad_dst_step,
                     bad_delay_step, short_step, route_drop_step, sent_count,
-                    sent_hash, fault_cut + fault_down)
+                    sent_hash, fault_cut + fault_down, strag)
         perm = sort_batch(dst_f, woff_f, smrank)
         sd, woff_s = dst_f.gather(1, perm), woff_f.gather(1, perm)
         smrank_s = smrank.gather(1, perm)
@@ -626,8 +718,9 @@ class TorchEngine(PlanesMixin):
         ok_s = sd < n
         src_s = torch.div(smrank_s, M, rounding_mode="floor")
         tmsg_s = tt + woff_s.long()
-        flight_s, drel_s, bad_delay_step, short_step = self._sample_nodrop(
-            src_s, sd, tmsg_s, smrank_s - src_s * M, woff_s, ok_s)
+        flight_s, drel_s, bad_delay_step, short_step, strag = \
+            self._sample_nodrop(src_s, sd, tmsg_s, smrank_s - src_s * M,
+                                woff_s, ok_s)
         mrel, msrc, mpay, overflow_step = self.stage.insert(
             sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts)
         sent_count = ok.sum(dim=1, dtype=torch.int32)
@@ -637,7 +730,7 @@ class TorchEngine(PlanesMixin):
             self._rec_sends(ok_s, None, src_s, sd, tmsg_s, tmsg_s + flight_s)
         return (mrel, msrc, mpay, overflow_step, bad_dst_step,
                 bad_delay_step, short_step, route_drop_step, sent_count,
-                sent_hash, fault_cut)
+                sent_hash, fault_cut, strag)
 
     def _route_flat(self, out, out_valid, now_vec, t, mb_rel, mb_src,
                     mb_payload, counts, with_trace):
@@ -682,8 +775,8 @@ class TorchEngine(PlanesMixin):
                     self._rec_cut(cutm, src_f, dst_f, tmsg)
                 ok = ok & ~cutm
                 delay = degrade(w.ft, delay, src_f, dst_f, tmsg)
-            flight, drel, bad_delay_step, short_step = flight_times(
-                delay, woff, ok, self.window)
+            flight, drel, bad_delay_step, short_step, strag = \
+                self._flights(delay, woff, ok, tmsg)
             downm = None
             if w.ft is not None:
                 downm = ok & down_mask(w.ft, dst_f, tmsg + flight)
@@ -709,7 +802,7 @@ class TorchEngine(PlanesMixin):
         if self.lazy:
             woff_s = woff.gather(1, perm)
             tmsg_s = t[:, None] + woff_s.long()
-            flight_s, drel_s, bad_delay_step, short_step = \
+            flight_s, drel_s, bad_delay_step, short_step, strag = \
                 self._sample_nodrop(src_s, sd, tmsg_s, smrank_s - src_s * M,
                                     woff_s, ok_s)
             if self._rec_extra is not None:
@@ -731,7 +824,7 @@ class TorchEngine(PlanesMixin):
                                     pay_f[:, 0]) if with_trace else None
         return (mrel, msrc, mpay, overflow_step, bad_dst_step,
                 bad_delay_step, short_step, route_drop_step, sent_count,
-                sent_hash, fault_step)
+                sent_hash, fault_step, strag)
 
     def _route(self, *args):
         """Step 6, the routing stage, in the engine's regime, over
@@ -758,6 +851,16 @@ class TorchEngine(PlanesMixin):
         ft = self._world.ft
         mb_live = st.mb_rel < I32MAX                              # [B, K, N]
         tt = t[:, None]
+        if self._dyn is not None:
+            # the chunk's window (clamped to [1, bound] by `run`) and, under
+            # a fault schedule, each world's degraded link floor over
+            # [t, t + window): a degradation window narrows exactly the
+            # supersteps it overlaps. Device tensors only: no host sync
+            Wv = self._dyn.window
+            if ft is not None:
+                Wv = window_floor(ft, t, Wv, W)
+            W = Wv.reshape(-1, 1)                                 # [B|1, 1]
+        self._w_now = W
 
         # 2. windowed firing, each node at its own instant
         fire = (node_next < NEVER) & (node_next - tt < W)
@@ -883,11 +986,12 @@ class TorchEngine(PlanesMixin):
          sent_hash) = res[:10]
         fault_step = fault_purged + res[10] if len(res) > 10 \
             else fault_purged
+        strag = res[11] if len(res) > 11 else None
         return self._finish_superstep(
             st, states, wake, mb_rel, mb_src, mb_payload, deliver, fire,
             now_vec, t, base, overflow_step, bad_dst_step, bad_delay_step,
             short_step, route_drop_step, sent_count, sent_hash, fault_step,
-            restart_done, with_trace, senders)
+            restart_done, with_trace, senders, strag)
 
     def _flat_ids(self, B: int) -> torch.Tensor:
         """The step's node ids for B worlds side by side: in-world ids,
@@ -932,7 +1036,7 @@ class TorchEngine(PlanesMixin):
                           overflow_step, bad_dst_step, bad_delay_step,
                           short_step, route_drop_step, sent_count,
                           sent_hash, fault_step, restart_done, with_trace,
-                          senders=None):
+                          senders=None, strag=None):
         """Assemble the post-superstep state, the event ring included,
         and (optionally) each world's trace row ``(t, fired_count,
         fired_hash, recv_count, recv_hash, sent_count, sent_hash,
@@ -965,7 +1069,8 @@ class TorchEngine(PlanesMixin):
         planes = None
         if self._planes_on:
             planes = self._plane_rows(st, new_st, deliver, mb_rel, t, base,
-                                      senders, route_drop_step, fault_step)
+                                      senders, route_drop_step, fault_step,
+                                      short_step, strag)
         # trace digests (order-independent): from the pre-sort mask
         fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0),
                             dim=1)
@@ -982,10 +1087,12 @@ class TorchEngine(PlanesMixin):
         return new_st, rows, planes
 
     def _plane_rows(self, st, new_st, deliver, mb_rel, t, base, senders,
-                    route_drop_step, fault_step) -> PlaneRows:
+                    route_drop_step, fault_step, short_step=None,
+                    strag=None) -> PlaneRows:
         """This superstep's plane rows (reference ``_finish_superstep``'s
-        ``telem``/``rec``/``integ``), from values it already computed."""
-        telem = integ = rec = None
+        ``telem``/``rec``/``integ``/``spec``), from values it already
+        computed."""
+        telem = integ = rec = spec = None
         if self.telemetry != "off":
             telem = self._telemetry_row(senders, route_drop_step,
                                         fault_step, new_st.wake, mb_rel, t)
@@ -1007,7 +1114,18 @@ class TorchEngine(PlanesMixin):
                  n.time, n.ev_count),
                 n.wake, NEVER, (mb_rel,), st.restart_done, n.restart_done,
                 self._faulted), dim=1)
-        return PlaneRows(telem, integ, rec)
+        if self.speculate != "off":
+            # the causality plane: the violations ARE the short_delay step
+            # count, the committed horizon t + the effective window, and
+            # the earliest offending delivery (NEVER when clean)
+            w = self._w_now
+            horizon = t + (w.reshape(-1) if isinstance(w, torch.Tensor)
+                           else w)
+            spec = torch.stack([
+                short_step.long(), horizon,
+                torch.full_like(t, NEVER) if strag is None else strag],
+                dim=1)
+        return PlaneRows(telem, integ, rec, spec)
 
     # -- run loops ---------------------------------------------------------
 
@@ -1121,22 +1239,45 @@ class TorchEngine(PlanesMixin):
                   for b in range(self.B)]
         return self._end(st), traces
 
-    def run(self, max_steps, state: Optional[EngineState] = None):
+    def run(self, max_steps, state: Optional[EngineState] = None, *,
+            _dyn=None):
         """Execute up to ``max_steps`` supersteps (each world stopping
         early once quiesced); returns the final state and the trace of
         the supersteps that fired — for a fleet, a list of per-world
-        traces, and ``max_steps`` may be one budget per world."""
-        st, traces = self._drive(max_steps, state, True)
+        traces, and ``max_steps`` may be one budget per world. ``_dyn``
+        (a :class:`DynDispatch`) is the chunk's window from the
+        controlled and speculative drivers; it needs a controller or
+        speculation, so a stray caller cannot run off-spec values. A
+        speculating run raises the pinned ``SpeculationViolation`` on its
+        first straggler."""
+        if _dyn is not None:
+            if self.controller is None and self.speculate == "off":
+                raise ValueError(
+                    "_dyn carries dispatch-controller knob values; build "
+                    "the engine with controller= (docs/dispatch.md) or "
+                    "speculate= (docs/speculation.md)")
+            # clamped once a run; the superstep reads the tensor as is
+            _dyn = _dyn._replace(window=torch.clamp(torch.as_tensor(
+                _dyn.window, dtype=torch.int64, device=self.device),
+                1, self.window))
+        self._dyn = _dyn
+        try:
+            st, traces = self._drive(max_steps, state, True)
+        finally:
+            self._dyn = None
         return st, (traces[0] if self.batch is None else traces)
 
     def run_quiet(self, max_steps,
                   state: Optional[EngineState] = None) -> EngineState:
         """Traceless run: no digest work and no plane rows (under
-        ``verify != "off"`` the final state is guarded). Stops at
-        quiescence or after ``max_steps`` supersteps (per world for a
-        fleet, which may take one budget per world)."""
+        ``verify != "off"`` the final state is guarded; speculating, a
+        positive ``short_delay`` delta raises ``SpeculationViolation``).
+        Stops at quiescence or after ``max_steps`` supersteps (per world
+        for a fleet, which may take one budget per world)."""
         final = self._drive(max_steps, state, False)[0]
         self._quiet_guard(final)
+        if self.speculate != "off":
+            self._quiet_spec_guard(state, final)
         return final
 
     # -- the streaming fleet driver -----------------------------------------

@@ -58,6 +58,8 @@ class FusedRingEngine:
     "off" is refused (run :class:`EdgeEngine`, bit-exact to this one)."""
 
     last_run_stats = None
+    #: K4 runs classic W = 1 supersteps: no dynamic window
+    _dyn_ok = False
 
     def __init__(self, scenario: Scenario, link, *, cap: int = 2,
                  device=None, telemetry: str = "off",

@@ -21,7 +21,11 @@ The run-mode planes are ``TorchEngine``'s (``telemetry``, ``verify``,
 ``record``/``record_cap``, ``controller``), as the reference's fused
 engine takes them: the telemetry ``rung`` is the static batch ``A``, the
 flight recorder's sends re-derive each message's flight outside K3 (as
-the SENT digest does), and a controller adapts chunk length only.
+the SENT digest does), and a controller adapts chunk length only: K3
+draws each delay and counts ``short_delay`` against the window inside
+the kernel, so there is no point at which a dynamic window could be
+clamped. For the same reason ``speculate`` is refused, as the reference
+refuses it on its kernel path.
 
 Scope guards (constructor, never silent): a drop-free link that
 :func:`lower_link` can express, ``window > 1`` or ``max_out > 1``, a
@@ -105,16 +109,27 @@ class FusedSparseEngine(TorchEngine):
     reference); ``record_events`` is the event ring's capacity, as in
     :class:`TorchEngine`; ``device`` defaults to the card."""
 
+    #: K3 takes the window at launch: a controller adapts chunk length only
+    _dyn_ok = False
+
     def __init__(self, scenario: Scenario, link: LinkModel, *,
                  seed: int = 0, window=1, record_events: int = 0,
                  max_batch: int = 1 << 16, telemetry: str = "off",
                  controller=None, verify: str = "off",
-                 record: str = "off", record_cap=None, device=None,
-                 **unported) -> None:
+                 record: str = "off", record_cap=None,
+                 speculate: str = "off", device=None) -> None:
         sc = scenario
+        if speculate not in (None, "off"):
+            raise ValueError(
+                f"speculate={speculate!r} threads the dynamic "
+                "per-superstep window; FusedSparseEngine's kernel K3 "
+                "bakes the window into kernel arithmetic (it draws each "
+                "delay and counts short_delay in-kernel) and has no clamp "
+                "point — run speculation on TorchEngine "
+                "(docs/speculation.md)")
         # TorchEngine's holdings, not its K2/K1 stage: _route replaces it
-        self._hold(sc, link, seed, device, record_events, unported,
-                   telemetry, verify, record, record_cap)
+        self._hold(sc, link, seed, device, record_events, telemetry,
+                   verify, record, record_cap)
         if link.can_drop:
             raise ValueError(
                 "FusedSparseEngine requires a drop-free link (message "

@@ -1,6 +1,7 @@
 """The run-mode planes on the torch engines: telemetry, integrity, the
-flight recorder and controlled runs (the engine wiring of ``obs/``,
-``integrity/`` and ``dispatch/``; the reference's ``JaxEngine`` mixins).
+flight recorder, controlled runs and speculation's causality plane (the
+engine wiring of ``obs/``, ``integrity/``, ``dispatch/`` and
+``speculate/``; the reference's ``JaxEngine`` mixins).
 
 Each plane keeps the reference's contract in torch form:
 
@@ -12,7 +13,8 @@ Each plane keeps the reference's contract in torch form:
   the plane-off run's bit for bit;
 - **one host sync per superstep** — plane rows stay on the device, one
   small tensor per plane and superstep (telemetry ``[B, F]``, guard
-  ``[B, 5]``, the flight recorder's ``[B, R]`` columns), and come to the
+  ``[B, 5]``, the flight recorder's ``[B, R]`` columns, the causality
+  plane's ``[B, 3]``), and come to the
   host once per ``run`` call, stacked, where the plane modules decode
   them exactly as the reference decodes its scan outputs.
 """
@@ -28,6 +30,7 @@ from ...core.scenario import NEVER
 from ...integrity.runner import VerifiedRunMixin
 from ...obs.flight import FlightRecorderMixin
 from ...ops.numeric import I32MAX
+from ...speculate.runner import SpeculativeRunMixin
 from .controlled import ControlledRunMixin
 
 __all__ = ["PlaneRows", "PlanesMixin"]
@@ -38,6 +41,8 @@ class PlaneRows(NamedTuple):
     telem: Any = None    # int64[B, 5 or 7] — TelemetryRow's fields
     integ: Any = None    # int32[B, 5] — IntegrityRow's fields
     rec: Any = None      # RecordRow of [B] / [B, R] tensors
+    spec: Any = None     # int64[B, 3] — SpecRow's violations, horizon,
+    #                    # straggler (only while speculating)
 
 
 #: the reference's dtype of each TelemetryRow field
@@ -48,10 +53,11 @@ _TELEM_DTYPES = {"active_senders": np.int32, "rung": np.int32,
 
 
 class PlanesMixin(ControlledRunMixin, VerifiedRunMixin,
-                  FlightRecorderMixin):
+                  FlightRecorderMixin, SpeculativeRunMixin):
     """The planes' construction knobs, per-superstep row builders and
     host-side capture, shared by ``TorchEngine`` (and through it
-    ``FusedSparseEngine``) and ``EdgeEngine``."""
+    ``FusedSparseEngine``) and ``EdgeEngine``; only ``TorchEngine``
+    speculates."""
 
     telemetry = "off"
     #: attachable obs.metrics.MetricsRegistry: every traced run flushes
@@ -108,9 +114,10 @@ class PlanesMixin(ControlledRunMixin, VerifiedRunMixin,
     def _capture_planes(self, planes, valid, t_us, steps_before) -> None:
         """Decode one traced run's plane rows (a list of
         :class:`PlaneRows`, one per loop iteration; ``valid`` and ``t_us``
-        ``[T, B]`` numpy) onto ``last_run_telemetry`` / ``last_run_flight``
-        and raise the guard's first violation — the reference's capture
-        order. Each field's rows cross to the host in one stacked copy."""
+        ``[T, B]`` numpy) onto ``last_run_telemetry`` / ``last_run_flight``,
+        raise the guard's first violation, then decode the causality
+        plane — the reference's capture order. Each field's rows cross to
+        the host in one stacked copy."""
         from ...integrity.checks import IntegrityRow
         from ...obs import telemetry as _tel
         from ...obs.flight import RecordRow
@@ -157,6 +164,11 @@ class PlanesMixin(ControlledRunMixin, VerifiedRunMixin,
             g = host([p.integ for p in planes], (5,), np.int32)
             self._capture_integrity(
                 IntegrityRow(*(g[..., i] for i in range(5))), v, tt)
+        if self.speculate != "off":
+            from ...speculate.plane import SpecRow
+            g = host([p.spec for p in planes], (3,), np.int64)
+            self._capture_spec(SpecRow(g[..., 0].astype(np.int32),
+                                       g[..., 1], g[..., 2]), v, tt)
 
     # -- the quiet driver's guard ----------------------------------------------
 
