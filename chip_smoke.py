@@ -192,13 +192,44 @@ rollback) on ``TorchEngine``:
     ``last_run_speculation`` equal;
 41. where a speculative chunk's time goes (phase 38's engine through the
     traced ``run`` at its widest committed window) beside the
-    conservative engine's, as phase 7.
+    conservative engine's, as phase 7;
+
+then the fault-tolerant sweep service (``timewarp_tpu_torch/sweep/``),
+every bucket a ``TorchEngine(batch=...)`` on the card, each of its ``run``
+calls recorded (phases 38 and 39 also time K2 and K1 on the superstep
+they check):
+
+42. ``bench.py`` ``sweep_hetero`` at 4096 nodes and 1000 steps (its
+    default 2000 took chip_smoke past 1000 s: three token rings, one
+    faulted, and two windowed burst gossips)
+    through ``SweepService`` twice, ``pack_mode="first-fit"`` and
+    ``"predicted"``, each with ``inject="fail:2"`` and ``max_bucket=2``:
+    a retry in each, every streamed record equal to the port's
+    ``solo_result`` on the card, the bench's packing gates, K1 once per
+    fleet superstep of every bucket ``run`` call and K2 as often on
+    adaptive buckets; each bucket's regime, supersteps and launches;
+43. the 8 worlds of ``bench.py`` ``gossip_100k_chaos`` as a pack (the
+    ``--faults`` grammar), one bucket of 8 x 100 000 nodes, ``chunk=64``,
+    ``verify="digest"``: with ``inject="fail:2"``, killed by ``die:3``
+    and resumed, split 4 + 4 by ``oom:2`` — every streamed record equal to
+    the world's solo run on the card and to world b's row of phase 27's
+    fleet run from its initial state; K1 and K2 once per fleet superstep
+    of every call; K2 and K1 bit-equal to their plain versions on the
+    bucket's busiest superstep, and their times there;
+44. ``tests/test_zsweep.py``'s ``PACK`` through the service on the card
+    and on the CPU: equal results and journals, wall-clock fields aside;
+45. what the service costs on phase 43's bucket: its service run's wall
+    against the bare ``run_quiet`` of the same worlds, with one
+    checkpoint write's and one state digest's time (printed, not
+    gated), and the device's idle share over 16 of its chunked
+    supersteps.
 
 Wall-clock overheads are printed and gated at 2x at most (the host is
 shared). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
-over its main paths, phases 4, 21, 27, 34, 38 and 39, K2's over phases 4,
-27, 34, 38 and 39; every time from phases 6, 13 and 19), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+over its main paths, phases 4, 21, 27, 34, 38, 39, 42 and 43, K2's over
+phases 4, 27, 34, 38, 39, 42 and 43; every time from phases 6, 13 and
+19), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.
 Exits non-zero without a CUDA device.
 """
 
@@ -1772,19 +1803,11 @@ def _stage_args(eng, drive):
     return taken["k2"], taken["k1"]
 
 
-def phase_fleet_times(device, eng, state):
-    """K2 and K1 on one chaos-fleet superstep's own arguments, taken where
-    the engine's stage receives them (every world at once): bit-equal to
-    their plain versions, their times and byte bounds (per world, summed
-    over the B worlds)."""
-    import torch
+def _time_stage_args(tag, a2, a1):
+    """K2's and K1's times on captured stage arguments (``_stage_args``),
+    their plain versions' times and their byte bounds (per world, summed
+    over the worlds), printed under ``tag``. Returns ``(r2, r1)``."""
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
-    a2, a1 = _stage_args(eng, lambda: eng.run_quiet(1, state))
-    err2 = _equal("K2 fleet superstep", ci.fire_compact(*a2),
-                  ci.fire_compact_plain(*a2))
-    err1 = _equal("K1 fleet superstep", ci.mailbox_insert(*a1),
-                  ci.mailbox_insert_plain(*a1))
-    torch.cuda.synchronize()
     b2 = fleet_k2_bytes(*a2)
     b1 = fleet_k1_bytes(a1)
     r2 = dict(ms=_time_ms(lambda: ci.fire_compact(*a2)),
@@ -1803,11 +1826,29 @@ def phase_fleet_times(device, eng, state):
             ("mailbox_insert", r1, f"B={B} n={n} K={a1[6].shape[1]} "
              f"P={a1[8].shape[2]} S={a1[3].shape[1]} valid="
              f"{a1[1].sum(dim=1).tolist()}")):
-        say(f"time {name} across the world axis, one chaos-fleet superstep"
-            f" ({shape}): kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
-            f"bound_ms={r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s, "
-            f"per world summed over {B}; {nvidia_smi()}; no single PyTorch "
-            "call computes this function: library_ms null) bit-equal")
+        say(f"time {name}, {tag} ({shape}): kernel_ms={r['ms']} "
+            f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} (bytes "
+            f"{r['bytes']} over 3.35 TB/s, per world summed over {B}; "
+            f"{nvidia_smi()}; no single PyTorch call computes this "
+            "function: library_ms null) bit-equal")
+    return r2, r1
+
+
+def phase_fleet_times(device, eng, state):
+    """K2 and K1 on one chaos-fleet superstep's own arguments, taken where
+    the engine's stage receives them (every world at once): bit-equal to
+    their plain versions, their times and byte bounds (per world, summed
+    over the B worlds)."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    a2, a1 = _stage_args(eng, lambda: eng.run_quiet(1, state))
+    err2 = _equal("K2 fleet superstep", ci.fire_compact(*a2),
+                  ci.fire_compact_plain(*a2))
+    err1 = _equal("K1 fleet superstep", ci.mailbox_insert(*a1),
+                  ci.mailbox_insert_plain(*a1))
+    torch.cuda.synchronize()
+    r2, r1 = _time_stage_args("across the world axis, one chaos-fleet "
+                              "superstep", a2, a1)
     return max(err2, err1), r2, r1
 
 
@@ -2413,7 +2454,7 @@ def phase_spec_kernels(tag, eng, state, dyn, steps):
     ``steps`` supersteps from ``state`` at the window ``dyn`` (a
     speculating engine's ``run``, taken where the stage receives them; a
     straggler raises after the kernels ran, and is ignored), each
-    bit-equal to its plain version."""
+    bit-equal to its plain version; then their times at that shape."""
     import torch
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
     from timewarp_tpu_torch.speculate import SpeculationViolation
@@ -2437,6 +2478,8 @@ def phase_spec_kernels(tag, eng, state, dyn, steps):
         f"{(a2[0] >= 0).sum(dim=(1, 2)).tolist()} K={a1[6].shape[1]} "
         f"valid={a1[1].sum(dim=1).tolist()}; bit-equal to their plain "
         f"versions max_abs_err={max(err2, err1)}")
+    _time_stage_args(f"the busiest superstep of a chunk of the {tag}", a2,
+                     a1)
     return err2, err1
 
 
@@ -2674,6 +2717,426 @@ def phase_spec_times(device, spec, cons, wide, steps=32, warm=16):
         steps, run=lambda n, s: cons.run(n, s)[0])
 
 
+# -- the sweep service: sweep_hetero and the 8-world chaos pack -------------
+
+def hetero_pack(n=4096, steps=2000):
+    """``bench.py`` ``bench_sweep_hetero``'s pack (three token-ring worlds,
+    one faulted and one at the largest pow2 budget <= steps / 2; two
+    windowed burst-gossip worlds) and its chunk."""
+    from timewarp_tpu_torch.sweep import SweepPack
+    half = max(8, 1 << (max(1, steps // 2).bit_length() - 1))
+    ring = {"nodes": n, "n_tokens": max(4, n // 64), "think_us": 2000,
+            "end_us": 1 << 40, "mailbox_cap": 8}
+    gossip = {"nodes": n, "fanout": 4, "burst": True, "end_us": 400_000,
+              "mailbox_cap": 16, "think_us": 700}
+    pack = SweepPack.from_json([
+        {"id": "ring-s0", "scenario": "token-ring", "params": ring,
+         "link": "uniform:1000:5000", "seed": 0, "budget": steps},
+        {"id": "ring-s1", "scenario": "token-ring", "params": ring,
+         "link": "uniform:2000:7000", "seed": 1, "budget": half},
+        {"id": "ring-chaos", "scenario": "token-ring", "params": ring,
+         "link": "uniform:1000:5000", "seed": 2, "budget": steps,
+         "faults": "crash:3:5ms:40ms:reset; partition:0-1|2-3:10ms:30ms"},
+        {"id": "gos-s0", "scenario": "gossip", "params": gossip,
+         "link": "quantize:1000:uniform:3000:9000", "seed": 3,
+         "window": "auto", "budget": steps},
+        {"id": "gos-s1", "scenario": "gossip", "params": gossip,
+         "link": "quantize:1000:uniform:4000:8000", "seed": 4,
+         "window": "auto", "budget": steps},
+    ])
+    return pack, max(64, 1 << (max(1, steps // 8).bit_length() - 1))
+
+
+def chaos_pack(n=CHAOS_N, B=CHAOS_B, budget=1024):
+    """``bench.py`` ``bench_gossip_100k_chaos``'s 8 worlds as pack JSON:
+    world b's seed b and its fault schedule in the ``--faults`` grammar
+    (:func:`chaos_fleet`'s schedules), ``budget`` past the fleet's
+    quiescence."""
+    from timewarp_tpu_torch.sweep import SweepPack
+    half = n // 2
+    params = {"nodes": n, "fanout": 1, "think_us": 1000,
+              "gossip_interval": 1000, "end_us": 300_000, "steady": True,
+              "mailbox_cap": 8}
+    return SweepPack.from_json([{
+        "id": f"chaos-{b}", "scenario": "gossip", "params": params,
+        "link": "quantize:1000:uniform:500:4500", "window": "auto",
+        "seed": b, "budget": budget,
+        "faults": f"crash:{(7 * b + 3) % n}:20ms:{60 + 5 * b}ms:reset; "
+                  f"crash:{(11 * b + half + 5) % n}:30ms:{70 + 5 * b}ms; "
+                  f"partition:0-{half - 1}|{half}-{n - 1}:25ms:"
+                  f"{70 + 2 * b}ms; degrade:all:all:80ms:120ms:"
+                  f"{2.0 + 0.25 * b}"} for b in range(B)])
+
+
+class BucketRecorder:
+    """Wraps every bucket engine a sweep builds (the runner's
+    ``build_bucket_engine``) so that each ``run`` call is recorded: its
+    bucket, budgets and start state, the fleet supersteps it executed,
+    K2's and K1's launches during it and the messages its worlds sent.
+    A context manager: the runner's builder is restored on exit."""
+
+    def __init__(self):
+        self.engines, self.calls = {}, []
+
+    def __enter__(self):
+        from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+        from timewarp_tpu_torch.sweep import runner
+        self._build = build = runner.build_bucket_engine
+
+        def built(bucket, **kw):
+            eng = build(bucket, **kw)
+            run = eng.run
+            self.engines[bucket.bucket_id] = (eng, run)
+
+            def record(max_steps, state=None, **run_kw):
+                before = dict(ci.LAUNCHES)
+                call = dict(bucket=bucket.bucket_id, budgets=max_steps,
+                            state=state, adaptive=eng.adaptive)
+                self.calls.append(call)
+                try:
+                    out = run(max_steps, state, **run_kw)
+                    call["sent"] = sum(int(t.sent_count.sum())
+                                       for t in out[1])
+                    return out
+                finally:
+                    call["iters"] = eng.last_run_stats["fleet_supersteps"]
+                    for k in ("fire_compact", "mailbox_insert"):
+                        call[k] = ci.LAUNCHES[k] - before[k]
+            eng.run = record
+            return eng
+        runner.build_bucket_engine = built
+        return self
+
+    def __exit__(self, *exc):
+        from timewarp_tpu_torch.sweep import runner
+        runner.build_bucket_engine = self._build
+        for eng, _ in self.engines.values():
+            del eng.run
+        return False
+
+    def check(self, what):
+        """K1 once per fleet superstep of every run call, and K2 as often
+        on buckets in the adaptive regime (none on the others)."""
+        _require_all(what, {
+            f"call {i} ({c['bucket']}): K1 = its {c['iters']} supersteps, "
+            f"K2 = {'the same' if c['adaptive'] else '0'}":
+                c["mailbox_insert"] == c["iters"]
+                and c["fire_compact"] == c["iters"] * c["adaptive"]
+            for i, c in enumerate(self.calls)})
+
+    def per_bucket(self):
+        out = {}
+        for c in self.calls:
+            o = out.setdefault(c["bucket"], dict(
+                regime="adaptive" if c["adaptive"] else "eager", calls=0,
+                fleet_supersteps=0, fire_compact=0, mailbox_insert=0))
+            o["calls"] += 1
+            for k in ("fleet_supersteps", "fire_compact", "mailbox_insert"):
+                o[k] += c["iters" if k == "fleet_supersteps" else k]
+        return out
+
+
+def _survival(what, done, want) -> None:
+    """Every streamed record equals its solo twin's (the sweep survival
+    law), and every world streamed."""
+    bad = [rid for rid in want if done.get(rid) != want[rid]]
+    if bad:
+        rid = bad[0]
+        raise AssertionError(
+            f"{what}: sweep survival law violated for {bad}; {rid}:\n"
+            f"  solo:     {want[rid]}\n  streamed: {done.get(rid)}")
+
+
+def _sweep_leg(device, pack, launches, jd=None, **kw):
+    """One service run of ``pack`` in a fresh journal dir under
+    ``build/`` (or the resume of the sweep in ``jd``), every bucket engine
+    recorded and the launch counts reset just before it and added to
+    ``launches`` just after. Returns ``(report, wall, scan, recorder,
+    journal dir)``; the report is None when an injected kill ended the
+    run."""
+    import tempfile
+
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.sweep import SweepJournal, SweepService
+    from timewarp_tpu_torch.sweep.service import SweepKilled
+    if jd is None:
+        jd = tempfile.mkdtemp(prefix="sweep-", dir=_scratch())
+        svc = SweepService(pack, jd, device=device, **kw)
+    else:
+        svc = SweepService.resume(jd, device=device, **kw)
+    with BucketRecorder() as rec:
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        try:
+            report, wall = _timed(svc.run)
+        except SweepKilled:
+            report, wall = None, None
+        finally:
+            for k in launches:
+                launches[k] += ci.LAUNCHES[k]
+    return report, wall, SweepJournal(jd).scan(), rec, jd
+
+
+def _scratch():
+    """``build/`` beside this script (listed in .gitignore): sweep
+    journals and checkpoints."""
+    import os
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "sweeps")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def phase_sweep_hetero(device, n=4096, steps=1000):
+    """``bench.py`` ``sweep_hetero`` on the card at its 4096 nodes and
+    ``steps`` 1000 (the bench's default 2000 took chip_smoke to 1074 s of
+    its 1200 s: its token rings run to their budgets at 15-20 ms a
+    superstep, in both legs and in their solo runs): the pack through
+    the port's ``SweepService`` twice, ``pack_mode="first-fit"`` and
+    ``"predicted"``, each with ``inject="fail:2"``, ``max_bucket=2`` and
+    the bench's chunk. Gates: ``report.ok`` and a retry in each leg;
+    every streamed record equal to the port's ``solo_result`` on the card;
+    the bench's packing gates (``budget_efficiency`` strictly better,
+    ``pad_waste_frac`` no worse, equal engine builds, one ``pack_decision``
+    per bucket and none for first-fit); K1 once per fleet superstep of
+    every bucket engine's ``run`` call and K2 as often on adaptive buckets.
+    Returns the legs' K1/K2 launches."""
+    import shutil
+
+    from timewarp_tpu_torch.sweep import solo_result
+    from timewarp_tpu_torch.sweep.journal import util_rollup
+    pack, chunk = hetero_pack(n, steps)
+    want = {c.run_id: solo_result(c, device=device) for c in pack.configs}
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    legs = {}
+    for mode in ("first-fit", "predicted"):
+        report, wall, scan, rec, jd = _sweep_leg(
+            device, pack, launches, chunk=chunk, inject="fail:2",
+            max_bucket=2, pack_mode=mode)
+        shutil.rmtree(jd, ignore_errors=True)
+        _require_all(f"sweep_hetero {mode}", {
+            "report.ok": report.ok, "retries >= 1": report.retries >= 1})
+        _survival(f"sweep_hetero {mode}", report.done, want)
+        rec.check(f"sweep_hetero {mode}")
+        legs[mode] = dict(
+            report=report, wall=wall, roll=util_rollup(scan.util),
+            builds=sum(int(u.get("engine_builds", 0))
+                       for u in scan.util.values()),
+            decisions=len(scan.pack_decisions), buckets=rec.per_bucket(),
+            delivered=sum(r["delivered"] for r in report.done.values()))
+    ff, pr = legs["first-fit"], legs["predicted"]
+    _require_all("sweep_hetero packing", {
+        "budget_efficiency strictly better":
+            pr["roll"]["budget_efficiency"] > ff["roll"]["budget_efficiency"],
+        "pad_waste_frac no worse":
+            pr["roll"]["pad_waste_frac"] <= ff["roll"]["pad_waste_frac"]
+            + 1e-9,
+        "equal engine builds": pr["builds"] == ff["builds"],
+        "no pack_decision for first-fit": ff["decisions"] == 0,
+        "one pack_decision per bucket":
+            pr["decisions"] == pr["report"].buckets})
+    for mode, leg in legs.items():
+        say(f"sweep_hetero {mode}: n={n} steps={steps} chunk={chunk} "
+            f"report={leg['report'].to_json()} wall_s={leg['wall']} "
+            f"delivered={leg['delivered']} aggregate_delivered_msgs_per_s="
+            f"{leg['delivered'] / leg['wall']} rollup={leg['roll']} "
+            f"engine_builds={leg['builds']} pack_decisions="
+            f"{leg['decisions']} buckets={leg['buckets']}")
+    say(f"sweep_hetero: every streamed record = its solo run on the card "
+        f"(supersteps {[w['supersteps'] for w in want.values()]}); "
+        f"launches={launches}")
+    return launches
+
+
+def phase_chaos_pack(device, chaos_eng, chaos_fin, n=CHAOS_N, B=CHAOS_B,
+                     chunk=64):
+    """The 8 worlds of ``bench.py`` ``gossip_100k_chaos`` as a pack, one
+    bucket (``max_bucket=8``), through the port's ``SweepService`` with
+    ``chunk=64`` and ``verify="digest"``: with ``inject="fail:2"``; killed
+    by ``inject="die:3"`` (``SweepKilled``) and resumed; and split 4 + 4
+    from its checkpoint by ``inject="oom:2"``. Gates: each leg's report
+    (a retry; the kill mid-bucket, no world lost or journaled twice across
+    the resume; the split journaled); every streamed record equal to the
+    world's solo run on the card and to world b's row of the chaos fleet
+    run of phase 27's engine from its initial state (``chain_digest`` of
+    its trace, its counters; that run's final state = phase 27's); K1 and
+    K2 once per fleet superstep of every bucket ``run`` call; then K2 and
+    K1 against their plain versions on the bucket's busiest superstep,
+    and their times there. Returns the launches, the kernels' errors, the
+    pack and the main leg's wall and ``bucket_util`` record."""
+    import shutil
+
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.sweep import solo_result
+    from timewarp_tpu_torch.sweep.spec import (DIGEST_ZERO, chain_digest,
+                                               result_leaves, world_result)
+    pack = chaos_pack(n, B)
+    # world b's row of the chaos fleet run (phase 27's engine), traced from
+    # its initial state to quiescence
+    fin, traces = chaos_eng.run(1 << 20)
+    _states_equal("chaos fleet traced run = phase 27's final state", fin,
+                  chaos_fin, chaos_eng.scenario)
+    host = result_leaves(fin)
+    rows = {c.run_id: world_result(c, fin, b, chain_digest(
+        DIGEST_ZERO, traces[b]), len(traces[b]), host)
+        for b, c in enumerate(pack.configs)}
+    del fin, traces
+    want = {c.run_id: solo_result(c, device=device) for c in pack.configs}
+    _survival("chaos pack: solo runs = phase 27's fleet rows", rows, want)
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    kw = dict(chunk=chunk, max_bucket=B, verify="digest")
+    report, wall, scan, rec, jd = _sweep_leg(device, pack, launches,
+                                             inject="fail:2", **kw)
+    shutil.rmtree(jd, ignore_errors=True)
+    _require_all("chaos pack, transient", {
+        "report.ok": report.ok, "retries >= 1": report.retries >= 1,
+        "one bucket": report.buckets == 1})
+    _survival("chaos pack, transient", report.done, want)
+    rec.check("chaos pack, transient")
+    main = rec
+
+    before = dict(launches)
+    cut, _, mid, _, jd = _sweep_leg(device, pack, launches,
+                                    inject="die:3", **kw)
+    resumed, _, scan_res, rrec, _ = _sweep_leg(device, None, launches,
+                                               jd=jd, **kw)
+    shutil.rmtree(jd, ignore_errors=True)
+    ids = [e["result"]["run_id"] for e in scan_res.events
+           if e.get("ev") == "world_done"]
+    _require_all("chaos pack, kill and resume", {
+        "killed mid-bucket": cut is None and len(mid.done) < B,
+        "resumed report.ok": resumed.ok,
+        "no world lost": sorted(ids) == sorted(want),
+        "no world journaled twice": len(ids) == len(set(ids))})
+    _survival("chaos pack, resumed", resumed.done, want)
+    rrec.check("chaos pack, resumed")
+    kill_launches = {k: launches[k] - before[k] for k in launches}
+
+    report_oom, _, scan_oom, orec, jd = _sweep_leg(device, pack, launches,
+                                                   inject="oom:2", **kw)
+    shutil.rmtree(jd, ignore_errors=True)
+    _require_all("chaos pack, OOM split", {
+        "report.ok": report_oom.ok, "one split": report_oom.splits == 1,
+        "bucket_split journaled": scan_oom.splits == {
+            "b0": ["b0.0", "b0.1"]},
+        "4 + 4": sorted(orec.per_bucket()) == ["b0", "b0.0", "b0.1"]
+        and [orec.engines[k][0].B for k in ("b0.0", "b0.1")]
+        == [B // 2, B - B // 2]})
+    _survival("chaos pack, OOM split", report_oom.done, want)
+    orec.check("chaos pack, OOM split")
+
+    # K2 and K1 on the main leg's busiest superstep: the committed call
+    # that sent the most, re-driven from its start state
+    busy = max((c for c in main.calls), key=lambda c: c["sent"])
+    eng, run = main.engines[busy["bucket"]]
+    a2, a1 = _stage_args(eng, lambda: run(busy["budgets"], busy["state"]))
+    err2 = _equal("K2 chaos pack bucket", ci.fire_compact(*a2),
+                  ci.fire_compact_plain(*a2))
+    err1 = _equal("K1 chaos pack bucket", ci.mailbox_insert(*a1),
+                  ci.mailbox_insert_plain(*a1))
+    torch.cuda.synchronize()
+    _time_stage_args("the chaos pack bucket's busiest superstep", a2, a1)
+    for tag, r, st in (("transient", report, main), ("resumed", resumed,
+                                                     rrec),
+                       ("OOM split", report_oom, orec)):
+        say(f"chaos pack {tag}: report={r.to_json()} buckets="
+            f"{st.per_bucket()}")
+    say(f"chaos pack: B={B} n={n} chunk={chunk} verify=digest wall_s={wall} "
+        f"world_supersteps={[w['supersteps'] for w in want.values()]} "
+        f"delivered={sum(w['delivered'] for w in want.values())} "
+        f"kill_and_resume_launches={kill_launches} launches={launches}; "
+        "every streamed record = its solo run = its row of phase 27's fleet")
+    return launches, (err2, err1), pack, wall, scan.util["b0"]
+
+
+def phase_sweep_card_vs_cpu(device):
+    """``tests/test_zsweep.py``'s ``PACK`` (token rings of 20 nodes, one
+    faulted, and a windowed gossip of 24) through the port's service on
+    the card and on the CPU, ``chunk=16`` and ``inject="fail:2"``: equal
+    ``report.done`` and an equal journal, record for record, wall-clock
+    fields left out."""
+    import shutil
+    import tempfile
+
+    from timewarp_tpu_torch.sweep import SweepJournal, SweepPack, SweepService
+    ring = {"nodes": 20, "n_tokens": 3, "think_us": 2000, "end_us": 70000,
+            "mailbox_cap": 8}
+    gossip = {"nodes": 24, "fanout": 3, "burst": True, "end_us": 90000,
+              "mailbox_cap": 16, "think_us": 700}
+    pack = SweepPack.from_json([
+        {"id": "ring-a", "scenario": "token-ring", "params": ring,
+         "link": "uniform:1000:5000", "seed": 0, "budget": 60},
+        {"id": "ring-b", "scenario": "token-ring", "params": ring,
+         "link": "uniform:2000:7000", "seed": 3, "budget": 90},
+        {"id": "ring-c", "scenario": "token-ring", "params": ring,
+         "link": "uniform:1000:5000", "seed": 7, "budget": 25,
+         "faults": "crash:3:5ms:20ms"},
+        {"id": "gos-a", "scenario": "gossip", "params": gossip,
+         "link": "quantize:1000:uniform:3000:9000", "seed": 2,
+         "window": "auto", "budget": 100}])
+    out = []
+    for dev in (device, "cpu"):
+        jd = tempfile.mkdtemp(prefix="sweep-", dir=_scratch())
+        report = SweepService(pack, jd, chunk=16, inject="fail:2",
+                              device=dev).run()
+        out.append((report, [{k: v for k, v in e.items() if k != "wall_s"}
+                             for e in SweepJournal(jd).records()]))
+        shutil.rmtree(jd, ignore_errors=True)
+    (ra, ja), (rb, jb) = out
+    _require_all("sweep card vs CPU", {
+        "report.ok": ra.ok and rb.ok, "report.done equal": ra.done == rb.done,
+        "journal equal, record for record": ja == jb})
+    say(f"sweep card vs CPU: {len(pack.configs)} worlds, {len(ja)} journal "
+        f"records equal, supersteps "
+        f"{[r['supersteps'] for r in ra.done.values()]}")
+
+
+def phase_sweep_cost(device, pack, wall, util, chunk=64, steps=16,
+                     warm=64):
+    """What the service costs on the chaos pack's bucket: the wall of
+    phase 43's service run with ``inject="fail:2"`` (``wall``; its one
+    retry costs a checkpoint reload and a 50 ms backoff) beside the wall
+    of the bare ``TorchEngine(batch=...).run_quiet`` of the same worlds
+    and budgets, and the bucket's chunk time (``util``, its
+    ``bucket_util`` record: ``wall_s`` is the time inside ``run``); the
+    rest is journal fsyncs, checkpoint writes, digests and the executor
+    hop, so one checkpoint write's and one state digest's time are
+    printed beside them. Printed, not gated. Then the device's idle share
+    under ``torch.profiler`` for ``steps`` of the bucket's chunked
+    supersteps (its traced ``run``)."""
+    import os
+
+    from timewarp_tpu_torch.integrity.digest import host_digests
+    from timewarp_tpu_torch.sweep import plan_buckets
+    from timewarp_tpu_torch.sweep.bucket import build_bucket_engine
+    from timewarp_tpu_torch.utils.checkpoint import save_state
+    bucket = plan_buckets(pack.configs, len(pack.configs))[0]
+    eng = build_bucket_engine(bucket, device=device)
+    fin, bare = _timed(lambda: eng.run_quiet(bucket.budgets))
+    iters = eng.last_run_stats["fleet_supersteps"]
+    # one checkpoint write and one state digest of the bucket's state, as
+    # the runner makes them after every chunk
+    path = os.path.join(_scratch(), "cost.npz")
+    _, ckpt = _timed(lambda: save_state(path, fin, meta={"k": 1},
+                                        scenario=eng.scenario))
+    size = os.path.getsize(path)
+    os.unlink(path)
+    _, digest = _timed(lambda: host_digests(fin, eng.batch,
+                                            eng.scenario.u32_states))
+    say(f"sweep cost: chaos pack bucket B={bucket.B} chunk={chunk} "
+        f"service_wall_s={wall} bucket_chunk_wall_s={util['wall_s']} "
+        f"bare_run_quiet_wall_s={bare} service_over_bare_s={wall - bare} "
+        f"service_over_bare_frac={(wall - bare) / bare} chunks="
+        f"{util['chunks']} fleet_supersteps={iters} "
+        f"checkpoint_write_s={ckpt} checkpoint_bytes={size} "
+        f"state_digest_s={digest}")
+    phase_where_time_goes(f"the chaos pack bucket's chunked supersteps "
+                          f"(TorchEngine B={bucket.B}, traced run)", eng,
+                          warm, steps, run=lambda k, s: eng.run(k, s)[0])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2776,6 +3239,16 @@ def main() -> int:
     err_k1 = max(err_k1, spec_errs[1], fleet_errs[1])
     timed(40, phase_spec_card_vs_cpu, device)
     timed(41, phase_spec_times, device, spec_eng, cons_eng, wide)
+
+    hetero_launches = timed(42, phase_sweep_hetero, device)
+    pack_launches, pack_errs, pack, pack_wall, pack_util = timed(
+        43, phase_chaos_pack, device, chaos_eng, chaos_fin)
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += hetero_launches[k] + pack_launches[k]
+    err_k2 = max(err_k2, pack_errs[0])
+    err_k1 = max(err_k1, pack_errs[1])
+    timed(44, phase_sweep_card_vs_cpu, device)
+    timed(45, phase_sweep_cost, device, pack, pack_wall, pack_util)
 
     kernels = []
     for name, src, repl, err, r in (

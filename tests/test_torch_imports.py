@@ -3,10 +3,15 @@ of it) in a fresh interpreter leaves ``jax`` and the reference package
 ``timewarp_tpu`` out of ``sys.modules``; no source file of the port, nor
 ``chip_smoke.py``, imports either (the run-mode planes' packages ``obs``,
 ``integrity``, ``dispatch``, ``speculate`` and ``controlled.py`` also
-imported first and alone); and every engine (``TorchEngine``,
-``FusedSparseEngine``, ``EdgeEngine``, ``FusedRingEngine``) runs on the
-card by default, raising on a machine without CUDA unless the caller
-passes ``device="cpu"``.
+imported first and alone, and so are the sweep service's packages
+``sweep``, ``pack``, ``manage`` and ``interp.aio``); every engine
+(``TorchEngine``, ``FusedSparseEngine``, ``EdgeEngine``,
+``FusedRingEngine``) and the sweep's entry points (``SweepService``,
+``build_bucket_engine``, ``solo_result``) run on the card by default,
+raising on a machine without CUDA unless the caller passes
+``device="cpu"``; and what the port does not have yet is refused loudly:
+``lint="warn"``/``"error"``, ``SweepService(host=...)`` and
+``fit_from_ledger``.
 
 Tolerance: exact (membership and source checks).
 """
@@ -52,7 +57,13 @@ def test_import_leaves_jax_and_reference_out():
               "dispatch.trace", "dispatch.controller",
               "interp.torch_engine.controlled",
               "interp.torch_engine.planes", "speculate", "speculate.plane",
-              "speculate.policy", "speculate.equiv", "speculate.runner"):
+              "speculate.policy", "speculate.equiv", "speculate.runner",
+              "core.errors", "core.time", "core.effects", "interp.common",
+              "interp.ref.des", "interp.aio", "interp.aio.timed",
+              "manage", "manage.sync", "manage.jobs", "pack",
+              "pack.allocate", "pack.predict", "obs.perfetto", "sweep",
+              "sweep.spec", "sweep.bucket", "sweep.journal",
+              "sweep.runner", "sweep.service"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -68,7 +79,8 @@ def test_import_leaves_jax_and_reference_out():
 
 
 @pytest.mark.parametrize("mod", ["obs", "integrity", "dispatch", "speculate",
-                                 "interp.torch_engine.controlled"])
+                                 "interp.torch_engine.controlled", "sweep",
+                                 "pack", "manage", "interp.aio"])
 def test_plane_packages_import_alone(mod):
     """Each run-mode plane's package, imported first and alone in a fresh
     interpreter (the plane modules copied from the reference keep their
@@ -134,3 +146,52 @@ def test_engine_raises_without_cuda_unless_cpu_requested():
         with pytest.raises(RuntimeError, match="CUDA"):
             cls(ring, FixedDelay(500), device="cuda")
         assert cls(ring, FixedDelay(500), device="cpu").device.type == "cpu"
+
+
+def _sweep_pack():
+    from timewarp_tpu_torch.sweep import SweepPack
+    return SweepPack.from_json([
+        {"id": "g", "scenario": "gossip", "params": {"nodes": 16},
+         "link": "fixed:1000", "budget": 8}])
+
+
+def test_sweep_raises_without_cuda_unless_cpu_requested(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is valid")
+    from timewarp_tpu_torch.sweep import (SweepService, build_bucket_engine,
+                                          plan_buckets, solo_result)
+    pack = _sweep_pack()
+    cfg, jd = pack.configs[0], str(tmp_path / "j")
+    bucket = plan_buckets(pack.configs)[0]
+    for call in (lambda **kw: SweepService(pack, jd, **kw),
+                 lambda **kw: build_bucket_engine(bucket, **kw),
+                 lambda **kw: solo_result(cfg, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(device="cuda")
+    assert SweepService(pack, jd, device="cpu").device.type == "cpu"
+    assert build_bucket_engine(bucket, device="cpu").device.type == "cpu"
+    assert solo_result(cfg, device="cpu")["run_id"] == "g"
+
+
+def test_sweep_refuses_what_the_port_lacks(tmp_path):
+    from timewarp_tpu_torch.pack.predict import fit_from_ledger
+    from timewarp_tpu_torch.sweep import (SweepService, build_bucket_engine,
+                                          plan_buckets, solo_result)
+    pack = _sweep_pack()
+    jd = str(tmp_path / "j")
+    bucket = plan_buckets(pack.configs)[0]
+    for lint in ("warn", "error"):
+        for call in (lambda: SweepService(pack, jd, lint=lint, device="cpu"),
+                     lambda: build_bucket_engine(bucket, lint=lint,
+                                                 device="cpu"),
+                     lambda: solo_result(pack.configs[0], lint=lint,
+                                         device="cpu")):
+            with pytest.raises(NotImplementedError, match="item 10"):
+                call()
+    with pytest.raises(NotImplementedError, match="serve slice"):
+        SweepService(pack, jd, host="h0", device="cpu")
+    with pytest.raises(NotImplementedError, match="obs/ledger.py"):
+        fit_from_ledger(str(tmp_path))
+    assert not (tmp_path / "j").exists()

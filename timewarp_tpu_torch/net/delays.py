@@ -78,8 +78,12 @@ class FixedDelay(LinkModel):
     needs_key = False
 
     def sample(self, src, dst, t, key):
-        d = torch.full(dst.shape, self.delay, dtype=torch.int64,
-                       device=dst.device)
+        if isinstance(self.delay, torch.Tensor):
+            # a fleet's per-world delays, ``[B, 1]`` (batched.py)
+            d = self.delay.to(torch.int64).expand(dst.shape).clone()
+        else:
+            d = torch.full(dst.shape, self.delay, dtype=torch.int64,
+                           device=dst.device)
         return d, _no_drop(dst)
 
     @property

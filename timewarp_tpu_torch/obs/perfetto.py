@@ -1,0 +1,182 @@
+"""Chrome-trace / Perfetto exporter
+(the port's copy of ``timewarp_tpu/obs/perfetto.py``).
+
+Emits the Trace Event JSON format (``{"traceEvents": [...]}``) that
+https://ui.perfetto.dev and ``chrome://tracing`` open directly. Two
+process tracks:
+
+- **pid 1, "host"** — wall-clock spans and instants: sweep bucket
+  attempts, retries and their backoff waits, OOM splits, checkpoint
+  writes, journal fsyncs, jit compiles. Timestamps are µs since the
+  builder was created.
+- **pid 2, "virtual time"** — per-superstep counter tracks on the
+  *emulated* clock: fired/delivered counts from the trace rows and
+  the telemetry signals (active senders, selected rung, mailbox
+  fill/peak, quiescence slack). Perfetto renders counters as stepped
+  graphs, so superstep density and rung shifts are visible at a
+  glance. Batched runs get one counter series per world.
+
+The builder is append-only and host-side: it never touches the jitted
+path, so it exists only when telemetry is on (the zero-overhead law
+concerns the device program; this file concerns what you do with the
+counters once they are off the chip).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from contextlib import contextmanager
+from typing import Optional
+
+__all__ = ["TraceBuilder"]
+
+#: the host wall-clock track / the virtual-time counter track
+PID_HOST = 1
+PID_VIRTUAL = 2
+
+
+class TraceBuilder:
+    def __init__(self, process: str = "timewarp-tpu") -> None:
+        self._t0 = time.perf_counter()
+        self.events: list = [
+            {"name": "process_name", "ph": "M", "pid": PID_HOST,
+             "args": {"name": f"{process} (host wall clock)"}},
+            {"name": "process_name", "ph": "M", "pid": PID_VIRTUAL,
+             "args": {"name": f"{process} (virtual time)"}},
+        ]
+
+    def now_us(self) -> float:
+        """µs since the builder was created (the host track's clock)."""
+        return (time.perf_counter() - self._t0) * 1e6
+
+    # -- host wall-clock track ---------------------------------------------
+
+    def complete(self, name: str, dur_us: float,
+                 ts_us: Optional[float] = None, cat: str = "host",
+                 args: Optional[dict] = None, tid: int = 1) -> None:
+        """A complete ('X') span on the host track. ``ts_us`` defaults
+        to ending *now* (span measured by the caller)."""
+        if ts_us is None:
+            ts_us = self.now_us() - dur_us
+        ev = {"name": name, "cat": cat, "ph": "X",
+              "ts": round(ts_us, 3), "dur": round(dur_us, 3),
+              "pid": PID_HOST, "tid": tid}
+        if args:
+            ev["args"] = args
+        self.events.append(ev)
+
+    def instant(self, name: str, cat: str = "host",
+                args: Optional[dict] = None, tid: int = 1) -> None:
+        ev = {"name": name, "cat": cat, "ph": "i",
+              "ts": round(self.now_us(), 3), "s": "p",
+              "pid": PID_HOST, "tid": tid}
+        if args:
+            ev["args"] = args
+        self.events.append(ev)
+
+    @contextmanager
+    def span(self, name: str, cat: str = "host",
+             args: Optional[dict] = None, tid: int = 1):
+        t0 = time.perf_counter()
+        ts = self.now_us()
+        try:
+            yield
+        finally:
+            self.complete(name, (time.perf_counter() - t0) * 1e6,
+                          ts_us=ts, cat=cat, args=args, tid=tid)
+
+    # -- virtual-time counter track ----------------------------------------
+
+    def counter(self, name: str, ts_us, values: dict) -> None:
+        """One counter ('C') sample on the virtual-time track."""
+        self.events.append({
+            "name": name, "ph": "C", "ts": float(ts_us),
+            "pid": PID_VIRTUAL,
+            "args": {k: float(v) for k, v in values.items()}})
+
+    def flow_arrow(self, name: str, src_tid: int, src_ts_us,
+                   dst_tid: int, dst_ts_us, flow_id: int,
+                   cat: str = "flow",
+                   args: Optional[dict] = None) -> None:
+        """One causal arrow on the virtual-time timeline: a flow
+        ('s' -> 'f') pair between two node tracks, each end anchored
+        to a thin slice (Perfetto binds flow events to enclosing
+        slices, so the anchors are part of the arrow). The flight
+        recorder's causal queries (obs/query.py) emit send->deliver
+        arrows this way — message journeys become visible lines
+        across the node tracks."""
+        src_ts, dst_ts = float(src_ts_us), float(dst_ts_us)
+        for tid, ts in ((src_tid, src_ts), (dst_tid, dst_ts)):
+            ev = {"name": name, "cat": cat, "ph": "X",
+                  "ts": round(ts, 3), "dur": 1.0,
+                  "pid": PID_VIRTUAL, "tid": int(tid)}
+            if args:
+                ev["args"] = args
+            self.events.append(ev)
+        self.events.append({"name": name, "cat": cat, "ph": "s",
+                            "id": int(flow_id),
+                            "ts": round(src_ts + 0.5, 3),
+                            "pid": PID_VIRTUAL, "tid": int(src_tid)})
+        self.events.append({"name": name, "cat": cat, "ph": "f",
+                            "bp": "e", "id": int(flow_id),
+                            "ts": round(dst_ts + 0.5, 3),
+                            "pid": PID_VIRTUAL, "tid": int(dst_tid)})
+
+    def add_superstep_track(self, frames, trace=None,
+                            world: Optional[int] = None) -> None:
+        """Counter series over one run's supersteps: the telemetry
+        frames (obs/telemetry.py), plus fired/delivered densities when
+        the SuperstepTrace is given. ``world`` suffixes the series
+        names so fleet worlds get separate tracks. Zero-superstep
+        inputs (an empty run, a world that never fired) add nothing —
+        the empty-trace guard in :meth:`save` keeps the file valid."""
+        if frames is None or (len(frames) == 0
+                              and (trace is None or len(trace) == 0)):
+            return
+        sfx = "" if world is None else f" [w{world}]"
+        for i in range(len(frames)):
+            ts = int(frames.t_us[i])
+            vals = {k: int(v[i]) for k, v in frames.data.items()
+                    if k != "qslack_us"}
+            if "qslack_us" in frames.data:
+                vals["qslack_us"] = max(int(frames.data["qslack_us"][i]),
+                                        0)
+            self.counter(f"superstep{sfx}", ts, vals)
+        if trace is not None:
+            for i in range(len(trace)):
+                self.counter(f"events{sfx}", int(trace.times[i]), {
+                    "fired": int(trace.fired_count[i]),
+                    "delivered": int(trace.recv_count[i]),
+                    "sent": int(trace.sent_count[i])})
+
+    def compile_marks(self, label: str, count: int) -> None:
+        """Instant marks for jit compiles observed over a run (the
+        ``_cache_size`` delta the engines' ``last_run_stats`` carries
+        — compile *count*, not duration: XLA does not expose per-entry
+        compile walls portably)."""
+        for _ in range(count):
+            self.instant(f"jit compile: {label}", cat="compile")
+
+    # -- output ------------------------------------------------------------
+
+    def to_json(self) -> dict:
+        events = self.events
+        if not any(e.get("ph") != "M" for e in events):
+            # empty-run guard: a trace holding ONLY metadata records
+            # renders as a blank (or rejected) file in Perfetto —
+            # an explicit marker keeps the artifact valid and says
+            # WHY it is empty instead of looking corrupt
+            events = events + [{
+                "name": "empty run (no supersteps recorded)",
+                "cat": "host", "ph": "i", "ts": 0.0, "s": "p",
+                "pid": PID_HOST, "tid": 1}]
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def save(self, path: str) -> str:
+        """Write the trace; the file opens directly in Perfetto (the
+        empty-run guard in :meth:`to_json` keeps even a zero-superstep
+        run's file valid)."""
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f)
+        return path
