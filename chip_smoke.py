@@ -199,9 +199,10 @@ every bucket a ``TorchEngine(batch=...)`` on the card, each of its ``run``
 calls recorded (phases 38 and 39 also time K2 and K1 on the superstep
 they check):
 
-42. ``bench.py`` ``sweep_hetero`` at 4096 nodes and 1000 steps (its
-    default 2000 took chip_smoke past 1000 s: three token rings, one
-    faulted, and two windowed burst gossips)
+42. ``bench.py`` ``sweep_hetero`` at 4096 nodes and 500 steps (its
+    default 2000 took chip_smoke past 1000 s, and so did 1000 with phases
+    46-48 on a slow host: three token rings, one faulted, and two
+    windowed burst gossips)
     through ``SweepService`` twice, ``pack_mode="first-fit"`` and
     ``"predicted"``, each with ``inject="fail:2"`` and ``max_bucket=2``:
     a retry in each, every streamed record equal to the port's
@@ -222,14 +223,41 @@ they check):
     against the bare ``run_quiet`` of the same worlds, with one
     checkpoint write's and one state digest's time (printed, not
     gated), and the device's idle share over 16 of its chunked
-    supersteps.
+    supersteps;
+
+then the adversarial chaos search (``timewarp_tpu_torch/search/``) and the
+run ledger, every fleet a ``TorchEngine(batch=...)`` on the card whose
+``run`` calls are recorded (K2 = K1 = the call's fleet supersteps in
+each):
+
+46. ``bench.py`` ``search_gossip`` at its own size (64 nodes, budget 300,
+    ``eventually-delivered``, population 8, 6 generations, seed 2,
+    ``fork_k`` 2, a journal): the bench's gates (found, ``saving_frac >
+    0``, the minimized repro re-failing solo on the card), the result
+    equal to the reference's (``partition:0-3|4-63:1000:1001``, 28
+    evaluations, every fork field), and the same campaign on the CPU:
+    equal history, ``repro.json`` bytes and journal; world evaluations
+    per second as the bench counts them;
+47. the fork law at 100 000 nodes: ``chaos-0`` (the chaos pack's world 0)
+    uninterrupted, and snapshotted at half its supersteps and forked into
+    4 worlds (an empty suffix, a crash, a degrade, a partition): world 0 =
+    the uninterrupted run, worlds 1-3 = their from-scratch solo runs,
+    ``0 < saving_frac < 1``; K2 and K1 bit-equal to their plain versions
+    on the fork fleet's busiest superstep, and their times there;
+48. a campaign at 100 000 nodes: ``chaos-0`` without faults under
+    ``convergence:LIMIT`` (its own quiescence instant), population 8, 3
+    generations, ``fork_k`` 2, ``minimize_trials`` 4; a found repro
+    re-fails solo on the card; then phase 46's and 48's journals and
+    phase 42's predicted leg in the port's ``RunLedger``:
+    ``fit_from_ledger`` = ``fit_rows``, the ``SweepWatch`` snapshot =
+    ``status_fields``.
 
 Wall-clock overheads are printed and gated at 2x at most (the host is
 shared). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
-over its main paths, phases 4, 21, 27, 34, 38, 39, 42 and 43, K2's over
-phases 4, 27, 34, 38, 39, 42 and 43; every time from phases 6, 13 and
-19), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
-{...}}``.
+over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43 and 46-48,
+K2's over phases 4, 27, 34, 38, 39, 42, 43 and 46-48; every time from
+phases 6, 13 and 19), the ``nvidia-smi`` line, and last ``{"ok": true,
+"device": {...}}``.
 Exits non-zero without a CUDA device.
 """
 
@@ -2769,29 +2797,37 @@ def chaos_pack(n=CHAOS_N, B=CHAOS_B, budget=1024):
 
 
 class BucketRecorder:
-    """Wraps every bucket engine a sweep builds (the runner's
-    ``build_bucket_engine``) so that each ``run`` call is recorded: its
-    bucket, budgets and start state, the fleet supersteps it executed,
-    K2's and K1's launches during it and the messages its worlds sent.
-    A context manager: the runner's builder is restored on exit."""
+    """Wraps every bucket engine a sweep or a search builds (the
+    ``build_bucket_engine`` of each module in ``targets``: the sweep
+    runner's by default) so that each ``run`` call is recorded: its
+    bucket, engine, budgets and start state, the fleet supersteps it
+    executed, K2's and K1's launches during it and the messages its worlds
+    sent. A context manager: the builders are restored on exit."""
 
-    def __init__(self):
-        self.engines, self.calls = {}, []
+    def __init__(self, targets=None):
+        self.engines, self.calls, self.built = {}, [], []
+        self.targets = targets
 
     def __enter__(self):
+        import importlib
+
         from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
-        from timewarp_tpu_torch.sweep import runner
-        self._build = build = runner.build_bucket_engine
+        from timewarp_tpu_torch.sweep.bucket import build_bucket_engine
+        self._mods = [importlib.import_module(m) for m in (
+            self.targets or ["timewarp_tpu_torch.sweep.runner"])]
+        self._saved = [m.build_bucket_engine for m in self._mods]
 
         def built(bucket, **kw):
-            eng = build(bucket, **kw)
+            eng = build_bucket_engine(bucket, **kw)
             run = eng.run
             self.engines[bucket.bucket_id] = (eng, run)
+            self.built.append(eng)
 
             def record(max_steps, state=None, **run_kw):
                 before = dict(ci.LAUNCHES)
                 call = dict(bucket=bucket.bucket_id, budgets=max_steps,
-                            state=state, adaptive=eng.adaptive)
+                            state=state, adaptive=eng.adaptive, eng=eng,
+                            run=run)
                 self.calls.append(call)
                 try:
                     out = run(max_steps, state, **run_kw)
@@ -2804,13 +2840,14 @@ class BucketRecorder:
                         call[k] = ci.LAUNCHES[k] - before[k]
             eng.run = record
             return eng
-        runner.build_bucket_engine = built
+        for m in self._mods:
+            m.build_bucket_engine = built
         return self
 
     def __exit__(self, *exc):
-        from timewarp_tpu_torch.sweep import runner
-        runner.build_bucket_engine = self._build
-        for eng, _ in self.engines.values():
+        for m, fn in zip(self._mods, self._saved):
+            m.build_bucket_engine = fn
+        for eng in self.built:
             del eng.run
         return False
 
@@ -2888,10 +2925,11 @@ def _scratch():
     return d
 
 
-def phase_sweep_hetero(device, n=4096, steps=1000):
+def phase_sweep_hetero(device, n=4096, steps=500):
     """``bench.py`` ``sweep_hetero`` on the card at its 4096 nodes and
-    ``steps`` 1000 (the bench's default 2000 took chip_smoke to 1074 s of
-    its 1200 s: its token rings run to their budgets at 15-20 ms a
+    ``steps`` 500 (the bench's default 2000 took chip_smoke to 1074 s of
+    its 1200 s, and 1000 took it to 1084.6 s once phases 46-48 ran on a
+    slow host: its token rings run to their budgets at 15-20 ms a
     superstep, in both legs and in their solo runs): the pack through
     the port's ``SweepService`` twice, ``pack_mode="first-fit"`` and
     ``"predicted"``, each with ``inject="fail:2"``, ``max_bucket=2`` and
@@ -2901,7 +2939,8 @@ def phase_sweep_hetero(device, n=4096, steps=1000):
     ``pad_waste_frac`` no worse, equal engine builds, one ``pack_decision``
     per bucket and none for first-fit); K1 once per fleet superstep of
     every bucket engine's ``run`` call and K2 as often on adaptive buckets.
-    Returns the legs' K1/K2 launches."""
+    Returns the legs' K1/K2 launches and ``(journal dir, pack)`` of the
+    predicted leg, whose journal is kept for phase 48's ledger."""
     import shutil
 
     from timewarp_tpu_torch.sweep import solo_result
@@ -2914,7 +2953,10 @@ def phase_sweep_hetero(device, n=4096, steps=1000):
         report, wall, scan, rec, jd = _sweep_leg(
             device, pack, launches, chunk=chunk, inject="fail:2",
             max_bucket=2, pack_mode=mode)
-        shutil.rmtree(jd, ignore_errors=True)
+        if mode == "predicted":
+            keep = (jd, pack)
+        else:
+            shutil.rmtree(jd, ignore_errors=True)
         _require_all(f"sweep_hetero {mode}", {
             "report.ok": report.ok, "retries >= 1": report.retries >= 1})
         _survival(f"sweep_hetero {mode}", report.done, want)
@@ -2946,7 +2988,7 @@ def phase_sweep_hetero(device, n=4096, steps=1000):
     say(f"sweep_hetero: every streamed record = its solo run on the card "
         f"(supersteps {[w['supersteps'] for w in want.values()]}); "
         f"launches={launches}")
-    return launches
+    return launches, keep
 
 
 def phase_chaos_pack(device, chaos_eng, chaos_fin, n=CHAOS_N, B=CHAOS_B,
@@ -3137,6 +3179,345 @@ def phase_sweep_cost(device, pack, wall, util, chunk=64, steps=16,
                           warm, steps, run=lambda k, s: eng.run(k, s)[0])
 
 
+# -- adversarial chaos search on the torch engines ---------------------------
+
+#: ``bench.py`` ``bench_search_gossip``'s campaign through the reference on
+#: the CPU (``CampaignResult.to_json()`` without ``repro_path``); the tests'
+#: ``tests/test_torch_search.py`` constants, re-derived there from the
+#: reference by the ``slow`` case
+SEARCH_REF = {
+    "found": True, "counterexample": "partition:0-3|4-63:0:10248",
+    "minimized": "partition:0-3|4-63:1000:1001", "generations": 2,
+    "evaluations": 28,
+    "fork": {"forks": 1, "fork_worlds": 2, "prefix_supersteps": 23,
+             "suffix_supersteps": 47, "full_supersteps": 93,
+             "confirmations": 0, "saving_frac": 0.2473}}
+#: the chaos worlds' longest link delay: ``quantize:1000`` over
+#: ``uniform:500:4500`` rounds up to at most 5000 µs
+CHAOS_MAX_DELAY_US = 5_000
+#: phase 48's minimization trials: each is a from-scratch run of one
+#: 100 000-node world (about 300 supersteps), together most of the phase;
+#: 4, not 16, keeps chip_smoke inside its 1200 s on the slowest host seen
+CHAOS_MINIMIZE_TRIALS = 4
+#: the modules whose ``build_bucket_engine`` the search's fleets come from
+SEARCH_BUILDERS = ["timewarp_tpu_torch.sweep.bucket",
+                   "timewarp_tpu_torch.search.fork"]
+
+
+def search_base(n=64, steps=300):
+    """``bench.py`` ``bench_search_gossip``'s base config: burst gossip,
+    fanout 2, ``end_us`` 120 000, ``uniform:1000:5000``, ``window="auto"``."""
+    from timewarp_tpu_torch.sweep.spec import RunConfig
+    params = {"nodes": n, "fanout": 2, "end_us": 120_000, "burst": True,
+              "think_us": 5000, "mailbox_cap": 16}
+    return RunConfig(run_id="search-base", family="gossip",
+                     params=tuple(sorted(params.items())),
+                     link="uniform:1000:5000", seed=0, window="auto",
+                     budget=steps)
+
+
+def _journal_records(jd):
+    from timewarp_tpu_torch.sweep import SweepJournal
+    return [{k: v for k, v in e.items() if k != "ts"}
+            for e in SweepJournal(jd).records()]
+
+
+def _search_leg(device, launches, jd, **kw):
+    """One ``ChaosSearch`` on ``device`` journaling into ``jd``, every
+    fleet it builds recorded and the launch counts reset just before it
+    and added to ``launches`` just after. Returns ``(result, wall,
+    recorder)``."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.search import ChaosSearch
+    search = ChaosSearch(journal_dir=jd, device=device, **kw)
+    with BucketRecorder(SEARCH_BUILDERS) as rec:
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        try:
+            result, wall = _timed(search.run)
+        finally:
+            for k in launches:
+                launches[k] += ci.LAUNCHES[k]
+    return result, wall, rec
+
+
+def _rejudge(what, device, repro):
+    """The repro re-fails its objective solo on ``device`` (its one fleet
+    recorded: K2 = K1 = its supersteps)."""
+    from timewarp_tpu_torch.search.objectives import rejudge_repro
+    with BucketRecorder(SEARCH_BUILDERS) as rec:
+        obj, violated, score = rejudge_repro(repro, device=device)
+    _require_all(what, {f"the repro re-fails {obj.name} solo": violated})
+    _once_per_superstep(what, rec.calls)
+    return obj
+
+
+def phase_search_gossip(device):
+    """``bench.py`` ``search_gossip`` on the card at the bench's size (64
+    nodes, budget 300, ``eventually-delivered``, population 8, 6
+    generations, seed 2, ``fork_k`` 2, the default ``minimize_trials``, a
+    journal dir): the bench's three gates (found, ``saving_frac > 0``, the
+    minimized repro re-failing solo on the card); the result equal to the
+    reference's (:data:`SEARCH_REF`); K2 = K1 = its fleet supersteps in
+    every bucket ``run`` call; then the same campaign through the port on
+    the CPU: equal generation history, ``repro.json`` bytes and journal
+    records (without ``ts``). Returns the launches and the card's journal
+    dir (kept for phase 48's ledger)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    kw = dict(base=search_base(), objective="eventually-delivered",
+              population=8, generations=6, seed=2, fork_k=2)
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    jd = tempfile.mkdtemp(prefix="search-", dir=_scratch())
+    os.rmdir(jd)
+    res, wall, rec = _search_leg(device, launches, jd, **kw)
+    got = {k: v for k, v in res.to_json().items() if k != "repro_path"}
+    _require_all("search_gossip", {
+        "found": res.found, "saving_frac > 0": res.fork["saving_frac"] > 0,
+        f"result {got} = the reference's": got == SEARCH_REF})
+    _once_per_superstep("search_gossip", rec.calls)
+    _rejudge("search_gossip", device, res.repro)
+    cpu_jd = tempfile.mkdtemp(prefix="search-cpu-", dir=_scratch())
+    os.rmdir(cpu_jd)
+    cpu, cpu_wall, _ = _search_leg(torch.device("cpu"),
+                                   {"fire_compact": 0, "mailbox_insert": 0},
+                                   cpu_jd, **kw)
+    repro = [open(os.path.join(d, "repro.json"), "rb").read()
+             for d in (jd, cpu_jd)]
+    _require_all("search_gossip card vs CPU", {
+        "generation history equal": res.generations == cpu.generations,
+        "repro.json bytes equal": repro[0] == repro[1],
+        "journal records equal":
+            _journal_records(jd) == _journal_records(cpu_jd)})
+    shutil.rmtree(cpu_jd, ignore_errors=True)
+    evals = (res.evaluations + res.fork["fork_worlds"]
+             + res.fork["confirmations"] + 1)
+    say(f"search_gossip: n=64 budget=300 result={got} wall_s={wall} "
+        f"world_evaluations={evals} world_evaluations_per_s={evals / wall} "
+        f"(bench.py's count) cpu_wall_s={cpu_wall} run_calls="
+        f"{len(rec.calls)} fleet_supersteps="
+        f"{sum(c['iters'] for c in rec.calls)} launches={launches}; = the "
+        "reference's result, = the CPU campaign (history, repro.json, "
+        "journal)")
+    return launches, jd
+
+
+def _fork_world(cfg, fin, b, pre, suffix, host):
+    """World ``b`` of a fork fleet's final state as the sweep's result
+    record: the prefix trace's digest chain continued through the world's
+    suffix trace."""
+    from timewarp_tpu_torch.sweep.spec import (DIGEST_ZERO, chain_digest,
+                                               world_result)
+    return world_result(cfg, fin, b, chain_digest(chain_digest(
+        DIGEST_ZERO, pre), suffix), len(pre) + len(suffix), host)
+
+
+def phase_fork_law(device, n=CHAOS_N):
+    """The fork law at full width: the chaos fleet's world 0
+    (``chaos_pack``'s ``chaos-0``: 100 000 nodes, steady gossip, its own
+    fault schedule, budget 1024). World 0 run uninterrupted as a one-world
+    bucket with the search domain's ``fault_pad``; a second one-world
+    bucket for half of its executed supersteps, ``save_state``d; a K=4
+    fork fleet (``fork_bucket``, a wider pad) whose world 0's suffix is
+    empty and whose worlds 1-3 add a crash, a degrade and a partition
+    opening past ``t_fork + window``, admitted by ``load_fork_state`` and
+    run by ``run_fork``. The crash opens one link delay later than the
+    others (:data:`CHAOS_MAX_DELAY_US` past ``t_fork + window``): a crash
+    drops the messages whose *deliver* time lands in its window when they
+    are routed, so one opening sooner would also drop messages the
+    snapshot already holds, and its world would differ from the
+    from-scratch run — in the reference as in the port. Gates: world 0's
+    digest chain and its ``time``, ``steps``, ``delivered``,
+    ``overflow``, ``fault_dropped`` and ``short_delay`` equal the
+    uninterrupted run's; worlds 1-3 each equal
+    a from-scratch solo run of its whole schedule on the card
+    (``solo_result``); ``0 < saving_frac < 1``; K2 = K1 = its fleet
+    supersteps in every bucket ``run`` call. Then K2 and K1 on the fork
+    fleet's busiest superstep, bit-equal to their plain versions, and
+    their times there. Returns the launches, the kernels' errors and
+    the times."""
+    import os
+
+    import torch
+    from timewarp_tpu_torch.faults import (FaultSchedule, LinkWindow,
+                                           NodeCrash, Partition)
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.search import (fork_bucket, load_fork_state,
+                                           run_fork)
+    from timewarp_tpu_torch.search.domain import candidate_config, domain_for
+    from timewarp_tpu_torch.sweep import bucket as sb
+    from timewarp_tpu_torch.sweep import solo_result
+    from timewarp_tpu_torch.sweep.spec import (DIGEST_ZERO, chain_digest,
+                                               resolve_window, result_leaves,
+                                               world_result)
+    from timewarp_tpu_torch.utils.checkpoint import save_state
+    cfg = chaos_pack(n, 1).configs[0]
+    dom, W = domain_for(cfg), resolve_window(cfg)
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    with BucketRecorder(SEARCH_BUILDERS) as rec:
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        # the builder looked up under the recorder, which wraps it
+        u = sb.Bucket("u", (cfg,), W, fault_pad=dom.table_pad)
+        eng_u = sb.build_bucket_engine(u, device=device)
+        fin_u, tr_u = eng_u.run_stream(u.budgets, chunk=64)
+        executed = int(fin_u.steps[0])
+        half = executed // 2
+        eng_p = sb.build_bucket_engine(sb.Bucket("p", (cfg,), W,
+                                                 fault_pad=dom.table_pad),
+                                       device=device)
+        st, tr_pre = eng_p.run(np.asarray([half], np.int64),
+                               state=eng_p.init_state())
+        ckpt = os.path.join(_scratch(), "fork-law.npz")
+        save_state(ckpt, st, meta={"fork": "chaos-0"},
+                   scenario=eng_p.scenario)
+        t_fork = int(st.time[0])
+        base = cfg.parse_faults()
+        t0 = t_fork + W
+        q = n // 4
+        tc = t0 + CHAOS_MAX_DELAY_US
+        suffixes = [
+            (),
+            (NodeCrash(17, tc, tc + 40_000, reset_state=True),),
+            (LinkWindow(None, None, t0 + 2_000, t0 + 60_000, 3.0),),
+            (Partition((tuple(range(q)), tuple(range(q, n))), t0 + 1_000,
+                       t0 + 50_000),)]
+        scheds = [FaultSchedule(tuple(base.events) + s) for s in suffixes]
+        pad = tuple(p + 1 for p in dom.table_pad)
+        feng, _ = fork_bucket(cfg, scheds, t_fork, fault_pad=pad,
+                              device=device)
+        state, t_fork2, _ = load_fork_state(feng, ckpt, 0)
+        fr, fork_wall = _timed(lambda: run_fork(feng, state, cfg.budget,
+                                                chunk=64))
+        os.unlink(ckpt)
+        for k in launches:
+            launches[k] += ci.LAUNCHES[k]
+    _once_per_superstep("fork law", rec.calls)
+    host_u, host_f = result_leaves(fin_u), result_leaves(fr.final)
+    want0 = world_result(cfg, fin_u, 0, chain_digest(DIGEST_ZERO, tr_u[0]),
+                         len(tr_u[0]), host_u)
+    got = [_fork_world(candidate_config(cfg, s, cfg.run_id if b == 0
+                                        else f"fork{b}"),
+                       fr.final, b, tr_pre[0], fr.traces[b], host_f)
+           for b, s in enumerate(scheds)]
+    solo = {b: solo_result(candidate_config(cfg, scheds[b], f"fork{b}"),
+                           device=device) for b in (1, 2, 3)}
+    _require_all("fork law at 100 000 nodes", {
+        "t_fork read back": t_fork2 == t_fork,
+        "prefix = half the executed supersteps":
+            fr.prefix_supersteps == half,
+        "world 0 = the uninterrupted run (digest chain, time, steps, "
+        "delivered, overflow, fault_dropped, short_delay)": got[0] == want0,
+        **{f"world {b} = its solo run": got[b] == solo[b] for b in solo},
+        "the suffixes bite": len({g["trace_digest"] for g in got}) == 4,
+        f"0 < saving_frac {fr.saving_frac} < 1": 0 < fr.saving_frac < 1})
+    # K2 and K1 on the fork fleet's busiest superstep: the call that sent
+    # the most, re-driven from its start state
+    busy = max((c for c in rec.calls if c["bucket"] == "fork"),
+               key=lambda c: c["sent"])
+    a2, a1 = _stage_args(busy["eng"], lambda: busy["run"](busy["budgets"],
+                                                          busy["state"]))
+    err2 = _equal("K2 fork fleet", ci.fire_compact(*a2),
+                  ci.fire_compact_plain(*a2))
+    err1 = _equal("K1 fork fleet", ci.mailbox_insert(*a1),
+                  ci.mailbox_insert_plain(*a1))
+    torch.cuda.synchronize()
+    r2, r1 = _time_stage_args("the fork fleet's busiest superstep", a2, a1)
+    say(f"fork law: n={n} executed={executed} t_fork_us={t_fork} "
+        f"prefix={fr.prefix_supersteps} suffix={fr.suffix_supersteps} "
+        f"quiesced={fr.quiesced} saving_frac={fr.saving_frac} "
+        f"fork_wall_s={fork_wall} run_calls={len(rec.calls)} "
+        f"launches={launches}; world 0 = the uninterrupted run, worlds "
+        f"1-3 = their solo runs (supersteps "
+        f"{[solo[b]['supersteps'] for b in solo]})")
+    return launches, (err2, err1), (r2, r1)
+
+
+def phase_search_chaos(device, keep, n=CHAOS_N):
+    """A campaign at full width: ``ChaosSearch`` on the card with base
+    ``chaos-0`` without its faults, objective ``convergence:LIMIT`` (LIMIT
+    the base's own quiescence instant from a solo card run: the tightest
+    limit the fault-free world does not violate), population 8, 3
+    generations, ``fork_k`` 2, ``minimize_trials``
+    :data:`CHAOS_MINIMIZE_TRIALS`, a journal dir.
+    Gates: the campaign completes; K2 = K1 = its fleet supersteps in every
+    bucket ``run`` call; a counterexample, if found, re-fails solo on the
+    card. Then the ledger: phase 46's and this campaign's journals and
+    phase 42's predicted-packing leg (``keep``) ingested into the port's
+    ``RunLedger``: the ``search`` records carry ``found``, ``minimized``
+    and the ``search|gossip|`` key prefix; ``fit_from_ledger`` equals
+    ``fit_rows`` over the sweep's ``training_rows``; the ``SweepWatch``
+    snapshot equals ``status_fields``. Returns the launches."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from timewarp_tpu_torch.obs.ledger import RunLedger
+    from timewarp_tpu_torch.obs.watch import SweepWatch
+    from timewarp_tpu_torch.pack.predict import (fit_from_ledger, fit_rows,
+                                                 training_rows)
+    from timewarp_tpu_torch.sweep import SweepJournal, SweepPack, solo_result
+    from timewarp_tpu_torch.sweep.journal import status_fields
+    base = dataclasses.replace(chaos_pack(n, 1).configs[0],
+                               run_id="chaos-base", faults=None)
+    want, trace = solo_result(base, device=device, with_trace=True)
+    limit = int(trace.times[-1])
+    _require_all("chaos search base", {
+        "the fault-free base quiesces in its budget":
+            want["supersteps"] < base.budget})
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    jd = tempfile.mkdtemp(prefix="search-chaos-", dir=_scratch())
+    os.rmdir(jd)
+    res, wall, rec = _search_leg(
+        device, launches, jd, base=base, objective=f"convergence:{limit}",
+        population=8, generations=3, seed=0, fork_k=2,
+        minimize_trials=CHAOS_MINIMIZE_TRIALS)
+    _once_per_superstep("chaos search", rec.calls)
+    if res.found:
+        _rejudge("chaos search", device, res.repro)
+    found_gen = res.repro["found_gen"] if res.found else None
+    say(f"chaos search: n={n} base supersteps={want['supersteps']} "
+        f"LIMIT={limit} us (the base's quiescence instant) found="
+        f"{res.found} found_gen={found_gen} counterexample="
+        f"{res.counterexample} minimized={res.minimized} generations="
+        f"{res.generations} evaluations={res.evaluations} fork={res.fork} "
+        f"wall_s={wall} run_calls={len(rec.calls)} fleet_supersteps="
+        f"{sum(c['iters'] for c in rec.calls)} launches={launches}")
+
+    search_jd, sweep_jd, pack = keep
+    led = RunLedger(tempfile.mkdtemp(prefix="ledger-", dir=_scratch()))
+    recs = [led.get(led.add_source(d)[0]) for d in (search_jd, jd, sweep_jd)]
+    scan = SweepJournal(sweep_jd).scan()
+    snap = SweepWatch(sweep_jd).poll()
+    rows = training_rows(pack.configs, scan.done)
+    art = fit_from_ledger(led.root)
+    _require_all("ledger over the journals", {
+        "kinds": [r["kind"] for r in recs] == ["search", "search", "sweep"],
+        "search keys": all(r["config_key"].startswith("search|gossip|")
+                           for r in recs[:2]),
+        "phase 46 found, minimized": recs[0]["search"]["found"] is True
+        and recs[0]["search"]["minimized"] == SEARCH_REF["minimized"],
+        "phase 48 found, minimized":
+            recs[1]["search"]["found"] is res.found
+            and recs[1]["search"]["minimized"] == res.minimized,
+        "fit_from_ledger = fit_rows(training_rows)": art == fit_rows(rows),
+        "SweepWatch = status_fields":
+            {k: v for k, v in snap.items() if k != "watch"}
+            == status_fields(scan, len(SweepPack.load(
+                os.path.join(sweep_jd, "pack.json")).configs))})
+    say(f"ledger: {len(led.index())} runs {[r['config_key'] for r in recs]}"
+        f"; fit_from_ledger rows={art['rows']} sha={art['sha'][:12]} = "
+        f"fit_rows; sweep watch = status (events {snap['events']})")
+    for d in (jd, search_jd, sweep_jd, led.root):
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3240,7 +3621,7 @@ def main() -> int:
     timed(40, phase_spec_card_vs_cpu, device)
     timed(41, phase_spec_times, device, spec_eng, cons_eng, wide)
 
-    hetero_launches = timed(42, phase_sweep_hetero, device)
+    hetero_launches, hetero_keep = timed(42, phase_sweep_hetero, device)
     pack_launches, pack_errs, pack, pack_wall, pack_util = timed(
         43, phase_chaos_pack, device, chaos_eng, chaos_fin)
     for k in ("fire_compact", "mailbox_insert"):
@@ -3249,6 +3630,16 @@ def main() -> int:
     err_k1 = max(err_k1, pack_errs[1])
     timed(44, phase_sweep_card_vs_cpu, device)
     timed(45, phase_sweep_cost, device, pack, pack_wall, pack_util)
+
+    search_launches, search_jd = timed(46, phase_search_gossip, device)
+    fork_launches, fork_errs, _ = timed(47, phase_fork_law, device)
+    csearch_launches = timed(48, phase_search_chaos, device,
+                           (search_jd,) + hetero_keep)
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += (search_launches[k] + fork_launches[k]
+                        + csearch_launches[k])
+    err_k2 = max(err_k2, fork_errs[0])
+    err_k1 = max(err_k1, fork_errs[1])
 
     kernels = []
     for name, src, repl, err, r in (

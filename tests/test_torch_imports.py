@@ -4,14 +4,17 @@ of it) in a fresh interpreter leaves ``jax`` and the reference package
 ``chip_smoke.py``, imports either (the run-mode planes' packages ``obs``,
 ``integrity``, ``dispatch``, ``speculate`` and ``controlled.py`` also
 imported first and alone, and so are the sweep service's packages
-``sweep``, ``pack``, ``manage`` and ``interp.aio``); every engine
-(``TorchEngine``, ``FusedSparseEngine``, ``EdgeEngine``,
-``FusedRingEngine``) and the sweep's entry points (``SweepService``,
-``build_bucket_engine``, ``solo_result``) run on the card by default,
-raising on a machine without CUDA unless the caller passes
+``sweep``, ``pack``, ``manage`` and ``interp.aio``, the chaos search's
+``search`` and the cross-run plane's ``obs.ledger``, ``obs.regress`` and
+``obs.watch``); every engine (``TorchEngine``, ``FusedSparseEngine``,
+``EdgeEngine``, ``FusedRingEngine``), the sweep's entry points
+(``SweepService``, ``build_bucket_engine``, ``solo_result``) and the
+search's (``ChaosSearch``, ``evaluate_configs``, ``rejudge_repro``,
+``minimize_counterexample``, ``fork_bucket``) run on the card by
+default, raising on a machine without CUDA unless the caller passes
 ``device="cpu"``; and what the port does not have yet is refused loudly:
-``lint="warn"``/``"error"``, ``SweepService(host=...)`` and
-``fit_from_ledger``.
+``lint="warn"``/``"error"`` and ``SweepService(host=...)``, while
+``fit_from_ledger`` reads the port's run ledger.
 
 Tolerance: exact (membership and source checks).
 """
@@ -63,7 +66,10 @@ def test_import_leaves_jax_and_reference_out():
               "manage", "manage.sync", "manage.jobs", "pack",
               "pack.allocate", "pack.predict", "obs.perfetto", "sweep",
               "sweep.spec", "sweep.bucket", "sweep.journal",
-              "sweep.runner", "sweep.service"):
+              "sweep.runner", "sweep.service", "search", "search.domain",
+              "search.mutate", "search.objectives", "search.minimize",
+              "search.fork", "search.campaign", "obs.ledger",
+              "obs.regress", "obs.watch"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -80,7 +86,9 @@ def test_import_leaves_jax_and_reference_out():
 
 @pytest.mark.parametrize("mod", ["obs", "integrity", "dispatch", "speculate",
                                  "interp.torch_engine.controlled", "sweep",
-                                 "pack", "manage", "interp.aio"])
+                                 "pack", "manage", "interp.aio", "search",
+                                 "obs.ledger", "obs.regress",
+                                 "obs.watch"])
 def test_plane_packages_import_alone(mod):
     """Each run-mode plane's package, imported first and alone in a fresh
     interpreter (the plane modules copied from the reference keep their
@@ -175,8 +183,50 @@ def test_sweep_raises_without_cuda_unless_cpu_requested(tmp_path):
     assert solo_result(cfg, device="cpu")["run_id"] == "g"
 
 
+def test_search_raises_without_cuda_unless_cpu_requested(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is valid")
+    from timewarp_tpu_torch.faults.schedule import parse_faults
+    from timewarp_tpu_torch.search import (ChaosSearch, evaluate_configs,
+                                           fork_bucket,
+                                           minimize_counterexample)
+    from timewarp_tpu_torch.search.objectives import (parse_objective,
+                                                      rejudge_repro)
+    from timewarp_tpu_torch.sweep import RunConfig
+    params = {"nodes": 8, "fanout": 2, "end_us": 30_000, "burst": True,
+              "think_us": 5000, "mailbox_cap": 16}
+    cfg = RunConfig(run_id="g", family="gossip",
+                    params=tuple(sorted(params.items())),
+                    link="uniform:1000:5000", window="auto", budget=40)
+    sched = parse_faults("crash:0:0:20000")
+    repro = {"scenario": "gossip", "params": params,
+             "link": "uniform:1000:5000", "seed": 0, "window": "auto",
+             "budget": 40, "faults": "crash:0:0:20000",
+             "objective": "eventually-delivered:0"}
+    obj = parse_objective("eventually-delivered")
+    for call in (
+            lambda **kw: ChaosSearch(base=cfg, objective=obj,
+                                     population=2, generations=1, **kw),
+            lambda **kw: evaluate_configs([cfg], **kw),
+            lambda **kw: rejudge_repro(repro, **kw),
+            lambda **kw: minimize_counterexample(cfg, sched, obj, **kw),
+            lambda **kw: fork_bucket(cfg, [sched], 0, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(device="cuda")
+    assert ChaosSearch(base=cfg, objective=obj, population=2,
+                       generations=1, device="cpu").device.type == "cpu"
+    faulted = RunConfig(run_id="f", family="gossip",
+                        params=cfg.params, link=cfg.link, window="auto",
+                        budget=40, faults="crash:0:0:20000")
+    assert fork_bucket(faulted, [sched], 0,
+                       device="cpu")[0].device.type == "cpu"
+    assert evaluate_configs([cfg], device="cpu")["g"].supersteps > 0
+
+
 def test_sweep_refuses_what_the_port_lacks(tmp_path):
-    from timewarp_tpu_torch.pack.predict import fit_from_ledger
+    from timewarp_tpu_torch.pack.predict import PackFitError, fit_from_ledger
     from timewarp_tpu_torch.sweep import (SweepService, build_bucket_engine,
                                           plan_buckets, solo_result)
     pack = _sweep_pack()
@@ -192,6 +242,8 @@ def test_sweep_refuses_what_the_port_lacks(tmp_path):
                 call()
     with pytest.raises(NotImplementedError, match="serve slice"):
         SweepService(pack, jd, host="h0", device="cpu")
-    with pytest.raises(NotImplementedError, match="obs/ledger.py"):
+    # the run ledger is ported: a directory without one is refused as
+    # the reference refuses it, naming the ingest that makes one
+    with pytest.raises(PackFitError, match="not a run ledger"):
         fit_from_ledger(str(tmp_path))
     assert not (tmp_path / "j").exists()

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 from typing import Any, Dict, Iterable, List, Mapping, Optional
 
 from ..sweep.spec import (RunConfig, SweepConfigError, link_signature,
@@ -154,16 +155,32 @@ def fit_rows(rows: List[dict]) -> Dict[str, Any]:
 
 
 def fit_from_ledger(ledger_root: str) -> Dict[str, Any]:
-    """Fit an artifact from every ``pack_stats`` row a run ledger
-    holds. The ledger (``obs/ledger.py``) is not in the port yet
-    (ROADMAP queue 1 item 10), so this refuses loudly; fit with
-    :func:`fit_rows` on rows in hand, or load an artifact the
-    reference's ``pack fit`` wrote (:func:`load_artifact`)."""
-    raise NotImplementedError(
-        f"fit_from_ledger({ledger_root!r}) reads the run ledger "
-        "(obs/ledger.py), which the torch port does not have yet "
-        "(ROADMAP queue 1 item 10); fit with fit_rows(rows) or load "
-        "an artifact written by the reference's `pack fit`")
+    """Fit an artifact from every ``pack_stats`` row the ledger
+    holds (sweep and serve ingests alike), read through the port's
+    :class:`~timewarp_tpu_torch.obs.ledger.RunLedger`. Loud,
+    actionable refusals for an absent/empty ledger — the `pack fit`
+    CLI surfaces them verbatim as its one-line error."""
+    from ..obs.ledger import RunLedger
+    index_path = os.path.join(ledger_root, "index.jsonl")
+    if not os.path.exists(index_path):
+        raise PackFitError(
+            f"{ledger_root!r} is not a run ledger (no index.jsonl) — "
+            "create one by ingesting a finished run: `timewarp-tpu "
+            f"ledger add <journal-dir> --ledger {ledger_root}`")
+    rows: List[dict] = []
+    for rec in RunLedger(ledger_root).index():
+        for kind in ("sweep", "serve"):
+            block = rec.get(kind)
+            if isinstance(block, Mapping):
+                rows.extend(r for r in block.get("pack_stats", ())
+                            if isinstance(r, Mapping))
+    if not rows:
+        raise PackFitError(
+            f"ledger {ledger_root!r} holds no pack_stats rows (no "
+            "ingested sweep/serve runs with per-world results) — run "
+            "a sweep, `timewarp-tpu ledger add <journal-dir> "
+            f"--ledger {ledger_root}`, then re-run `pack fit`")
+    return fit_rows(rows)
 
 
 def _coeff_sha(coeffs: Mapping[str, Any]) -> str:
