@@ -250,12 +250,48 @@ each):
     re-fails solo on the card; then phase 46's and 48's journals and
     phase 42's predicted leg in the port's ``RunLedger``:
     ``fit_from_ledger`` = ``fit_rows``, the ``SweepWatch`` snapshot =
-    ``status_fields``.
+    ``status_fields``;
+
+then the serving layer (``timewarp_tpu_torch/serve/``) and the network
+stack (``net/``), every open bucket a ``TorchEngine(batch=...)`` on the
+card whose ``run`` calls are recorded (K2 = K1 = the call's fleet
+supersteps in each):
+
+49. ``bench.py`` ``serve_gossip``'s eight configs (4096-node burst
+    gossip, one faulted) at budgets 128/64, not the bench's 2000/1000
+    (chip_smoke's time limit), into one 8-slot open bucket by a
+    ``ServeCurator`` thread, half admitted before it starts and half
+    while its first chunk runs, rebound onto the same engine; two legs,
+    ``first-fit`` then ``predicted`` with an artifact fitted from the
+    first leg's results: ``engine_builds`` 1 and one engine built, the
+    late half's slots idle in the first ``run`` call and live in a later
+    one (the bucket runs past its largest budget), every ``world_done``
+    equal to its solo run on the card, one ``pack_decision`` before each
+    admit naming its bucket (predicted); served configs/s, admissions/s,
+    p50/p95 submit-to-``world_done``;
+50. phase 43's chaos pack served at 100 000 nodes: four worlds admitted
+    through a ``ServeFrontend``, the other four into the open bucket's
+    reserved slots while curator ``a`` runs its first chunk, ``a``
+    killed after its second chunk, which ran all eight (its lease left
+    behind), curator ``b`` stealing the bucket after the lease TTL and
+    draining it from the checkpoint: every streamed result equal to
+    phase 43's solo runs, one ``world_done`` each, the steal journaled,
+    each incarnation's engine builds as the rebuild rule counts them
+    from the schedules, K2 and K1 bit-equal to their plain versions on
+    the bucket's busiest superstep;
+51. the wire and the multi-host sweep: two of phase 49's configs
+    submitted over loopback TCP to the port's ``Rpc`` frontend under
+    ``run_real_time`` with a curator thread on the card (the streamed
+    records = phase 49's solo runs), and ``tests/test_zzzzzzzzzserve.py``'s
+    multi-host pack through ``SweepService(host="a", inject="die:2")``
+    then ``host="b"`` on the card and on the CPU: equal journals (the
+    wall-clock fields and heartbeats aside), every result = its solo run.
 
 Wall-clock overheads are printed and gated at 2x at most (the host is
-shared). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
-over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43 and 46-48,
-K2's over phases 4, 27, 34, 38, 39, 42, 43 and 46-48; every time from
+shared). Every phase prints its wall (``phase N wall_s=``), and the
+script its total (``chip_smoke wall_s=``). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
+over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43 and 46-51,
+K2's over phases 4, 27, 34, 38, 39, 42, 43 and 46-51; every time from
 phases 6, 13 and 19), the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``.
 Exits non-zero without a CUDA device.
@@ -2796,10 +2832,16 @@ def chaos_pack(n=CHAOS_N, B=CHAOS_B, budget=1024):
                   f"{2.0 + 0.25 * b}"} for b in range(B)])
 
 
+#: the modules whose ``build_bucket_engine`` the sweep's buckets and the
+#: serving layer's open buckets come from
+SWEEP_BUILDERS = ["timewarp_tpu_torch.sweep.runner",
+                  "timewarp_tpu_torch.serve.worker"]
+
+
 class BucketRecorder:
-    """Wraps every bucket engine a sweep or a search builds (the
-    ``build_bucket_engine`` of each module in ``targets``: the sweep
-    runner's by default) so that each ``run`` call is recorded: its
+    """Wraps every bucket engine a sweep, a search or the serving layer
+    builds (the ``build_bucket_engine`` of each module in ``targets``:
+    :data:`SWEEP_BUILDERS` by default) so that each ``run`` call is recorded: its
     bucket, engine, budgets and start state, the fleet supersteps it
     executed, K2's and K1's launches during it and the messages its worlds
     sent. A context manager: the builders are restored on exit."""
@@ -2814,7 +2856,7 @@ class BucketRecorder:
         from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
         from timewarp_tpu_torch.sweep.bucket import build_bucket_engine
         self._mods = [importlib.import_module(m) for m in (
-            self.targets or ["timewarp_tpu_torch.sweep.runner"])]
+            self.targets or SWEEP_BUILDERS)]
         self._saved = [m.build_bucket_engine for m in self._mods]
 
         def built(bucket, **kw):
@@ -3006,7 +3048,8 @@ def phase_chaos_pack(device, chaos_eng, chaos_fin, n=CHAOS_N, B=CHAOS_B,
     K2 once per fleet superstep of every bucket ``run`` call; then K2 and
     K1 against their plain versions on the bucket's busiest superstep,
     and their times there. Returns the launches, the kernels' errors, the
-    pack and the main leg's wall and ``bucket_util`` record."""
+    pack, the main leg's wall and ``bucket_util`` record and the worlds'
+    solo results."""
     import shutil
 
     import torch
@@ -3090,7 +3133,7 @@ def phase_chaos_pack(device, chaos_eng, chaos_fin, n=CHAOS_N, B=CHAOS_B,
         f"delivered={sum(w['delivered'] for w in want.values())} "
         f"kill_and_resume_launches={kill_launches} launches={launches}; "
         "every streamed record = its solo run = its row of phase 27's fleet")
-    return launches, (err2, err1), pack, wall, scan.util["b0"]
+    return launches, (err2, err1), pack, wall, scan.util["b0"], want
 
 
 def phase_sweep_card_vs_cpu(device):
@@ -3518,6 +3561,553 @@ def phase_search_chaos(device, keep, n=CHAOS_N):
     return launches
 
 
+# -- the serving layer and the network stack ---------------------------------
+
+#: ``bench.py`` ``bench_serve_gossip``'s size at chip_smoke's budgets: the
+#: bench's 2000/1000 supersteps cut to 128/64 for chip_smoke's time limit:
+#: its gossip at 4096 nodes is host-bound in the legs and the solo runs,
+#: about 20 ms a fleet superstep (NVIDIA H100 80GB HBM3, 700.00 W)
+SERVE_N, SERVE_STEPS = 4096, 128
+
+
+def serve_gossip_configs(n=SERVE_N, steps=SERVE_STEPS):
+    """``bench.py`` ``bench_serve_gossip``'s eight configs: 4096-node
+    burst gossip, fanout 4, ``end_us`` 400 ms, ``mailbox_cap`` 16,
+    ``think_us`` 700, ``quantize:1000:uniform:3000:9000``, seeds 0-7,
+    budgets ``steps`` (even worlds) and ``steps // 2``, ``w3`` crashing
+    node 1 from 5 to 40 ms with a reset."""
+    gossip = {"nodes": n, "fanout": 4, "burst": True, "end_us": 400_000,
+              "mailbox_cap": 16, "think_us": 700}
+    cfgs = []
+    for i in range(8):
+        d = {"id": f"w{i}", "scenario": "gossip", "params": gossip,
+             "link": "quantize:1000:uniform:3000:9000", "seed": i,
+             "budget": steps if i % 2 == 0 else max(steps // 2, 8)}
+        if i == 3:
+            d["faults"] = "crash:1:5ms:40ms:reset"
+        cfgs.append(d)
+    return cfgs
+
+
+def _in_thread(fn, **kw):
+    """``fn(**kw)`` on a thread of its own; returns ``(thread, box)``, the
+    box holding ``fn``'s result or exception once the thread ends."""
+    import threading
+    box = {}
+
+    def target():
+        try:
+            box["out"] = fn(**kw)
+        except BaseException as e:  # noqa: BLE001 — handed to the caller
+            box["err"] = e
+    th = threading.Thread(target=target, daemon=True)
+    th.start()
+    return th, box
+
+
+def _join(what, th, box, timeout=600):
+    th.join(timeout=timeout)
+    _require_all(what, {"the thread ended in its time": not th.is_alive()})
+    return box
+
+
+def _await_bucket_start(root, th, timeout=300):
+    """Wait until the journal in ``root`` holds a ``bucket_start``: the
+    curator on thread ``th`` has built its open bucket's engine and runs
+    the first chunk, so what is admitted from here on lands mid-bucket."""
+    from timewarp_tpu_torch.sweep import SweepJournal
+    t_end = time.monotonic() + timeout
+    while th.is_alive() and time.monotonic() < t_end:
+        if any(e.get("ev") == "bucket_start"
+               for e in SweepJournal(root).records()):
+            return
+        time.sleep(0.005)
+    raise AssertionError("the curator never started its bucket")
+
+
+def _admitted_mid_bucket(rec, slots):
+    """Each of ``slots`` idle (budget 0) in the recorder's first ``run``
+    call and live in every slot in a later call on the same engine: the
+    configs there were admitted by a rebind while the bucket ran."""
+    calls = rec.calls
+    return (len(rec.built) == 1 and bool(calls)
+            and all(c["eng"] is rec.built[0] for c in calls)
+            and all(int(calls[0]["budgets"][s]) == 0 for s in slots)
+            and any(all(int(c["budgets"][s]) > 0 for s in slots)
+                    for c in calls[1:]))
+
+
+def _admit_latencies(scan):
+    """Per world, submit -> ``world_done`` seconds from the journal's own
+    ``ts`` stamps (one clock), and the first admit's and the last
+    ``world_done``'s stamps."""
+    t_admit, t_done = {}, {}
+    for e in scan.events:
+        if e.get("ev") == "admit" and e["run_id"] not in t_admit:
+            t_admit[e["run_id"]] = float(e["ts"])
+        elif e.get("ev") == "world_done":
+            t_done[e["result"]["run_id"]] = float(e["ts"])
+    lats = sorted(t_done[r] - t_admit[r] for r in t_done)
+    return lats, min(t_admit.values()), max(t_done.values())
+
+
+def _serve_leg(device, cfgs, launches, pack_mode, artifact, chunk):
+    """One served leg: a ``ServeFrontend``'s admission book on a fresh
+    journal dir under ``build/``, a ``ServeCurator`` thread on ``device``,
+    half the configs admitted before the thread starts and half once its
+    bucket has started (while the first chunk runs), then a drain; every
+    open bucket recorded, the launch counts reset just before and added to
+    ``launches`` just after. Returns ``(scan, recorder, wall, admission
+    seconds, journal dir, the late half's slots)``."""
+    import tempfile
+
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.serve.curator import ServeCurator
+    from timewarp_tpu_torch.serve.frontend import ServeFrontend
+    from timewarp_tpu_torch.sweep import SweepJournal
+    root = tempfile.mkdtemp(prefix="serve-", dir=_scratch())
+    journal = SweepJournal(root, host="bench")
+    front = ServeFrontend(journal, "bench", ("127.0.0.1", 0), slots=8,
+                          pack_mode=pack_mode, pack_artifact=artifact)
+    cur = ServeCurator(root, "bench", chunk=chunk, lease_ttl_s=60.0,
+                       poll_s=0.02, journal=journal, pack_mode=pack_mode,
+                       pack_artifact=artifact, device=device)
+    with BucketRecorder() as rec:
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            for d in cfgs[:4]:
+                front.admit(d)
+            t_half = time.perf_counter()
+            th, box = _in_thread(cur.run, max_seconds=600)
+            _await_bucket_start(root, th)
+            t1 = time.perf_counter()
+            late = [front.admit(d)[2] for d in cfgs[4:]]
+            t_admit = (t_half - t0) + (time.perf_counter() - t1)
+            journal.append({"ev": "serve_drain", "host": "bench"})
+            _join(f"serve {pack_mode}", th, box)
+            wall = time.perf_counter() - t0
+        finally:
+            for k in launches:
+                launches[k] += ci.LAUNCHES[k]
+    journal.close()
+    _require_all(f"serve {pack_mode}", {
+        "the curator drained without an error": "err" not in box})
+    return SweepJournal(root).scan(), rec, wall, t_admit, root, late
+
+
+def phase_serve_gossip(device, n=SERVE_N, steps=SERVE_STEPS):
+    """``bench.py`` ``serve_gossip`` on the card (:func:`serve_gossip_configs`,
+    chunk ``max(32, steps // 8)`` as the bench's): one 8-slot open bucket
+    fed by a ``ServeFrontend`` and drained by a ``ServeCurator`` thread,
+    half the configs admitted before it starts and half while it runs the
+    first chunk; two legs, ``first-fit`` and then ``predicted`` with an
+    artifact fitted from the first leg's own results (``training_rows`` ->
+    ``fit_rows``). Gates on both legs: every config served, each
+    ``world_done`` equal to its solo run on the card, ``engine_builds`` 1
+    in every journaled ``bucket_util`` and one engine built, the late
+    half admitted mid-bucket by a rebind (:func:`_admitted_mid_bucket`)
+    and the bucket's fleet supersteps past the largest budget, K1 once per
+    fleet superstep of every bucket ``run`` call and K2 as often; in the
+    predicted leg one ``pack_decision`` before each admit, naming the
+    bucket it landed in, and none in the first-fit leg. Prints served
+    configs/s (first admit to last ``world_done``), admissions/s and the
+    p50/p95 submit-to-``world_done`` latency. Returns the launches and the
+    solo results."""
+    import shutil
+
+    from timewarp_tpu_torch.pack import fit_rows, training_rows
+    from timewarp_tpu_torch.sweep.journal import util_rollup
+    from timewarp_tpu_torch.sweep.spec import RunConfig, solo_result
+    cfgs = serve_gossip_configs(n, steps)
+    rcfgs = [RunConfig.from_json(d, 0) for d in cfgs]
+    want = {c.run_id: solo_result(c, device=device) for c in rcfgs}
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    chunk = max(32, steps // 8)
+    artifact = None
+    for mode in ("first-fit", "predicted"):
+        scan, rec, wall, t_admit, root, late = _serve_leg(
+            device, cfgs, launches, mode, artifact, chunk)
+        shutil.rmtree(root, ignore_errors=True)
+        _survival(f"serve {mode}", scan.done, want)
+        builds = {b: u.get("engine_builds") for b, u in scan.util.items()}
+        ran = sum(c["iters"] for c in rec.calls)
+        checks = {
+            "every config served": sorted(scan.done) == sorted(want),
+            "engine_builds 1 in every bucket_util":
+                bool(builds) and set(builds.values()) == {1},
+            "one engine built per bucket": len(rec.built) == len(builds),
+            "the late half admitted mid-bucket on the same engine":
+                _admitted_mid_bucket(rec, late),
+            "the bucket ran past the largest budget":
+                ran > max(c.budget for c in rcfgs)}
+        places = [e for e in scan.pack_decisions if e.get("kind") == "place"]
+        if mode == "predicted":
+            admits = {e["run_id"]: (i, e["bucket"])
+                      for i, e in enumerate(scan.events)
+                      if e.get("ev") == "admit"}
+            pidx = {e["run_id"]: i for i, e in enumerate(scan.events)
+                    if e.get("ev") == "pack_decision"
+                    and e.get("kind") == "place"}
+            checks.update({
+                "one pack_decision per admission":
+                    sorted(p["run_id"] for p in places) == sorted(want),
+                "each decision before its admit, naming its bucket": all(
+                    pidx[p["run_id"]] < admits[p["run_id"]][0]
+                    and p["bucket"] == admits[p["run_id"]][1]
+                    for p in places)})
+        else:
+            checks["no pack_decision for first-fit"] = not places
+        _require_all(f"serve {mode}", checks)
+        rec.check(f"serve {mode}")
+        lats, first, last = _admit_latencies(scan)
+        say(f"serve_gossip {mode}: n={n} budgets={steps}/{steps // 2} "
+            f"(the bench's 2000/1000 cut for chip_smoke's time limit) "
+            f"chunk={chunk} "
+            f"wall_s={wall} served_configs_per_s={len(cfgs) / (last - first)} "
+            f"admit_per_s={len(cfgs) / t_admit} p50_submit_to_done_s="
+            f"{lats[len(lats) // 2]} p95_submit_to_done_s="
+            f"{lats[min(len(lats) - 1, int(len(lats) * 0.95))]} "
+            f"engine_builds={builds} rollup={util_rollup(scan.util)} "
+            f"pack_decisions={len(places)} buckets={rec.per_bucket()}")
+        if mode == "first-fit":
+            rows = training_rows(rcfgs, scan.done)
+            _require_all("serve training rows", {
+                "one row per world": len(rows) == len(cfgs)})
+            artifact = fit_rows(rows)
+    say(f"serve_gossip: every world_done = its solo run on the card "
+        f"(supersteps {[w['supersteps'] for w in want.values()]}); "
+        f"launches={launches}")
+    return launches, want
+
+
+def _expected_builds(batches):
+    """An open bucket's engine builds under the rebuild rule of
+    ``serve/worker.py`` ``_rebuild`` (the reference's): one for the first
+    batch of admissions, and one more for each later batch that grows the
+    fault pad (crash, partition, link-window rows) or changes the fault
+    fleet's static gates (a first faulted world, skew, reset, restarts),
+    counted from the configs' schedules."""
+    from timewarp_tpu_torch.faults.schedule import FaultFleet, FaultSchedule
+    from timewarp_tpu_torch.sweep.spec import RunConfig
+    members, builds, realized, gates0 = [], 0, None, None
+    for batch in batches:
+        members += [RunConfig.from_json(d, 0).parse_faults()
+                    or FaultSchedule(()) for d in batch]
+        pad = tuple(max(len(getattr(s, f)) for s in members)
+                    for f in ("crashes", "partitions", "link_windows"))
+        fleet = FaultFleet(tuple(members))
+        gates = (any(s.events for s in members), fleet.has_skew,
+                 fleet.has_reset, fleet.n_restarts)
+        if realized is None or gates != gates0 \
+                or any(p > q for p, q in zip(pad, realized)):
+            builds += 1
+        realized = pad if realized is None else tuple(
+            max(p, q) for p, q in zip(pad, realized))
+        gates0 = gates
+    return builds
+
+
+def phase_served_chaos(device, want, pack_wall, n=CHAOS_N, B=CHAOS_B,
+                       chunk=64, ttl_s=3.0):
+    """Phase 43's chaos pack served: a ``ServeFrontend`` on host ``a``
+    admits four worlds into one 8-slot open bucket (``chunk`` 64); curator
+    ``a`` runs on the card with ``die_after_chunks=3`` and a ``ttl_s``
+    lease, and once its bucket has started (the first chunk running) the
+    other four worlds are admitted into the bucket's reserved slots; ``a``
+    admits them by a rebind after that chunk, runs its second chunk with
+    all eight and dies with its lease unreleased; after the TTL curator
+    ``b`` steals the bucket and drains it from the checkpoint. Gates: every
+    streamed result equal to ``want`` (phase 43's solo runs, which equal
+    phase 27's fleet rows); each run_id journaled once; ``a``'s two run
+    calls, the late four idle in the first and live in the second
+    (:func:`_admitted_mid_bucket`); the kill mid-bucket, every world
+    stepped in the checkpoint it left and none yet done; the steal
+    journaled (``lease_acquire`` by ``b`` with
+    ``stolen_from: "a"``); each incarnation's engine builds as
+    :func:`_expected_builds` counts them; K1 = K2 = the fleet supersteps of
+    every bucket ``run`` call; K2 and K1 bit-equal to their plain versions
+    on the busiest superstep of ``b``'s calls (every world active). Prints
+    the wall, the checkpoint writes and the wall over phase 43's main leg
+    (``pack_wall``). Returns the launches and the kernels' errors."""
+    import shutil
+    import tempfile
+
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.serve.curator import CuratorKilled, ServeCurator
+    from timewarp_tpu_torch.serve.frontend import ServeFrontend
+    from timewarp_tpu_torch.serve.worker import checkpoint_meta
+    from timewarp_tpu_torch.sweep import SweepJournal
+    cfgs = [c.to_json() for c in chaos_pack(n, B).configs]
+    root = tempfile.mkdtemp(prefix="served-chaos-", dir=_scratch())
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    ja = SweepJournal(root, host="a")
+    front = ServeFrontend(ja, "a", ("127.0.0.1", 0), slots=B)
+    cur_a = ServeCurator(root, "a", chunk=chunk, lease_ttl_s=ttl_s,
+                         poll_s=0.02, journal=ja, die_after_chunks=3,
+                         device=device)
+    t0 = time.perf_counter()
+    with BucketRecorder() as rec_a:
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        try:
+            placed = [front.admit(d) for d in cfgs[:B // 2]]
+            th, box = _in_thread(cur_a.run, max_seconds=600)
+            _await_bucket_start(root, th)
+            late = [front.admit(d) for d in cfgs[B // 2:]]
+            ja.append({"ev": "serve_drain", "host": "a"})
+            _join("served chaos, host a", th, box)
+        finally:
+            for k in launches:
+                launches[k] += ci.LAUNCHES[k]
+    ja.close()
+    mid = SweepJournal(root).scan()
+    at_kill = checkpoint_meta(ja.checkpoint_path(placed[0][1]))
+    time.sleep(ttl_s + 0.5)                 # a's lease goes stale
+    cur_b = ServeCurator(root, "b", chunk=chunk, lease_ttl_s=ttl_s,
+                         poll_s=0.02, device=device)
+    with BucketRecorder() as rec_b:
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        try:
+            cur_b.run(max_seconds=600)
+        finally:
+            for k in launches:
+                launches[k] += ci.LAUNCHES[k]
+    wall = time.perf_counter() - t0
+    scan = SweepJournal(root).scan()
+    ids = [e["result"]["run_id"] for e in scan.events
+           if e.get("ev") == "world_done"]
+    steals = [e for e in scan.events if e.get("ev") == "lease_acquire"
+              and e.get("stolen_from")]
+    bids = {b for _, b, _ in placed + late}
+    _require_all("served chaos pack", {
+        "host a killed (CuratorKilled)":
+            isinstance(box.get("err"), CuratorKilled),
+        "one open bucket of 8 slots": bids == {placed[0][1]}
+        and sorted(s for _, _, s in placed + late) == list(range(B)),
+        "host a ran two chunks, the late four admitted mid-bucket by a "
+        "rebind and live in the second": len(rec_a.calls) == 2
+        and _admitted_mid_bucket(rec_a, [s for _, _, s in late]),
+        "the kill landed mid-bucket, every world stepped and none done":
+            not mid.done and at_kill is not None
+            and all(int(x) > 0 for x in at_kill["supersteps"]),
+        "every world served": sorted(scan.done) == sorted(want),
+        "each run_id journaled once": sorted(ids) == sorted(want),
+        "the steal journaled": len(steals) == 1
+        and steals[0]["host"] == "b" and steals[0]["stolen_from"] == "a",
+        "host b stole one bucket": cur_b.stolen == 1,
+        "host a's engine builds = the rule's":
+            len(rec_a.built) == _expected_builds([cfgs[:B // 2],
+                                                  cfgs[B // 2:]]),
+        "host b's engine builds = the rule's":
+            len(rec_b.built) == _expected_builds([cfgs])})
+    _survival("served chaos pack", scan.done, want)
+    rec_a.check("served chaos pack, host a")
+    rec_b.check("served chaos pack, host b")
+    busy = max(rec_b.calls, key=lambda c: c["sent"])
+    eng, run = rec_b.engines[busy["bucket"]]
+    a2, a1 = _stage_args(eng, lambda: run(busy["budgets"], busy["state"]))
+    err2 = _equal("K2 served chaos bucket", ci.fire_compact(*a2),
+                  ci.fire_compact_plain(*a2))
+    err1 = _equal("K1 served chaos bucket", ci.mailbox_insert(*a1),
+                  ci.mailbox_insert_plain(*a1))
+    torch.cuda.synchronize()
+    ckpts = len(rec_a.calls) + len(rec_b.calls)
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"served chaos pack: B={B} n={n} chunk={chunk} lease_ttl_s={ttl_s} "
+        f"wall_s={wall} (the TTL wait included) phase43_main_leg_wall_s="
+        f"{pack_wall} wall_over_phase43={wall / pack_wall} "
+        f"checkpoint_writes={ckpts} supersteps_at_kill="
+        f"{at_kill['supersteps']} "
+        f"host_a={rec_a.per_bucket()} host_b={rec_b.per_bucket()} "
+        f"engine_builds a={len(rec_a.built)} b={len(rec_b.built)} "
+        f"steal={steals[0]} launches={launches}; every streamed result = "
+        "its solo run = its row of phase 27's fleet")
+    return launches, (err2, err1)
+
+
+def _multi_host_pack():
+    """``tests/test_zzzzzzzzzserve.py``'s multi-host pack: 64-node token
+    rings, one faulted, one on another link."""
+    from timewarp_tpu_torch.sweep import SweepPack
+    ring = {"nodes": 64, "n_tokens": 4, "think_us": 2000,
+            "end_us": 1 << 40, "mailbox_cap": 8}
+
+    def cfg(i, seed, budget, **kw):
+        return {"id": f"w{i}", "scenario": "token-ring", "params": ring,
+                "link": "uniform:1000:5000", "seed": seed,
+                "budget": budget, **kw}
+    return SweepPack.from_json([
+        cfg(0, 0, 96), cfg(1, 1, 64, faults="crash:3:5ms:40ms:reset"),
+        cfg(2, 2, 48, link="uniform:2000:7000")])
+
+
+def _multi_host_sweep(device, root, launches=None):
+    """Host ``a`` killed by ``inject="die:2"`` holding its lease, host ``b``
+    stealing after the TTL; the journal's records with the wall-clock
+    fields (``ts``, ``seq``, ``wall_s``) and the heartbeats left out, and
+    the recorders of both hosts (on the card)."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.sweep import SweepJournal, SweepService
+    from timewarp_tpu_torch.sweep.service import SweepKilled
+    pack = _multi_host_pack()
+    recs, killed = [], False
+    for host, kw in (("a", {"inject": "die:2"}),
+                     ("b", {"peer_poll_us": 100_000})):
+        with BucketRecorder() as rec:
+            if launches is not None:
+                torch.cuda.synchronize()
+                ci.reset_launches()
+            try:
+                SweepService(pack, root, chunk=16, host=host,
+                             lease_ttl_s=0.4, device=device, **kw).run()
+            except SweepKilled:
+                killed = True
+            finally:
+                if launches is not None:
+                    for k in launches:
+                        launches[k] += ci.LAUNCHES[k]
+        recs.append(rec)
+        if host == "a":
+            time.sleep(0.5)                 # a's lease goes stale
+    records = [{k: v for k, v in e.items()
+                if k not in ("ts", "seq", "wall_s")}
+               for e in SweepJournal(root).records()
+               if e.get("ev") != "host_heartbeat"]
+    return pack, killed, records, SweepJournal(root).scan(), recs
+
+
+def phase_serve_wire(device, want, n=SERVE_N, steps=SERVE_STEPS):
+    """(a) ``test_serve_tcp_roundtrip_streams_bit_identical``'s path on
+    the card: the port's ``Rpc(Dialog(Transport(AioBackend())))`` frontend
+    over loopback TCP under the port's ``run_real_time``, a curator thread
+    on the card; two of phase 49's configs submitted, awaited and drained;
+    each streamed record equal to phase 49's solo run (``want``), its
+    bucket's run calls K1 = K2 = their fleet supersteps. (b) the multi-host
+    sweep: ``_multi_host_pack`` through ``SweepService(host="a",
+    inject="die:2")`` and then ``host="b"`` on the card and on the CPU:
+    the kill and one steal in each, the journals equal record for record,
+    every result equal to its solo run on the card. Returns the card's
+    launches."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+    from timewarp_tpu_torch.core.effects import Program, fork_, timeout
+    from timewarp_tpu_torch.core.errors import TimeoutExpired
+    from timewarp_tpu_torch.interp.aio.timed import run_real_time
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.manage.sync import Flag
+    from timewarp_tpu_torch.net.backend import AioBackend
+    from timewarp_tpu_torch.net.dialog import Dialog
+    from timewarp_tpu_torch.net.rpc import Rpc
+    from timewarp_tpu_torch.net.transfer import Transport
+    from timewarp_tpu_torch.serve.curator import ServeCurator
+    from timewarp_tpu_torch.serve.frontend import (ServeAwait, ServeDrain,
+                                                   ServeFrontend, ServeSubmit)
+    from timewarp_tpu_torch.sweep import SweepJournal, solo_result
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = tempfile.mkdtemp(prefix="serve-wire-", dir=_scratch())
+    journal = SweepJournal(root, host="alpha")
+    front = ServeFrontend(journal, "alpha", ("127.0.0.1", port), slots=2,
+                          poll_us=50_000)
+    cur = ServeCurator(root, "alpha", chunk=32, lease_ttl_s=30.0,
+                       poll_s=0.05, journal=journal, device=device)
+    server = Rpc(Dialog(Transport(AioBackend())))
+    client = Rpc(Dialog(Transport(AioBackend())))
+    addr = ("127.0.0.1", port)
+    configs = serve_gossip_configs(n, steps)[:2]
+    results = {}
+
+    def call_retry(req) -> Program:
+        for _ in range(40):
+            try:
+                return (yield from timeout(
+                    5_000_000, lambda: client.call(addr, req)))
+            except TimeoutExpired:
+                continue
+        raise AssertionError("service never answered")
+
+    def main() -> Program:
+        yield from fork_(lambda: front.program(server, max_seconds=300))
+        flags = []
+        for d in configs:
+            ack = yield from call_retry(
+                ServeSubmit(json.dumps(d, sort_keys=True)))
+            assert ack.run_id == d["id"], ack
+            flag = Flag()
+            flags.append(flag)
+
+            def mk(rid=ack.run_id, flag=flag):
+                def prog() -> Program:
+                    r = yield from call_retry(ServeAwait(rid))
+                    results[rid] = json.loads(r.record_json)
+                    yield from flag.set()
+                return prog
+            yield from fork_(mk())
+        for flag in flags:
+            yield from flag.wait()
+        yield from call_retry(ServeDrain())
+        yield from client.dialog.transport.close(addr)
+
+    with BucketRecorder() as rec:
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        try:
+            th, box = _in_thread(cur.run, max_seconds=300)
+            _, wall = _timed(lambda: run_real_time(main))
+            _join("serve over TCP, curator", th, box, timeout=120)
+        finally:
+            for k in launches:
+                launches[k] += ci.LAUNCHES[k]
+    journal.close()
+    shutil.rmtree(root, ignore_errors=True)
+    _require_all("serve over TCP", {
+        "the curator drained without an error": "err" not in box,
+        "both records streamed": sorted(results) == ["w0", "w1"]})
+    _survival("serve over TCP", {r: results[r]["result"] for r in results},
+              {d["id"]: want[d["id"]] for d in configs})
+    rec.check("serve over TCP")
+    say(f"serve over TCP: 2 configs of phase 49 submitted, streamed and "
+        f"drained over loopback TCP in {wall} s; every streamed record = "
+        f"its solo run; buckets={rec.per_bucket()}")
+
+    out = []
+    for dev, count in ((device, launches), ("cpu", None)):
+        jd = tempfile.mkdtemp(prefix="multi-host-", dir=_scratch())
+        out.append(_multi_host_sweep(dev, jd, count))
+        shutil.rmtree(jd, ignore_errors=True)
+    (pack, ka, ra, sa, recs), (_, kb, rb, _, _) = out
+    solo = {c.run_id: solo_result(c, device=device) for c in pack.configs}
+    steals = [e for e in sa.events if e.get("ev") == "lease_acquire"
+              and e.get("stolen_from")]
+    _require_all("multi-host sweep", {
+        "host a killed in both runs": ka and kb,
+        "one steal, by b from a": len(steals) == 1
+        and steals[0]["host"] == "b" and steals[0]["stolen_from"] == "a",
+        "every world journaled once": sorted(
+            e["result"]["run_id"] for e in sa.events
+            if e.get("ev") == "world_done") == sorted(solo),
+        "card journal = CPU journal, record for record": ra == rb})
+    _survival("multi-host sweep", sa.done, solo)
+    for host, r in zip("ab", recs):
+        r.check(f"multi-host sweep, host {host}")
+    say(f"multi-host sweep: 3 worlds, host a killed by die:2, host b stole "
+        f"{steals[0]['bucket']}; {len(ra)} journal records equal on the card "
+        f"and the CPU (ts, seq, wall_s and heartbeats aside); every result = "
+        f"its solo run; launches={launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3525,6 +4115,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from timewarp_tpu_torch.utils import build
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     smi = nvidia_smi()
     say(smi)
@@ -3540,68 +4131,76 @@ def main() -> int:
         say(f"build {name}: nvcc_s={rec.seconds:.3f} lib={rec.path} "
             f"ptxas={regs}")
 
-    err_k2 = phase_compact(device)
-    err_k1 = phase_insert(device)
-    launches, steps, gossip_fin = phase_main_path(device)
-    phase_card_vs_cpu(device)
-    k2, k1 = phase_times(device)
+    def timed(phase, fn, *a, **kw):
+        out, wall = _timed(lambda: fn(*a, **kw))
+        say(f"phase {phase} wall_s={wall}")
+        return out
+
+    err_k2 = timed(2, phase_compact, device)
+    err_k1 = timed(3, phase_insert, device)
+    launches, steps, gossip_fin = timed(4, phase_main_path, device)
+    timed(5, phase_card_vs_cpu, device)
+    k2, k1 = timed(6, phase_times, device)
     from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
     sc, link = gossip_wave(SLICE_N)
-    phase_where_time_goes(
-        "gossip wave (TorchEngine)",
-        TorchEngine(sc, link, window="auto", insert_cap=SLICE_S,
-                    device=device), warm=30, steps=10)
+    timed(7, phase_where_time_goes,
+          "gossip wave (TorchEngine)",
+          TorchEngine(sc, link, window="auto", insert_cap=SLICE_S,
+                      device=device), warm=30, steps=10)
 
     k3_inputs = sample_inputs(device)
-    err_k3 = phase_sample_insert(device, k3_inputs)
-    praos_launches, praos_eng = phase_praos_main_path(device)
+    err_k3 = timed(8, phase_sample_insert, device, k3_inputs)
+    praos_launches, praos_eng = timed(9, phase_praos_main_path, device)
     launches["sample_insert"] = praos_launches["sample_insert"]
-    phase_fused_equals_general(device)
-    phase_fused_card_vs_cpu(device)
-    phase_fused_gossip(device, gossip_fin)
-    k3 = phase_time_k3(device, k3_inputs)
-    phase_where_time_goes("praos (FusedSparseEngine)", praos_eng, warm=16,
-                          steps=32)
+    timed(10, phase_fused_equals_general, device)
+    timed(11, phase_fused_card_vs_cpu, device)
+    timed(12, phase_fused_gossip, device, gossip_fin)
+    k3 = timed(13, phase_time_k3, device, k3_inputs)
+    timed(14, phase_where_time_goes, "praos (FusedSparseEngine)", praos_eng,
+          warm=16, steps=32)
 
-    err_k4 = phase_fused_ring_kernel(device)
-    ring_launches, ring_eng, ring_fin = phase_ring_main_path(device)
+    err_k4 = timed(15, phase_fused_ring_kernel, device)
+    ring_launches, ring_eng, ring_fin = timed(16, phase_ring_main_path,
+                                              device)
     launches["fused_ring"] = ring_launches["fused_ring"]
-    phase_fused_ring_equals_edge(device)
-    phase_edge_card_vs_cpu(device)
-    k4 = phase_time_k4(device, ring_fin.planes)
+    timed(17, phase_fused_ring_equals_edge, device)
+    timed(18, phase_edge_card_vs_cpu, device)
+    k4 = timed(19, phase_time_k4, device, ring_fin.planes)
     from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
-    phase_where_time_goes("dense ring (FusedRingEngine)", ring_eng, warm=16,
-                          steps=256)
-    phase_where_time_goes("dense ring (EdgeEngine)",
-                          EdgeEngine(*dense_ring(RING_N), device=device),
-                          warm=16, steps=32)
 
-    steady_launches, steady_eng, steady_fin = phase_steady_main_path(device)
+    def ring_profiles():
+        phase_where_time_goes("dense ring (FusedRingEngine)", ring_eng,
+                              warm=16, steps=256)
+        phase_where_time_goes("dense ring (EdgeEngine)",
+                              EdgeEngine(*dense_ring(RING_N), device=device),
+                              warm=16, steps=32)
+    timed(20, ring_profiles)
+
+    steady_launches, steady_eng, steady_fin = timed(
+        21, phase_steady_main_path, device)
     launches["mailbox_insert"] += steady_launches["mailbox_insert"]
-    phase_eager_equals_lazy(device)
-    phase_routing_card_vs_cpu(device)
-    err_k1_eager, _ = phase_k1_eager(device, steady_eng, steady_fin)
+    timed(22, phase_eager_equals_lazy, device)
+    timed(23, phase_routing_card_vs_cpu, device)
+    err_k1_eager, _ = timed(24, phase_k1_eager, device, steady_eng,
+                            steady_fin)
     err_k1 = max(err_k1, err_k1_eager)
-    phase_where_time_goes("steady gossip (TorchEngine, eager)", steady_eng,
-                          warm=64, steps=32)
+    timed(25, phase_where_time_goes, "steady gossip (TorchEngine, eager)",
+          steady_eng, warm=64, steps=32)
 
-    err_k2_fleet, err_k1_fleet = phase_fleet_kernels(device)
-    chaos_launches, chaos_eng, chaos_fin = phase_chaos_main_path(device)
+    err_k2_fleet, err_k1_fleet = timed(26, phase_fleet_kernels, device)
+    chaos_launches, chaos_eng, chaos_fin = timed(27, phase_chaos_main_path,
+                                                 device)
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += chaos_launches[k]
-    phase_fleet_card_vs_cpu(device)
-    phase_fleet_checkpoint(device, chaos_eng)
-    err_fleet, _, _ = phase_fleet_times(device, chaos_eng,
-                                        chaos_eng.run_quiet(96))
-    phase_where_time_goes("chaos fleet (TorchEngine, B 8, faults)", chaos_eng,
-                          warm=96, steps=32)
+    timed(28, phase_fleet_card_vs_cpu, device)
+    timed(29, phase_fleet_checkpoint, device, chaos_eng)
+    err_fleet, _, _ = timed(30, phase_fleet_times, device, chaos_eng,
+                            chaos_eng.run_quiet(96))
+    timed(31, phase_where_time_goes, "chaos fleet (TorchEngine, B 8, faults)",
+          chaos_eng, warm=96, steps=32)
     err_k2 = max(err_k2, err_k2_fleet, err_fleet)
     err_k1 = max(err_k1, err_k1_fleet, err_fleet)
 
-    def timed(phase, fn, *a):
-        out, wall = _timed(lambda: fn(*a))
-        say(f"phase {phase} wall_s={wall}")
-        return out
     timed(32, phase_verified_wave, device)
     timed(33, phase_flight_wave, device)
     planes_launches, _ = timed(34, phase_planes_main_path, device, chaos_fin)
@@ -3622,7 +4221,7 @@ def main() -> int:
     timed(41, phase_spec_times, device, spec_eng, cons_eng, wide)
 
     hetero_launches, hetero_keep = timed(42, phase_sweep_hetero, device)
-    pack_launches, pack_errs, pack, pack_wall, pack_util = timed(
+    pack_launches, pack_errs, pack, pack_wall, pack_util, pack_want = timed(
         43, phase_chaos_pack, device, chaos_eng, chaos_fin)
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += hetero_launches[k] + pack_launches[k]
@@ -3641,6 +4240,17 @@ def main() -> int:
     err_k2 = max(err_k2, fork_errs[0])
     err_k1 = max(err_k1, fork_errs[1])
 
+    serve_launches, serve_want = timed(49, phase_serve_gossip, device)
+    served_launches, served_errs = timed(50, phase_served_chaos, device,
+                                         pack_want, pack_wall)
+    wire_launches = timed(51, phase_serve_wire, device, serve_want)
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += (serve_launches[k] + served_launches[k]
+                        + wire_launches[k])
+    err_k2 = max(err_k2, served_errs[0])
+    err_k1 = max(err_k1, served_errs[1])
+
+    say(f"chip_smoke wall_s={time.perf_counter() - t_start}")
     kernels = []
     for name, src, repl, err, r in (
             ("fire_compact", "timewarp_tpu_torch/csrc/fire_compact.cu",

@@ -5,16 +5,19 @@ of it) in a fresh interpreter leaves ``jax`` and the reference package
 ``integrity``, ``dispatch``, ``speculate`` and ``controlled.py`` also
 imported first and alone, and so are the sweep service's packages
 ``sweep``, ``pack``, ``manage`` and ``interp.aio``, the chaos search's
-``search`` and the cross-run plane's ``obs.ledger``, ``obs.regress`` and
-``obs.watch``); every engine (``TorchEngine``, ``FusedSparseEngine``,
+``search``, the cross-run plane's ``obs.ledger``, ``obs.regress`` and
+``obs.watch``, and the network stack's and serving layer's ``net`` and
+``serve``); every engine (``TorchEngine``, ``FusedSparseEngine``,
 ``EdgeEngine``, ``FusedRingEngine``), the sweep's entry points
-(``SweepService``, ``build_bucket_engine``, ``solo_result``) and the
+(``SweepService``, ``build_bucket_engine``, ``solo_result``), the
 search's (``ChaosSearch``, ``evaluate_configs``, ``rejudge_repro``,
-``minimize_counterexample``, ``fork_bucket``) run on the card by
-default, raising on a machine without CUDA unless the caller passes
+``minimize_counterexample``, ``fork_bucket``) and the serving layer's
+(``OpenBucketRunner``, ``ServeCurator``) run on the card by default,
+raising on a machine without CUDA unless the caller passes
 ``device="cpu"``; and what the port does not have yet is refused loudly:
-``lint="warn"``/``"error"`` and ``SweepService(host=...)``, while
-``fit_from_ledger`` reads the port's run ledger.
+``lint="warn"``/``"error"``, while ``SweepService(host=...)`` runs on the
+serving layer's leases and ``fit_from_ledger`` reads the port's run
+ledger.
 
 Tolerance: exact (membership and source checks).
 """
@@ -69,7 +72,10 @@ def test_import_leaves_jax_and_reference_out():
               "sweep.runner", "sweep.service", "search", "search.domain",
               "search.mutate", "search.objectives", "search.minimize",
               "search.fork", "search.campaign", "obs.ledger",
-              "obs.regress", "obs.watch"):
+              "obs.regress", "obs.watch", "net", "net.message",
+              "net.backend", "net.transfer", "net.dialog", "net.rpc",
+              "serve", "serve.hosts", "serve.lease", "serve.worker",
+              "serve.curator", "serve.frontend"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -88,7 +94,9 @@ def test_import_leaves_jax_and_reference_out():
                                  "interp.torch_engine.controlled", "sweep",
                                  "pack", "manage", "interp.aio", "search",
                                  "obs.ledger", "obs.regress",
-                                 "obs.watch"])
+                                 "obs.watch", "net", "net.backend",
+                                 "net.rpc", "serve", "serve.worker",
+                                 "serve.curator", "serve.frontend"])
 def test_plane_packages_import_alone(mod):
     """Each run-mode plane's package, imported first and alone in a fresh
     interpreter (the plane modules copied from the reference keep their
@@ -154,6 +162,22 @@ def test_engine_raises_without_cuda_unless_cpu_requested():
         with pytest.raises(RuntimeError, match="CUDA"):
             cls(ring, FixedDelay(500), device="cuda")
         assert cls(ring, FixedDelay(500), device="cpu").device.type == "cpu"
+
+
+def test_serve_raises_without_cuda_unless_cpu_requested(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is valid")
+    from timewarp_tpu_torch.serve.curator import ServeCurator
+    from timewarp_tpu_torch.serve.worker import OpenBucketRunner
+    jd = str(tmp_path / "j")
+    for call in (lambda **kw: OpenBucketRunner("sb0", None, {}, capacity=2,
+                                               window=1, **kw),
+                 lambda **kw: ServeCurator(jd, "h0", **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(device="cuda")
+        assert call(device="cpu").device.type == "cpu"
 
 
 def _sweep_pack():
@@ -240,8 +264,24 @@ def test_sweep_refuses_what_the_port_lacks(tmp_path):
                                          device="cpu")):
             with pytest.raises(NotImplementedError, match="item 10"):
                 call()
-    with pytest.raises(NotImplementedError, match="serve slice"):
-        SweepService(pack, jd, host="h0", device="cpu")
+    from timewarp_tpu_torch.serve.curator import ServeCurator
+    from timewarp_tpu_torch.serve.frontend import ServeFrontend
+    from timewarp_tpu_torch.serve.worker import OpenBucketRunner
+    from timewarp_tpu_torch.sweep.journal import SweepJournal
+    sd = str(tmp_path / "s")
+    for lint in ("warn", "error"):
+        for call in (
+                lambda: OpenBucketRunner("sb0", None, {}, capacity=2,
+                                         window=1, lint=lint,
+                                         device="cpu"),
+                lambda: ServeCurator(sd, "h0", lint=lint, device="cpu"),
+                lambda: ServeFrontend(SweepJournal(sd, host="h0"), "h0",
+                                      ("127.0.0.1", 1), lint=lint)):
+            with pytest.raises(NotImplementedError, match="item 10"):
+                call()
+    # multi-host sweeps run on the serving layer's leases (no refusal)
+    svc = SweepService(pack, str(tmp_path / "h"), host="h0", device="cpu")
+    assert svc.host == "h0" and svc.leases is not None
     # the run ledger is ported: a directory without one is refused as
     # the reference refuses it, naming the ingest that makes one
     with pytest.raises(PackFitError, match="not a run ledger"):

@@ -70,8 +70,10 @@ def seed_words(seed: int) -> Tuple[int, int]:
     return int(a), int(b)
 
 
-def _t_words(t: torch.Tensor):
-    t = t.to(torch.int64)
+def _t_words(t):
+    """A time's low and high uint32 words: of an int64 tensor, or of a
+    Python int (the host-side draws of ``net/backend.py``)."""
+    t = t.to(torch.int64) if isinstance(t, torch.Tensor) else int(t)
     return t & MASK32, (t >> 32) & MASK32
 
 

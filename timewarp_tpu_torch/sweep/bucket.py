@@ -49,8 +49,8 @@ import numpy as np
 from .spec import (RunConfig, build_scenario, link_signature,
                    link_sweep_params, resolve_window)
 
-__all__ = ["Bucket", "plan_buckets", "build_bucket_engine",
-           "tile_world_state"]
+__all__ = ["Bucket", "plan_buckets", "bucket_identity",
+           "build_bucket_engine", "tile_world_state"]
 
 
 @dataclass(frozen=True)
@@ -160,26 +160,18 @@ def plan_buckets(configs, max_bucket: int = 64, *,
     return buckets
 
 
-def build_bucket_engine(bucket: Bucket, *, lint: str = "off",
-                        telemetry: str = "off", controller=None,
-                        verify: str = "off", record: str = "off",
-                        record_cap=None, device=None):
-    """One batched :class:`~timewarp_tpu_torch.interp.torch_engine.
-    engine.TorchEngine` on ``device`` (the card by default) serving
-    every world of the bucket: K2 and K1 run once per fleet superstep
-    for all of its worlds. World b's seed,
-    sweepable link values, and (padded) fault schedule are exactly
-    the solo run's — the batch exactness law then carries the sweep
-    survival law (telemetry included: the counter planes feed nothing
-    back, so the streamed results are mode-independent, obs/)."""
+def bucket_identity(bucket: Bucket):
+    """The bucket's per-world identity as ``(spec, links, fleet)``: the
+    :class:`~timewarp_tpu_torch.interp.torch_engine.batched.BatchSpec`
+    of seeds and sweepable link values, every world's link model, and
+    the padded :class:`~timewarp_tpu_torch.faults.schedule.FaultFleet`
+    (None when no world has faults and no pad is pinned). The serving
+    layer's open buckets rebind an engine to it
+    (``TorchEngine.rebind_identity``) before paying for a build."""
     from ..faults.schedule import FaultFleet, FaultSchedule
     from ..interp.torch_engine.batched import BatchSpec
-    from ..interp.torch_engine.engine import TorchEngine
-    from .spec import check_lint
 
-    check_lint(lint, "build_bucket_engine")
     cfgs = bucket.configs
-    sc = build_scenario(cfgs[0].family, cfgs[0].params)
     links = [c.parse_link() for c in cfgs]
     rows = [link_sweep_params(lk) for lk in links]
     link_params = {path: np.asarray([r[path] for r in rows])
@@ -200,6 +192,29 @@ def build_bucket_engine(bucket: Bucket, *, lint: str = "off",
     empty = all(not s.events for s in scheds)
     fleet = None if empty and (pad is None or tuple(pad) == (0, 0, 0)) \
         else FaultFleet(tuple(scheds))
+    return spec, links, fleet
+
+
+def build_bucket_engine(bucket: Bucket, *, lint: str = "off",
+                        telemetry: str = "off", controller=None,
+                        verify: str = "off", record: str = "off",
+                        record_cap=None, device=None):
+    """One batched :class:`~timewarp_tpu_torch.interp.torch_engine.
+    engine.TorchEngine` on ``device`` (the card by default) serving
+    every world of the bucket: K2 and K1 run once per fleet superstep
+    for all of its worlds. World b's seed,
+    sweepable link values, and (padded) fault schedule are exactly
+    the solo run's (:func:`bucket_identity`) — the batch exactness law
+    then carries the sweep
+    survival law (telemetry included: the counter planes feed nothing
+    back, so the streamed results are mode-independent, obs/)."""
+    from ..interp.torch_engine.engine import TorchEngine
+    from .spec import check_lint
+
+    check_lint(lint, "build_bucket_engine")
+    cfgs = bucket.configs
+    sc = build_scenario(cfgs[0].family, cfgs[0].params)
+    spec, links, fleet = bucket_identity(bucket)
     if bucket.controller and telemetry == "off":
         # an auto controller reads last_run_telemetry between chunks
         # — a controller bucket without the sensor layer cannot

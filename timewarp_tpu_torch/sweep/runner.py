@@ -157,6 +157,15 @@ class BucketRunner:
         #: per-world sha256 digest chain over the verified epochs
         self.vchain: Optional[List[str]] = None
         self.attempts = 0
+        #: multi-host mode (serve/lease.py, docs/serving.md): the
+        #: bucket lease this runner executes under — renewed at every
+        #: chunk entry (the heartbeat) and CHECKED before every
+        #: journal commit, so a host whose lease was reclaimed (it
+        #: stalled past the TTL and a peer stole the bucket) abandons
+        #: via LeaseLost instead of double-journaling. None in
+        #: single-host mode: zero behavior change.
+        self.lease = None
+        self.lease_dir = None
         #: attempt generation (module docstring): bumped by
         #: begin_attempt and by abandon, so a zombie thread's stamped
         #: epoch can never match again
@@ -204,6 +213,19 @@ class BucketRunner:
             raise StaleAttempt(
                 f"bucket {self.bucket.bucket_id!r}: attempt epoch "
                 f"{epoch} was abandoned (current {self.epoch})")
+
+    def _lease_renew(self) -> None:
+        """Chunk-entry heartbeat (multi-host mode): raises LeaseLost
+        when the bucket was reclaimed by a peer."""
+        if self.lease is not None:
+            self.lease_dir.renew(self.lease)
+            self.journal.maybe_heartbeat()
+
+    def _lease_check(self) -> None:
+        """Pre-commit guard (multi-host mode): never journal for a
+        bucket we no longer hold."""
+        if self.lease is not None:
+            self.lease_dir.check(self.lease)
 
     # -- blocking entry points (run on an executor thread) ---------------
 
@@ -337,6 +359,7 @@ class BucketRunner:
         """One chunk (module docstring). Returns ``"running"`` or
         ``"done"`` (every world's result is journaled)."""
         self._check(epoch)
+        self._lease_renew()
         if self.inject is not None:
             self.inject()
             # the flip: form corrupts the in-memory state between
@@ -393,6 +416,7 @@ class BucketRunner:
                                supersteps[int(b)], host)
             with self._lock:
                 self._check(epoch)
+                self._lease_check()
                 # wall_s / attempts are observability metadata on the
                 # RECORD, deliberately outside "result": the sweep
                 # survival law (and resume's replayed-record equality)
@@ -424,6 +448,7 @@ class BucketRunner:
             t_now = int(st.time.min())
             with self._lock:
                 self._check(epoch)
+                self._lease_check()
                 dec, fresh = self.ctrl.decide(
                     ci, eng.last_run_telemetry, t_now)
                 if fresh and not self._spec:
@@ -557,6 +582,7 @@ class BucketRunner:
         top = int(vec.max())
         with self._lock:
             self._check(epoch)
+            self._lease_check()
             if self._spec and ci not in self._journaled:
                 # the commit-time half of the speculation journaling
                 # discipline (ctor comment): the decision that
@@ -660,6 +686,7 @@ class BucketRunner:
         rec = self.utilization()
         with self._lock:
             self._check(epoch)
+            self._lease_check()
             self.journal.append({"ev": "bucket_util", **rec})
             if self.record != "off":
                 # per-world flight-event counts (this process's) —

@@ -46,10 +46,10 @@ from their last checkpoint, and the per-world digest chains continue
 to the same value an uninterrupted run produces (the sweep survival
 law, docs/sweeps.md).
 
-The port's differences, each refused loudly rather than run silently
+The port's difference, refused loudly rather than run silently
 without: ``lint`` is ``"off"`` only (no pre-flight analysis yet,
-ROADMAP queue 1 item 10), and ``host=`` (multi-host leases,
-serve/lease.py) waits for the serve slice. The bucket engines run on
+ROADMAP queue 1 item 10). ``host=`` runs the reference's multi-host
+mode on the port's leases (serve/lease.py). The bucket engines run on
 ``device`` — the card unless ``device="cpu"`` is passed — and on the
 card :meth:`SweepService.run` builds the kernels before the
 supervision loop starts, so a first-use ``nvcc`` never counts against
@@ -249,6 +249,8 @@ class SweepService:
                  record: str = "off",
                  post_verify: bool = False,
                  host: Optional[str] = None,
+                 lease_ttl_s: float = 30.0,
+                 peer_poll_us: int = 500_000,
                  pack_mode: str = "first-fit",
                  pack_artifact: Optional[str] = None,
                  device=None) -> None:
@@ -281,15 +283,19 @@ class SweepService:
                 "(engine.run_verified, docs/integrity.md)")
         self.pack = pack
         # multi-host mode (--hosts, docs/serving.md "Multi-host
-        # sweeps") claims buckets through per-bucket leases
-        # (serve/lease.py), which the port has not yet
+        # sweeps"): N cooperating SweepService processes share one
+        # journal dir — each appends to its own per-host file, claims
+        # buckets through per-bucket leases, and STEALS a dead peer's
+        # buckets after the lease TTL. host=None is the unchanged
+        # single-host service, byte-identical to r10's.
+        self.host = host
+        self.journal = SweepJournal(journal_dir, host=host)
+        self.leases = None
         if host is not None:
-            raise NotImplementedError(
-                f"SweepService(host={host!r}): multi-host sweeps run "
-                "on the serving layer's bucket leases (serve/lease.py), "
-                "which the torch port does not have yet (ROADMAP queue "
-                "1 item 8, the serve slice); run one host (host=None)")
-        self.journal = SweepJournal(journal_dir)
+            from ..serve.lease import LeaseDir
+            self.leases = LeaseDir(journal_dir, host,
+                                   ttl_s=lease_ttl_s)
+        self.peer_poll_us = int(peer_poll_us)
         #: the bucket engines' device (the card unless the caller
         #: passes device="cpu"; no CUDA and no device= raises here)
         self.device = resolve_device(device, type(self).__name__)
@@ -627,10 +633,83 @@ class SweepService:
                        "attempt(s): %s", cfg.run_id, runner.attempts,
                        reason)
 
+    def _refresh_settled(self) -> None:
+        """Merged-journal re-scan (multi-host mode): fold in results
+        and failures peers streamed — the steal path's dedup source
+        (a thief's runner seeds ``emitted`` from ``done``, so worlds
+        the dead holder already journaled are never re-journaled)."""
+        scan = SweepJournal(self.journal.root).scan()
+        self.done.update(scan.done)
+        self.failed.update(scan.failed)
+
+    def _settled(self, runner: BucketRunner) -> bool:
+        return all(c.run_id in self.done or c.run_id in self.failed
+                   for c in runner.bucket.configs)
+
+    def _release_lease(self, runner: BucketRunner) -> None:
+        if runner.lease is None:
+            return
+        try:
+            self.journal.append({"ev": "lease_release",
+                                 "bucket": runner.bucket.bucket_id,
+                                 "host": self.host})
+        finally:
+            self.leases.release(runner.lease)
+            runner.lease = None
+
     def _supervise(self, queue: deque) -> Program:
+        from functools import partial
+
+        from ..serve.lease import LeaseLost
         jc = JobCurator()
-        while queue:
+        #: buckets currently leased by a live peer — re-checked each
+        #: poll round (a dead peer's lease goes stale and is stolen)
+        deferred: deque = deque()
+        while queue or deferred:
+            if not queue:
+                yield Wait(self.peer_poll_us)
+                yield from self._io(self._refresh_settled)
+                self.journal.maybe_heartbeat()
+                queue.extend(deferred)
+                deferred.clear()
+                continue
             runner: BucketRunner = queue.popleft()
+            if self.leases is not None:
+                if self._settled(runner):
+                    continue        # a peer finished it while we waited
+                if runner.lease is not None:
+                    # a retrying runner keeps its lease; just renew
+                    try:
+                        yield from self._io(partial(
+                            self.leases.renew, runner.lease))
+                    except LeaseLost:
+                        runner.lease = None
+                if runner.lease is None:
+                    lease = yield from self._io(partial(
+                        self.leases.try_acquire,
+                        runner.bucket.bucket_id))
+                    if lease is None:
+                        deferred.append(runner)
+                        continue
+                    self.journal.append(
+                        {"ev": "lease_acquire",
+                         "bucket": runner.bucket.bucket_id,
+                         "host": self.host, "gen": lease.gen,
+                         "stolen_from": lease.stolen_from})
+                    if lease.stolen_from:
+                        _log.warning(
+                            "sweep[%s]: STOLE bucket %s from dead "
+                            "host %s (stale lease reclaimed)",
+                            self.host, runner.bucket.bucket_id,
+                            lease.stolen_from)
+                    runner.lease = lease
+                    runner.lease_dir = self.leases
+                    # fold in whatever the previous holder (or any
+                    # peer) streamed before we run a single chunk
+                    yield from self._io(self._refresh_settled)
+                    if self._settled(runner):
+                        self._release_lease(runner)
+                        continue
             self.journal.append({"ev": "bucket_start",
                                  "bucket": runner.bucket.bucket_id,
                                  "attempt": runner.attempts + 1})
@@ -648,11 +727,23 @@ class SweepService:
             if out.ok:
                 self.journal.append({"ev": "bucket_done",
                                      "bucket": runner.bucket.bucket_id})
+                self._release_lease(runner)
                 continue
             err = out.error
             if isinstance(err, SweepKilled):
-                # the injected hard kill aborts the process mid-bucket
+                # the injected hard kill aborts the process WITHOUT
+                # releasing the lease — exactly what a real host death
+                # leaves behind; a peer steals after the TTL
                 raise err
+            if isinstance(err, LeaseLost):
+                # the bucket was reclaimed by a peer (we stalled past
+                # the TTL): not a failure, not a retry — the thief
+                # continues from the shared checkpoint; re-check the
+                # worlds as settled on a later poll round
+                _log.warning("sweep[%s]: %s", self.host, err)
+                runner.lease = None
+                deferred.append(runner)
+                continue
             from ..integrity.checks import IntegrityViolation
             if isinstance(err, IntegrityViolation):
                 # detected state corruption (or a real bug surfacing
@@ -697,6 +788,9 @@ class SweepService:
                 else:
                     self._terminal_failure(runner, f"device OOM on a "
                                            f"solo bucket: {err}")
+                # split children claim their own leases; the parent's
+                # is done either way
+                self._release_lease(runner)
                 continue
             reason = ("bucket watchdog timeout "
                       f"({self.bucket_timeout_us} µs)" if out.timed_out
@@ -728,6 +822,7 @@ class SweepService:
             else:
                 self._terminal_failure(
                     runner, f"{reason} (retries exhausted)")
+                self._release_lease(runner)
         # end of sweep: Force-clear anything still straggling at the
         # grace deadline (a wedged executor thread's job) — the
         # service must terminate even when a chunk never returns
