@@ -57,7 +57,8 @@ nodes):
     ``TorchEngine`` (K2 + K1) and ``FusedSparseEngine`` (K3), every state
     leaf equal;
 11. card against CPU for the fused engine: integer-link Praos at 2^14
-    through ``run`` to quiescence, equal traces and final states;
+    through ``run`` for 100 supersteps (half its run to quiescence),
+    equal traces and final states;
 12. the gossip wave of phase 4 through ``FusedSparseEngine``: the same
     supersteps, delivered count and final state as phase 4;
 13. K3's time, its plain version's time and its bound: bytes over
@@ -79,8 +80,8 @@ then the static-topology slice (kernel K4, the dense token ring at 2^20):
     ``FusedRingEngine`` through ``to_edge_state``, every leaf, at 12 and
     64 supersteps of the dense ring, and on a sparse ring;
 18. the edge engine on the card against the CPU at 2^14: ``run`` on a
-    ``UniformDelay`` sparse ring and on a permutation (gather) topology,
-    equal traces and final states;
+    ``UniformDelay`` sparse ring (300 supersteps) and on a permutation
+    (gather) topology (150), equal traces and final states;
 19. K4's time, its plain version's time and its bound;
 20. where the dense ring's time goes, on ``FusedRingEngine`` and on
     ``EdgeEngine``, as phase 7;
@@ -98,7 +99,8 @@ width, steady gossip at 2^20):
 22. eager = lazy at 2^20: the same run through ``run`` on the eager path
     and on the lazy one (``route_cap = n * max_out``) for 64 supersteps,
     equal traces and every state leaf, ``route_drop`` 0;
-23. card against CPU at 2^14 through ``run``, equal traces and final
+23. card against CPU at 2^14 through ``run`` (each case for half the
+    supersteps of its run to its end), equal traces and final
     states: a droppy windowed gossip (eager, 3-key sort) with
     ``record_events``, whose ``events()`` are equal too, a lazy Praos
     whose ``route_cap`` is below its active count (``route_drop > 0``),
@@ -126,8 +128,9 @@ width, steady gossip at 2^20):
     ``route_drop`` 0, ``fault_dropped > 0`` and at most ``max(n // 500,
     8)`` nodes uninfected in every world;
 28. fleet card against CPU at 2^12 nodes, 3 worlds, in each routing
-    regime: adaptive and eager under per-world fault schedules, lazy
-    under a link sweep;
+    regime (75, 97 and 100 supersteps, half the longest world's run to
+    its end or its budget of 200): adaptive and eager under per-world fault schedules,
+    lazy under a link sweep;
 29. the chaos fleet saved mid-run on the card (utils/checkpoint.py) and
     resumed equals the uninterrupted run; ``load_world_state`` of one
     world continued solo equals that world;
@@ -162,7 +165,8 @@ controlled runs) on the torch engines:
     supersteps than the static engine at the degraded 2 000 µs with the
     same events, and its replay (the replay law); then the telemetry gate
     on ``gossip_100k_fused`` (K3): counters = off, the overhead fraction;
-36. card against CPU with every plane on: ``TorchEngine`` adaptive (2^14),
+36. card against CPU with every plane on, 48 supersteps each run:
+    ``TorchEngine`` adaptive (2^14),
     eager, lazy and a 3-world faulted fleet (2^12), ``FusedSparseEngine``
     and ``EdgeEngine`` (2^14): frames, flight logs, integrity records,
     decision traces, traces and states equal;
@@ -179,8 +183,8 @@ rollback) on ``TorchEngine``:
     quiescence, against the conservative ``window="auto"`` run: the
     equivalence law on the canonical surface bit for bit, strictly fewer
     supersteps, overflow 0; both superstep counts, windows, chunks and
-    rollbacks, both walls (the conservative one through ``run_quiet``),
-    and K1's and K2's launches, those of rolled-back chunks apart;
+    rollbacks, both walls (each through its traced driver), and K1's and
+    K2's launches, those of rolled-back chunks apart;
 39. a speculative fleet with a masked rollback: 8 worlds of that gossip
     at 100 000 nodes under ``fixed:8000``, Pareto ``xm_us`` below 8 ms in
     the even worlds and above it in the odd ones: ``1 <= rerun_worlds <=
@@ -199,18 +203,20 @@ every bucket a ``TorchEngine(batch=...)`` on the card, each of its ``run``
 calls recorded (phases 38 and 39 also time K2 and K1 on the superstep
 they check):
 
-42. ``bench.py`` ``sweep_hetero`` at 4096 nodes and 500 steps (its
-    default 2000 took chip_smoke past 1000 s, and so did 1000 with phases
-    46-48 on a slow host: three token rings, one faulted, and two
-    windowed burst gossips)
+42. ``bench.py`` ``sweep_hetero`` at 4096 nodes and 256 steps (its
+    default 2000, and 1000 and 500, took chip_smoke past its time limit
+    on slow hosts: three token rings, one faulted, and two windowed burst
+    gossips)
     through ``SweepService`` twice, ``pack_mode="first-fit"`` and
     ``"predicted"``, each with ``inject="fail:2"`` and ``max_bucket=2``:
     a retry in each, every streamed record equal to the port's
-    ``solo_result`` on the card, the bench's packing gates, K1 once per
+    ``solo_result`` on the CPU, the bench's packing gates, K1 once per
     fleet superstep of every bucket ``run`` call and K2 as often on
     adaptive buckets; each bucket's regime, supersteps and launches;
 43. the 8 worlds of ``bench.py`` ``gossip_100k_chaos`` as a pack (the
-    ``--faults`` grammar), one bucket of 8 x 100 000 nodes, ``chunk=64``,
+    ``--faults`` grammar) at a budget of 192 supersteps (they quiesce in
+    304-515; each world gated past the last fault window's end, 120 ms),
+    one bucket of 8 x 100 000 nodes, ``chunk=64``,
     ``verify="digest"``: with ``inject="fail:2"``, killed by ``die:3``
     and resumed, split 4 + 4 by ``oom:2`` — every streamed record equal to
     the world's solo run on the card and to world b's row of phase 27's
@@ -246,7 +252,7 @@ each):
     on the fork fleet's busiest superstep, and their times there;
 48. a campaign at 100 000 nodes: ``chaos-0`` without faults under
     ``convergence:LIMIT`` (its own quiescence instant), population 8, 3
-    generations, ``fork_k`` 2, ``minimize_trials`` 4; a found repro
+    generations, ``fork_k`` 2, ``minimize_trials`` 2; a found repro
     re-fails solo on the card; then phase 46's and 48's journals and
     phase 42's predicted leg in the port's ``RunLedger``:
     ``fit_from_ledger`` = ``fit_rows``, the ``SweepWatch`` snapshot =
@@ -266,7 +272,7 @@ supersteps in each):
     first leg's results: ``engine_builds`` 1 and one engine built, the
     late half's slots idle in the first ``run`` call and live in a later
     one (the bucket runs past its largest budget), every ``world_done``
-    equal to its solo run on the card, one ``pack_decision`` before each
+    equal to its solo run on the CPU, one ``pack_decision`` before each
     admit naming its bucket (predicted); served configs/s, admissions/s,
     p50/p95 submit-to-``world_done``;
 50. phase 43's chaos pack served at 100 000 nodes: four worlds admitted
@@ -285,15 +291,59 @@ supersteps in each):
     records = phase 49's solo runs), and ``tests/test_zzzzzzzzzserve.py``'s
     multi-host pack through ``SweepService(host="a", inject="die:2")``
     then ``host="b"`` on the card and on the CPU: equal journals (the
-    wall-clock fields and heartbeats aside), every result = its solo run.
+    wall-clock fields and heartbeats aside), every result = its solo run;
+
+then the multi-device slice (``timewarp_tpu_torch/parallel/``, the
+sharded engines): two ranks of ``torch.distributed`` started by
+``parallel.launch.spawn(..., backend="gloo", device="cuda")``, sharing
+the card (NCCL refuses two ranks on one GPU; gloo ships each collective
+through host copies), each phase's one-device run made first by this
+process; every rank prints, for its phase, the wall a superstep, the
+exchange's share of it (the ``all_to_all`` and the roll's sends with
+their host staging, the device drained around each), the reductions'
+share, and the device idle share of the rank and of the card (one minus
+both ranks' kernel time over a profiled run's wall):
+
+52. steady gossip at 2^20 (phase 21's configuration) on
+    ``ShardedFusedSparseEngine`` and ``ShardedEngine`` over 2 ranks, 64
+    supersteps through ``run``: both traces = ``TorchEngine``'s, the
+    fused engine's gathered state = its final state leaf for leaf, the
+    general engine's shard = the fused one's on each rank; K1 launched
+    once per superstep on each rank (K1′: n_local = 2^19, S2 = D ·
+    bucket_cap = 2^20) and K2-K4 not at all; K1′ on each rank's busiest
+    superstep of the 64 against its plain version, bit-equal, and
+    its time and bound there (bytes over 3.35 TB/s), one rank at a time;
+53. the dense ring at 2^20 (phase 16's) on ``ShardedEdgeEngine``, 64
+    supersteps = ``EdgeEngine``'s trace and every leaf;
+54. the chaos fleet (phase 27's 8 worlds and schedules) on
+    ``ShardedBatchedEngine``, 4 worlds a rank, to quiescence: every leaf
+    of the gathered state = phase 27's final state, K2 and K1 once per
+    fleet superstep on each rank;
+55. the card's ranks against two CPU ranks at 2^12: ``ShardedEngine`` and
+    ``ShardedFusedSparseEngine`` on a gossip wave, ``ShardedEdgeEngine``
+    on a uniform ring, ``ShardedBatchedEngine`` on a 4-world faulted
+    fleet; equal traces and every leaf.
+
+The card-against-CPU phases (5, 11, 18, 23, 28, 36, 40 and 55) run
+their card legs here and take their CPU legs from a second process
+(``chip_smoke.py --cpu-legs DIR``, started with the script, the card
+hidden from it, two torch threads; phase 55's CPU ranks one thread each)
+that runs every CPU leg in phase order while the card phases run, so that
+the CPU legs' time is not on the script's wall; so do phases 42 and 49
+take their solo twins (every config's ``solo_result``, run on the CPU
+there). A phase's comparison with its CPU leg runs at the end of the
+first phase after which the leg is done (or at the script's end); it
+prints the leg's wall there and how long it was waited for (``CPU leg
+...:``).
 
 Wall-clock overheads are printed and gated at 2x at most (the host is
 shared). Every phase prints its wall (``phase N wall_s=``), and the
 script its total (``chip_smoke wall_s=``). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
-over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43 and 46-51,
-K2's over phases 4, 27, 34, 38, 39, 42, 43 and 46-51; every time from
-phases 6, 13 and 19), the ``nvidia-smi`` line, and last ``{"ok": true,
-"device": {...}}``.
+over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43, 46-51 and 54,
+K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51 and 54; K1′,
+``mailbox_insert_per_shard``, phase 52's ranks' K1 launches, its times
+from phase 52; every other time from phases 6, 13 and 19), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
 
@@ -324,6 +374,11 @@ STEADY_N = 1 << 20
 # the world-axis and faults slice: bench.py's chaos fleet, 8 worlds of
 # 100 000 nodes
 CHAOS_N, CHAOS_B = 100_000, 8
+# the chaos pack's budget in phases 43 and 50: its worlds quiesce in
+# 304-515 supersteps; 192 (three chunks of 64, about 190 ms of virtual
+# time) covers every fault window (the last ends at 120 ms) and keeps
+# chip_smoke inside its time limit on slow hosts
+CHAOS_PACK_BUDGET = 192
 K4_REPLACES = "timewarp_tpu/interp/jax_engine/fused_ring.py:468"
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("fire_compact_kernel", "mailbox_insert_kernel",
@@ -622,46 +677,189 @@ def _require_all(what, checks) -> None:
         raise AssertionError(f"{what} invariants failed: {bad}")
 
 
-def _states_equal(what, a, b, sc=None) -> None:
-    """Every leaf of two ``EngineState``s or ``EdgeState``s equal (any
-    devices)."""
+def _host_state(st, sc=None):
+    """Every leaf of an ``EngineState`` or ``EdgeState`` (any device) as
+    numpy, ``states`` a dict."""
     from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeState
     from timewarp_tpu_torch.interp.torch_engine.state_io import (
         edge_state_to_numpy, state_to_numpy)
-    to_numpy = edge_state_to_numpy if isinstance(a, EdgeState) \
+    to_numpy = edge_state_to_numpy if isinstance(st, EdgeState) \
         else state_to_numpy
-    sa, sb = to_numpy(a, sc), to_numpy(b, sc)
-    for name in sa:
-        x, y = sa[name], sb[name]
-        same = all(np.array_equal(x[k], y[k]) for k in x) \
-            if name == "states" else np.array_equal(x, y)
-        if not same:
-            raise AssertionError(f"{what}: state.{name} differs")
+    return to_numpy(st, sc)
 
 
-def _card_vs_cpu(device, engine_cls, sc, link, **kw):
-    """``run`` to quiescence on the card and on the CPU: equal traces and
-    final states. Returns the card's state and trace."""
-    from timewarp_tpu_torch.trace.events import assert_traces_equal
-    runs = [engine_cls(sc, link, window="auto", seed=11, device=dev,
-                       **kw).run(1 << 16) for dev in (device, "cpu")]
-    (sa, ta), (sb, tb) = runs
-    assert_traces_equal(ta, tb, str(device), "cpu")
-    _states_equal("card vs CPU", sa, sb, sc)
-    return sa, ta
+def _states_equal(what, a, b, sc=None) -> None:
+    """Every leaf of two ``EngineState``s or ``EdgeState``s equal (any
+    devices)."""
+    _np_states_equal(what, _host_state(a, sc), _host_state(b, sc))
 
 
-def phase_card_vs_cpu(device, n=1 << 14):
+# -- card against CPU: each phase's CPU leg beside the card phases ----------
+
+#: The card-against-CPU phases' legs, in phase order: ``leg(dev)`` runs a
+#: phase's cases on one device and returns what the phase compares, on the
+#: host. A phase runs its card leg itself and takes its CPU leg from
+#: :class:`CpuLegs`: a second process, started with the script and hidden
+#: from the card, that runs every CPU leg in this order while the card
+#: phases run, so that the CPU legs' time is not on the script's wall.
+CPU_LEGS = {}
+
+
+def cpu_leg(key):
+    """Register a leg function under ``key`` (see :data:`CPU_LEGS`)."""
+    def register(fn):
+        CPU_LEGS[key] = fn
+        return fn
+    return register
+
+
+class CpuLegs:
+    """The process that runs :data:`CPU_LEGS` on the CPU
+    (``chip_smoke.py --cpu-legs DIR``, ``CUDA_VISIBLE_DEVICES`` empty, two
+    torch threads), each leg's result pickled to ``DIR/<key>.pkl`` as it
+    is done. :meth:`defer` holds a phase's card leg and its check until
+    :meth:`drain` finds the CPU leg done (after every phase; at the end it
+    waits); :meth:`get` waits for one leg. A leg that raised ends the
+    process and fails the script, with the process's log. :meth:`stop`
+    kills the process and every rank it started (its own session) if it
+    still runs, and removes ``DIR``."""
+
+    def __init__(self):
+        import os
+        import tempfile
+        here = os.path.dirname(os.path.abspath(__file__))
+        base = os.path.join(here, "build", "cpu-legs")
+        os.makedirs(base, exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="legs-", dir=base)
+        self.log_path = os.path.join(self.dir, "legs.log")
+        self.log = open(self.log_path, "w")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-legs",
+             self.dir], stdout=self.log, stderr=subprocess.STDOUT, env=env,
+            cwd=here, start_new_session=True)
+        self.pending = []
+
+    def defer(self, key, card, check):
+        self.pending.append((key, card, check))
+
+    def drain(self, wait=False):
+        """Run the deferred checks whose CPU legs are done (``wait``:
+        every one, waiting for its leg)."""
+        import os
+        keep = []
+        for key, card, check in self.pending:
+            if wait or self.proc.poll() not in (None, 0) or os.path.exists(
+                    os.path.join(self.dir, f"{key}.pkl")):
+                check(card, self.get(key))
+            else:
+                keep.append((key, card, check))
+        self.pending = keep
+
+    def get(self, key, timeout=1200.0):
+        import os
+        import pickle
+        path = os.path.join(self.dir, f"{key}.pkl")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                with open(self.log_path) as f:
+                    tail = f.read()[-6000:]
+                raise AssertionError(
+                    f"CPU leg {key}: the CPU legs' process exited with code "
+                    f"{self.proc.returncode} before it; its log:\n{tail}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"CPU leg {key}: not done in "
+                                     f"{timeout} s")
+            time.sleep(0.05)
+        waited = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            out, wall = pickle.load(f)
+        say(f"CPU leg {key}: wall_s={wall} in the CPU legs' process, "
+            f"waited_s={waited}")
+        return out
+
+    def stop(self):
+        import os
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+#: the running :class:`CpuLegs`, or None: then :func:`vs_cpu` runs the
+#: CPU leg in this process, after the card's
+LEGS = None
+
+
+def vs_cpu(key, device, check):
+    """The card leg of the phase registered as ``key`` now; then
+    ``check(card, cpu)`` against its CPU leg: at once without
+    :data:`LEGS`, else as soon as the CPU legs' process has it (at a later
+    phase's end, or at the script's)."""
+    card = CPU_LEGS[key](device)
+    if LEGS is None:
+        check(card, CPU_LEGS[key]("cpu"))
+    else:
+        LEGS.defer(key, card, check)
+
+
+def cpu_legs_main(outdir) -> int:
+    """``--cpu-legs DIR``: every leg of :data:`CPU_LEGS` on the CPU, in
+    order, each result pickled with its wall."""
+    import os
+    import pickle
+
+    import torch
+    torch.set_num_threads(2)
+    for key, leg in CPU_LEGS.items():
+        t0 = time.perf_counter()
+        out = leg("cpu")
+        wall = time.perf_counter() - t0
+        tmp = os.path.join(outdir, f"{key}.pkl.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump((out, wall), f)
+        os.replace(tmp, os.path.join(outdir, f"{key}.pkl"))
+        print(f"CPU leg {key}: wall_s={wall}", flush=True)
+    return 0
+
+
+def _traced_leg(engine_cls, sc, link, dev, steps=1 << 16, **kw):
+    """``run`` for ``steps`` supersteps (default: to quiescence) on
+    ``dev``: the final state's leaves and the trace."""
+    st, tr = engine_cls(sc, link, window="auto", seed=11, device=dev,
+                        **kw).run(steps)
+    return dict(state=_host_state(st, sc), trace=tr)
+
+
+def _legs_equal(what, card, cpu) -> None:
+    """Equal traces (per world for a fleet) and final states."""
+    _same_traces(what, card["trace"], cpu["trace"])
+    _np_states_equal(what, card["state"], cpu["state"])
+
+
+@cpu_leg("wave")
+def leg_wave(dev, n=1 << 14):
+    """Phase 5's leg: an integer-link gossip wave to quiescence."""
     from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
     from timewarp_tpu_torch.models.gossip import gossip
     from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
     sc = gossip(n, fanout=8, think_us=2_000, burst=True, end_us=5_000_000,
                 mailbox_cap=8)
     link = Quantize(UniformDelay(8_000, 30_000), 1_000)
-    st, tr = _card_vs_cpu(device, TorchEngine, sc, link)
-    say(f"card vs CPU: gossip n={n} supersteps={len(tr)} "
-        f"delivered={int(st.delivered)} overflow={int(st.overflow)} "
-        "traces and states equal")
+    return dict(_traced_leg(TorchEngine, sc, link, dev), n=n)
+
+
+def phase_card_vs_cpu(device):
+    def check(card, cpu):
+        _legs_equal("card vs CPU", card, cpu)
+        st = card["state"]
+        say(f"card vs CPU: gossip n={card['n']} supersteps="
+            f"{len(card['trace'])} delivered={int(st['delivered'])} "
+            f"overflow={int(st['overflow'])} traces and states equal")
+    vs_cpu("wave", device, check)
 
 
 def _time_ms(fn, reps=20, queued=True):
@@ -1032,7 +1230,9 @@ def phase_fused_equals_general(device, n=PRAOS_N, steps=64):
         "every state leaf equal")
 
 
-def phase_fused_card_vs_cpu(device, n=1 << 14):
+@cpu_leg("fused")
+def leg_fused(dev, n=1 << 14):
+    """Phase 11's leg: integer-link Praos through ``FusedSparseEngine``."""
     from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
         FusedSparseEngine
     from timewarp_tpu_torch.models.praos import praos
@@ -1040,11 +1240,19 @@ def phase_fused_card_vs_cpu(device, n=1 << 14):
     sc = praos(n, slot_us=100_000, n_slots=6, leader_prob=4.0 / n,
                fanout=8, burst=True, mailbox_cap=16)
     link = Quantize(UniformDelay(8_000, 30_000), 1_000)
-    st, tr = _card_vs_cpu(device, FusedSparseEngine, sc, link,
-                          max_batch=n * sc.max_out)
-    say(f"fused card vs CPU: praos n={n} supersteps={len(tr)} "
-        f"delivered={int(st.delivered)} overflow={int(st.overflow)} "
-        "traces and states equal")
+    # 100 supersteps, half of its 200 to quiescence (chip_smoke's time)
+    return dict(_traced_leg(FusedSparseEngine, sc, link, dev, steps=100,
+                            max_batch=n * sc.max_out), n=n)
+
+
+def phase_fused_card_vs_cpu(device):
+    def check(card, cpu):
+        _legs_equal("fused card vs CPU", card, cpu)
+        st = card["state"]
+        say(f"fused card vs CPU: praos n={card['n']} supersteps="
+            f"{len(card['trace'])} delivered={int(st['delivered'])} "
+            f"overflow={int(st['overflow'])} traces and states equal")
+    vs_cpu("fused", device, check)
 
 
 def phase_fused_gossip(device, general, n=SLICE_N):
@@ -1286,26 +1494,34 @@ def perm_scatter(n, seed):
                     commutative_inbox=True)
 
 
-def phase_edge_card_vs_cpu(device, n=1 << 14):
+@cpu_leg("edge")
+def leg_edge(dev, n=1 << 14):
+    """Phase 18's leg: the edge engine on a sparse ring and a permutation."""
     from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
     from timewarp_tpu_torch.models.token_ring import token_ring
     from timewarp_tpu_torch.net.delays import UniformDelay
-    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    out = {}
     for tag, sc, link, cap, steps in (
             ("uniform sparse ring",
              token_ring(n, n_tokens=64, think_us=10_000, bootstrap_us=1_000,
                         end_us=2_000_000, with_observer=False),
-             UniformDelay(1_000, 5_000), 2, 600),
+             UniformDelay(1_000, 5_000), 2, 300),
             ("permutation (gather)", perm_scatter(n, 7),
-             UniformDelay(100, 2_500), 8, 300)):
-        runs = [EdgeEngine(sc, link, seed=11, cap=cap, device=dev).run(steps)
-                for dev in (device, "cpu")]
-        (sa, ta), (sb, tb) = runs
-        assert_traces_equal(ta, tb, str(device), "cpu")
-        _states_equal(f"edge card vs CPU, {tag}", sa, sb)
-        say(f"edge card vs CPU: {tag} n={n} supersteps={len(ta)} "
-            f"delivered={int(sa.delivered)} overflow={int(sa.overflow)} "
-            "traces and states equal")
+             UniformDelay(100, 2_500), 8, 150)):
+        st, tr = EdgeEngine(sc, link, seed=11, cap=cap, device=dev).run(steps)
+        out[tag] = dict(state=_host_state(st), trace=tr, n=n)
+    return out
+
+
+def phase_edge_card_vs_cpu(device):
+    def check(card, cpu):
+        for tag, c in card.items():
+            _legs_equal(f"edge card vs CPU, {tag}", c, cpu[tag])
+            say(f"edge card vs CPU: {tag} n={c['n']} supersteps="
+                f"{len(c['trace'])} delivered={int(c['state']['delivered'])} "
+                f"overflow={int(c['state']['overflow'])} traces and states "
+                "equal")
+    vs_cpu("edge", device, check)
 
 
 def phase_time_k4(device, planes):
@@ -1398,62 +1614,77 @@ def phase_eager_equals_lazy(device, n=STEADY_N, steps=64):
         "traces and every state leaf equal")
 
 
-def phase_routing_card_vs_cpu(device, n=1 << 14):
-    """Each new path and model, card against CPU through ``run``."""
+@cpu_leg("routing")
+def leg_routing(dev, n=1 << 14):
+    """Phase 23's leg: each routing path and model through ``run``."""
     from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
     from timewarp_tpu_torch.models.gossip import gossip
     from timewarp_tpu_torch.models.ping_pong import ping_pong
     from timewarp_tpu_torch.models.praos import praos
     from timewarp_tpu_torch.models.socket_state import socket_state
     from timewarp_tpu_torch.net.links import parse_link
-    from timewarp_tpu_torch.trace.events import assert_traces_equal
     droppy = parse_link("drop:0.15:quantize:1000:uniform:2000:30000")
     paced = gossip(n, fanout=6, think_us=3_000, gossip_interval=1_000,
                    end_us=400_000)
     cases = (
+        # each budget half the supersteps of the case's run to its end or
+        # its budget of 400 (173, 400, 120, 112, 101): chip_smoke's time
         ("droppy gossip, window auto (eager, 3-key sort), record_events",
-         paced, droppy, dict(window="auto", record_events=1 << 16), 400,
+         paced, droppy, dict(window="auto", record_events=1 << 16), 86,
          "route_drop == 0"),
         ("praos, route_cap 64 below its active count (lazy)",
          praos(n, slot_us=100_000, n_slots=6, leader_prob=4.0 / n, fanout=8,
                burst=True, mailbox_cap=16),
          parse_link("quantize:1000:uniform:8000:30000"),
-         dict(window="auto", route_cap=64), 400, "route_drop > 0"),
-        ("steady gossip, window 1 (eager)", *steady_gossip(n), {}, 120,
+         dict(window="auto", route_cap=64), 200, "route_drop > 0"),
+        ("steady gossip, window 1 (eager)", *steady_gossip(n), {}, 60,
          "route_drop == 0"),
         # its state holds a counter per client on every node, n^2 words:
         # 64 MiB a copy at 2^12 nodes, 1 GiB at 2^14
         ("socket-state on a droppy link, window 1 (eager)",
          socket_state((n >> 2) - 1, seed=1, send_interval_us=20_000,
                       server_life_us=2_000_000, mailbox_cap=64),
-         parse_link("drop:0.1:quantize:1000:uniform:3000:9000"), {}, 400,
+         parse_link("drop:0.1:quantize:1000:uniform:3000:9000"), {}, 56,
          "route_drop == 0"),
         ("ping-pong (ordered inbox with src)", ping_pong(rounds=50),
-         parse_link("uniform:500:2000"), {}, 400, "route_drop == 0"),
+         parse_link("uniform:500:2000"), {}, 50, "route_drop == 0"),
     )
+    out = {}
     for tag, sc, link, kw, steps, drops in cases:
-        engines = [TorchEngine(sc, link, seed=11, device=dev, **kw)
-                   for dev in (device, "cpu")]
-        (sa, ta), (sb, tb) = (e.run(steps) for e in engines)
-        secs = [e.last_run_stats["wall_seconds"] for e in engines]
-        assert_traces_equal(ta, tb, str(device), "cpu")
-        _states_equal(f"card vs CPU, {tag}", sa, sb, sc)
-        rd = int(sa.route_drop)
-        _require_all(f"card vs CPU, {tag}", {
-            drops: rd > 0 if drops.endswith("> 0") else rd == 0,
-            "delivered > 0": int(sa.delivered) > 0,
-            "not the adaptive regime": not engines[0].adaptive})
-        extra = ""
-        if kw.get("record_events"):
-            ev = [e.events(st) for e, st in zip(engines, (sa, sb))]
-            if ev[0] != ev[1]:
-                raise AssertionError(f"card vs CPU, {tag}: events differ")
-            extra = (f" events={len(ev[0][0])} (missing {ev[0][1]}) "
-                     "equal")
-        say(f"card vs CPU: {tag}: n={sc.n_nodes} supersteps={len(ta)} "
-            f"delivered={int(sa.delivered)} overflow={int(sa.overflow)} "
-            f"route_drop={rd} traces and states equal{extra} "
-            f"(wall_s card {secs[0]}, CPU {secs[1]})")
+        eng = TorchEngine(sc, link, seed=11, device=dev, **kw)
+        st, tr = eng.run(steps)
+        out[tag] = dict(state=_host_state(st, sc), trace=tr, n=sc.n_nodes,
+                        drops=drops, adaptive=eng.adaptive,
+                        wall=eng.last_run_stats["wall_seconds"],
+                        events=eng.events(st) if kw.get("record_events")
+                        else None)
+    return out
+
+
+def phase_routing_card_vs_cpu(device):
+    """Each new path and model, card against CPU through ``run``."""
+    def check(card, cpu):
+        for tag, c in card.items():
+            g = cpu[tag]
+            _legs_equal(f"card vs CPU, {tag}", c, g)
+            st, drops = c["state"], c["drops"]
+            rd = int(st["route_drop"])
+            _require_all(f"card vs CPU, {tag}", {
+                drops: rd > 0 if drops.endswith("> 0") else rd == 0,
+                "delivered > 0": int(st["delivered"]) > 0,
+                "not the adaptive regime": not c["adaptive"]
+                and not g["adaptive"]})
+            extra = ""
+            if c["events"] is not None:
+                if c["events"] != g["events"]:
+                    raise AssertionError(f"card vs CPU, {tag}: events differ")
+                extra = (f" events={len(c['events'][0])} (missing "
+                         f"{c['events'][1]}) equal")
+            say(f"card vs CPU: {tag}: n={c['n']} supersteps={len(c['trace'])} "
+                f"delivered={int(st['delivered'])} overflow="
+                f"{int(st['overflow'])} route_drop={rd} traces and states "
+                f"equal{extra} (wall_s card {c['wall']}, CPU {g['wall']})")
+    vs_cpu("routing", device, check)
 
 
 def phase_k1_eager(device, eng, state):
@@ -1744,17 +1975,17 @@ def phase_chaos_main_path(device, n=CHAOS_N):
     return launches, eng, fin
 
 
-def phase_fleet_card_vs_cpu(device, n=1 << 12):
-    """A small fleet (2^12 nodes, 3 worlds) card against CPU through
-    ``run`` in each routing regime: adaptive and eager with per-world
-    fault schedules, lazy (which takes no faults) with a link sweep."""
+@cpu_leg("fleet")
+def leg_fleet(dev, n=1 << 12):
+    """Phase 28's leg: a small fleet (2^12 nodes, 3 worlds) through ``run``
+    in each routing regime: adaptive and eager with per-world fault
+    schedules, lazy (which takes no faults) with a link sweep."""
     from timewarp_tpu_torch.faults import (FaultFleet, FaultSchedule,
                                            LinkWindow, NodeCrash, Partition)
     from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
     from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
     from timewarp_tpu_torch.models.gossip import gossip
     from timewarp_tpu_torch.net.links import parse_link
-    from timewarp_tpu_torch.trace.events import assert_traces_equal
     half = n // 2
     fleet = FaultFleet(tuple(FaultSchedule((
         NodeCrash(3 + b, 10_000, 40_000 + 5_000 * b, reset_state=True),
@@ -1768,36 +1999,47 @@ def phase_fleet_card_vs_cpu(device, n=1 << 12):
     burst = gossip(n, fanout=4, think_us=700, burst=True, end_us=400_000,
                    mailbox_cap=16)
     spec = BatchSpec(seeds=(3, 4, 9))
+    # each budget half the longest world's supersteps to its end or its
+    # budget of 400/200 (150, 194, 200): chip_smoke's time
     cases = (
         ("adaptive, faults (steady gossip, window auto)", steady,
          parse_link("quantize:1000:uniform:500:4500"),
-         dict(window="auto", faults=fleet), 400),
+         dict(window="auto", faults=fleet), 75),
         ("eager, faults (droppy link, window 1)", steady,
          parse_link("drop:0.1:quantize:1000:uniform:500:4500"),
-         dict(faults=fleet), 400),
+         dict(faults=fleet), 97),
         ("lazy, link sweep (route_cap 64, window 3000)", burst,
          parse_link("quantize:1000:uniform:3000:9000"),
-         dict(window=3_000, route_cap=64), 200),
+         dict(window=3_000, route_cap=64), 100),
     )
+    out = {}
     for tag, sc, link, kw, steps in cases:
         bs = spec if "sweep" not in tag else BatchSpec(
             seeds=spec.seeds, link_params={"inner.lo": [3000, 4000, 3500],
                                            "inner.hi": [9000, 9000, 12000]})
-        engines = [TorchEngine(sc, link, batch=bs, device=dev, **kw)
-                   for dev in (device, "cpu")]
-        (sa, ta), (sb, tb) = (e.run(steps) for e in engines)
-        for b in range(bs.B):
-            assert_traces_equal(ta[b], tb[b], f"card w{b}", "cpu")
-        _states_equal(f"fleet card vs CPU, {tag}", sa, sb, sc)
-        fd = sa.fault_dropped.tolist()
-        _require_all(f"fleet card vs CPU, {tag}", {
-            "fault_dropped > 0 in every faulted world":
-                "faults" not in kw or min(fd) > 0,
-            "delivered > 0": int(sa.delivered.min()) > 0})
-        say(f"fleet card vs CPU: {tag}: B={bs.B} n={n} supersteps="
-            f"{[len(t) for t in ta]} delivered={sa.delivered.tolist()} "
-            f"fault_dropped={fd} route_drop={sa.route_drop.tolist()} "
-            "traces and states equal")
+        st, tr = TorchEngine(sc, link, batch=bs, device=dev, **kw).run(steps)
+        out[tag] = dict(state=_host_state(st, sc), trace=tr, B=bs.B, n=n,
+                        faults="faults" in kw)
+    return out
+
+
+def phase_fleet_card_vs_cpu(device):
+    """A small fleet card against CPU through ``run`` in each routing
+    regime (:func:`leg_fleet`)."""
+    def check(card, cpu):
+        for tag, c in card.items():
+            _legs_equal(f"fleet card vs CPU, {tag}", c, cpu[tag])
+            st = c["state"]
+            fd = st["fault_dropped"].tolist()
+            _require_all(f"fleet card vs CPU, {tag}", {
+                "fault_dropped > 0 in every faulted world":
+                    not c["faults"] or min(fd) > 0,
+                "delivered > 0": int(st["delivered"].min()) > 0})
+            say(f"fleet card vs CPU: {tag}: B={c['B']} n={c['n']} supersteps="
+                f"{[len(t) for t in c['trace']]} delivered="
+                f"{st['delivered'].tolist()} fault_dropped={fd} route_drop="
+                f"{st['route_drop'].tolist()} traces and states equal")
+    vs_cpu("fleet", device, check)
 
 
 def phase_fleet_checkpoint(device, eng, steps=40):
@@ -2288,14 +2530,14 @@ def phase_controlled(device, n=100_000):
     return overhead
 
 
-def phase_planes_card_vs_cpu(device, n=1 << 12):
-    """Every plane on, card against CPU, at 2^12 to 2^14 nodes:
+@cpu_leg("planes")
+def leg_planes(dev, n=1 << 12):
+    """Phase 36's leg: every plane on, at 2^12 to 2^14 nodes:
     ``TorchEngine`` adaptive, eager and lazy, solo, and a 3-world faulted
     fleet; ``FusedSparseEngine``; ``EdgeEngine``. Through ``run_verified``
-    (``telemetry="full", verify="digest", record="full"``): equal traces,
-    states, frames, flight logs and integrity records (guard clean,
-    digests and chain); through ``run_controlled`` (an auto controller):
-    equal decision traces."""
+    (``telemetry="full", verify="digest", record="full"``): traces,
+    states, frames, flight logs and integrity records; through
+    ``run_controlled`` (an auto controller): decision traces."""
     from timewarp_tpu_torch.dispatch import DispatchController
     from timewarp_tpu_torch.faults import (FaultFleet, FaultSchedule,
                                            LinkWindow, NodeCrash, Partition)
@@ -2340,34 +2582,49 @@ def phase_planes_card_vs_cpu(device, n=1 << 12):
         ("EdgeEngine", EdgeEngine, dense_ring(4 * n)[0],
          UniformDelay(500, 2_000), {}),
     )
+    out = {}
     for tag, cls, sc, link, kw in cases:
-        got = []
-        for dev in (device, "cpu"):
-            eng = cls(sc, link, telemetry="full", verify="digest",
-                      record="full", record_cap=1024, device=dev, **kw)
-            fin, tr = eng.run_verified(96, chunk=16)
-            ctl = cls(sc, link, telemetry="counters", device=dev,
-                      controller=DispatchController(chunk=8, chunk_max=32),
-                      **kw)
-            ctl.run_controlled(96)
-            got.append((fin, tr, eng.last_run_telemetry,
-                        eng.last_run_flight, eng.last_run_integrity,
-                        [d.to_json() for d in ctl.last_run_decisions]))
-        (fa, ta, fra, la, ia, da), (fb, tb, frb, lb, ib, db) = got
-        _same_traces(f"planes card vs CPU, {tag}", ta, tb)
-        _states_equal(f"planes card vs CPU, {tag}", fa, fb, sc)
-        _frames_equal(f"planes card vs CPU, {tag}", fra, frb)
-        _flights_equal(f"planes card vs CPU, {tag}", la, lb)
-        _require_all(f"planes card vs CPU, {tag}", {
-            "integrity records equal (guard clean, digests, chain)":
-                ia == ib and ia["rollbacks"] == 0,
-            "decision traces equal": da == db})
-        one = la[0] if isinstance(la, list) else la
-        say(f"planes card vs CPU: {tag}: n={sc.n_nodes} chunks="
-            f"{ia['chunks']} events={len(one)} dropped={one.dropped} "
-            f"decisions={len(da)} digest_chain[0]={ia['digest_chain'][0][:16]}"
-            " traces, states, frames, flight logs, integrity records and "
-            "decision traces equal")
+        eng = cls(sc, link, telemetry="full", verify="digest",
+                  record="full", record_cap=1024, device=dev, **kw)
+        # 48 supersteps each, half of a 96-superstep run (chip_smoke's
+        # time)
+        fin, tr = eng.run_verified(48, chunk=16)
+        ctl = cls(sc, link, telemetry="counters", device=dev,
+                  controller=DispatchController(chunk=8, chunk_max=32), **kw)
+        ctl.run_controlled(48)
+        out[tag] = dict(state=_host_state(fin, sc), trace=tr, n=sc.n_nodes,
+                        frames=eng.last_run_telemetry,
+                        flight=eng.last_run_flight,
+                        integrity=eng.last_run_integrity,
+                        decisions=[d.to_json()
+                                   for d in ctl.last_run_decisions])
+    return out
+
+
+def phase_planes_card_vs_cpu(device):
+    """Every plane on, card against CPU (:func:`leg_planes`): equal traces,
+    states, frames, flight logs and integrity records (guard clean,
+    digests and chain), and equal decision traces."""
+    def check(card, cpu):
+        for tag, c in card.items():
+            g = cpu[tag]
+            what = f"planes card vs CPU, {tag}"
+            _legs_equal(what, c, g)
+            _frames_equal(what, c["frames"], g["frames"])
+            _flights_equal(what, c["flight"], g["flight"])
+            ia, la, da = c["integrity"], c["flight"], c["decisions"]
+            _require_all(what, {
+                "integrity records equal (guard clean, digests, chain)":
+                    ia == g["integrity"] and ia["rollbacks"] == 0,
+                "decision traces equal": da == g["decisions"]})
+            one = la[0] if isinstance(la, list) else la
+            say(f"planes card vs CPU: {tag}: n={c['n']} chunks="
+                f"{ia['chunks']} events={len(one)} dropped={one.dropped} "
+                f"decisions={len(da)} "
+                f"digest_chain[0]={ia['digest_chain'][0][:16]}"
+                " traces, states, frames, flight logs, integrity records and "
+                "decision traces equal")
+    vs_cpu("planes", device, check)
 
 
 def phase_planes_times(device, eng31, warm=96, steps=16):
@@ -2389,8 +2646,8 @@ def phase_planes_times(device, eng31, warm=96, steps=16):
         eng, _ = planes_fleet_engine(device, **planes)
         eng.run(4, mid)                                    # warm
         _, wall = _timed(lambda: eng.run(steps, mid))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the device's activity only, as phase_where_time_goes records it
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             eng.run(steps, mid)
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
@@ -2424,8 +2681,7 @@ def phase_planes_times(device, eng31, warm=96, steps=16):
             f"overhead_frac={float(np.median(w)) / float(np.median(walls['off'])) - 1.0}")
     u32 = eng31.scenario.u32_states
     host_digests(mid, eng31.batch, u32)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         host_digests(mid, eng31.batch, u32)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -2551,8 +2807,10 @@ def phase_spec_main_path(device, n=SPEC_N, chunk=64):
     """The speculative slice's main path: ``bench.py`` ``gossip_100k_spec``
     through ``TorchEngine(speculate="auto").run_speculative(2^14,
     chunk=64)`` to quiescence, and the conservative
-    ``TorchEngine(window="auto")`` through ``run`` (the equivalence law's
-    right-hand side) and ``run_quiet`` (its wall), as the bench measures.
+    ``TorchEngine(window="auto")`` through ``run``: the equivalence law's
+    right-hand side, and the wall beside the speculative one's (both
+    traced; the bench times the conservative ``run_quiet``, a second
+    wave of 3157 supersteps that chip_smoke's time limit leaves out).
     Gates: the wave done in both, the canonical surfaces equal bit for
     bit, strictly fewer supersteps, K2 and K1 launched once per superstep
     of every run call, the committed calls' supersteps the committed
@@ -2581,9 +2839,7 @@ def phase_spec_main_path(device, n=SPEC_N, chunk=64):
     launches = dict(ci.LAUNCHES)
     si = spec.last_run_speculation
     committed = spec.last_run_stats["supersteps"]
-    cfin, ctrc = cons.run(1 << 14)
-    qfin, wall_cons = _timed(lambda: cons.run_quiet(1 << 14))
-    _states_equal("conservative run_quiet = run", qfin, cfin, sc)
+    (cfin, ctrc), wall_cons = _timed(lambda: cons.run(1 << 14))
     _wave_done("speculative wave", spec, sfin, n)
     _wave_done("conservative wave", cons, cfin, n)
     assert_spec_equiv(canonical_rows(cfin, ctrc), canonical_rows(sfin, strc),
@@ -2614,7 +2870,7 @@ def phase_spec_main_path(device, n=SPEC_N, chunk=64):
         f"delivered={int(sfin.delivered)} windows={si['windows']} "
         f"chunks={si['chunks']} rollbacks={si['rollbacks']} violations="
         f"{[(v['chunk'], v['window_us'], v['count']) for v in viols]}"
-        f" wall_s spec={wall_spec} conservative_run_quiet={wall_cons} "
+        f" wall_s spec={wall_spec} conservative_run={wall_cons} "
         f"wall_ratio={wall_cons / wall_spec} launches={launches} "
         f"committed_launches_each={committed} rolled_back_launches_each="
         f"{rolled} run_calls={len(calls)} supersteps_per_call="
@@ -2701,14 +2957,15 @@ def phase_spec_fleet(device, n=SPEC_N, B=SPEC_B, W=SPEC_W, chunk=64,
     return launches, errs
 
 
-def phase_spec_card_vs_cpu(device, n=1 << 12):
-    """Speculation card against CPU at 2^12 nodes (gossip, fanout 4, 10 ms
+@cpu_leg("spec")
+def leg_spec(dev, n=1 << 12):
+    """Phase 40's leg: speculation at 2^12 nodes (gossip, fanout 4, 10 ms
     incubation) on an integer link with the long-tail floor gap (delays
     uniform in [4 ms, 40 ms] from the message key's first word behind a
     1 ms grid: declared 1 000 µs, exact on every device): solo ``auto``, a
     2-world fleet under a shrink ``LinkWindow``, and a forced rollback
-    (``fixed:16000``) — equal states, traces, decisions (per world too)
-    and ``last_run_speculation``."""
+    (``fixed:16000``): states, traces, decisions (per world too) and
+    ``last_run_speculation``."""
     import torch
     from timewarp_tpu_torch.faults import FaultFleet, FaultSchedule, LinkWindow
     from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
@@ -2733,31 +2990,40 @@ def phase_spec_card_vs_cpu(device, n=1 << 12):
             speculate="auto", batch=BatchSpec(seeds=(0, 1)),
             faults=FaultFleet((shrink, FaultSchedule(())))),
         "forced rollback": dict(speculate="fixed:16000")}
+    out = {}
     for tag, kw in cases.items():
-        runs = []
-        for dev in (device, "cpu"):
-            eng = TorchEngine(sc, link, window="auto", seed=11, device=dev,
-                              **kw)
-            fin, tr = eng.run_speculative(1 << 16, chunk=64)
-            runs.append((eng, fin, tr))
-        (ea, fa, ta), (eb, fb, tb) = runs
-        _same_traces(f"speculation card vs CPU, {tag}", ta, tb)
-        _states_equal(f"speculation card vs CPU, {tag}", fa, fb, sc)
-        chains = [ea.last_run_decisions_world, eb.last_run_decisions_world]
-        _require_all(f"speculation card vs CPU, {tag}", {
-            "last_run_speculation equal":
-                ea.last_run_speculation == eb.last_run_speculation,
-            "decisions equal": [d.to_json() for d in ea.last_run_decisions]
-            == [d.to_json() for d in eb.last_run_decisions],
-            "per-world chains equal": None in chains or [
-                [d.to_json() for d in c] for c in chains[0]]
-            == [[d.to_json() for d in c] for c in chains[1]]})
-        si = ea.last_run_speculation
-        say(f"speculation card vs CPU: {tag} n={n} supersteps="
-            f"{[len(t) for t in ta] if isinstance(ta, list) else len(ta)} "
-            f"windows={si['windows']} rollbacks={si['rollbacks']} "
-            f"rerun_worlds={si['rerun_worlds']}; states, traces, decisions "
-            "and speculation records equal")
+        eng = TorchEngine(sc, link, window="auto", seed=11, device=dev, **kw)
+        fin, tr = eng.run_speculative(1 << 16, chunk=64)
+        chains = eng.last_run_decisions_world
+        out[tag] = dict(
+            state=_host_state(fin, sc), trace=tr, n=n,
+            spec=eng.last_run_speculation,
+            decisions=[d.to_json() for d in eng.last_run_decisions],
+            chains=None if chains is None else [[d.to_json() for d in c]
+                                                for c in chains])
+    return out
+
+
+def phase_spec_card_vs_cpu(device):
+    """Speculation card against CPU (:func:`leg_spec`): equal states,
+    traces, decisions (per world too) and ``last_run_speculation``."""
+    def check(card, cpu):
+        for tag, c in card.items():
+            g = cpu[tag]
+            what = f"speculation card vs CPU, {tag}"
+            _legs_equal(what, c, g)
+            _require_all(what, {
+                "last_run_speculation equal": c["spec"] == g["spec"],
+                "decisions equal": c["decisions"] == g["decisions"],
+                "per-world chains equal": None in (c["chains"], g["chains"])
+                or c["chains"] == g["chains"]})
+            si, ta = c["spec"], c["trace"]
+            say(f"speculation card vs CPU: {tag} n={c['n']} supersteps="
+                f"{[len(t) for t in ta] if isinstance(ta, list) else len(ta)} "
+                f"windows={si['windows']} rollbacks={si['rollbacks']} "
+                f"rerun_worlds={si['rerun_worlds']}; states, traces, "
+                "decisions and speculation records equal")
+    vs_cpu("spec", device, check)
 
 
 def phase_spec_times(device, spec, cons, wide, steps=32, warm=16):
@@ -2814,8 +3080,8 @@ def hetero_pack(n=4096, steps=2000):
 def chaos_pack(n=CHAOS_N, B=CHAOS_B, budget=1024):
     """``bench.py`` ``bench_gossip_100k_chaos``'s 8 worlds as pack JSON:
     world b's seed b and its fault schedule in the ``--faults`` grammar
-    (:func:`chaos_fleet`'s schedules), ``budget`` past the fleet's
-    quiescence."""
+    (:func:`chaos_fleet`'s schedules), ``budget`` supersteps (the default
+    past the fleet's quiescence)."""
     from timewarp_tpu_torch.sweep import SweepPack
     half = n // 2
     params = {"nodes": n, "fanout": 1, "think_us": 1000,
@@ -2967,16 +3233,31 @@ def _scratch():
     return d
 
 
-def phase_sweep_hetero(device, n=4096, steps=500):
+#: phase 42's size: bench.py sweep_hetero's 4096 nodes at 256 steps
+HETERO_N, HETERO_STEPS = 4096, 256
+
+
+@cpu_leg("hetero_solos")
+def leg_hetero_solos(dev, n=HETERO_N, steps=HETERO_STEPS):
+    """Phase 42's solo twins: ``solo_result`` of every config of the pack
+    on ``dev`` (the CPU, in the CPU legs' process)."""
+    from timewarp_tpu_torch.sweep import solo_result
+    return {c.run_id: solo_result(c, device=dev)
+            for c in hetero_pack(n, steps)[0].configs}
+
+
+def phase_sweep_hetero(device, n=HETERO_N, steps=HETERO_STEPS):
     """``bench.py`` ``sweep_hetero`` on the card at its 4096 nodes and
-    ``steps`` 500 (the bench's default 2000 took chip_smoke to 1074 s of
-    its 1200 s, and 1000 took it to 1084.6 s once phases 46-48 ran on a
-    slow host: its token rings run to their budgets at 15-20 ms a
-    superstep, in both legs and in their solo runs): the pack through
+    ``steps`` 256 (the bench's default 2000 took chip_smoke to 1074 s of
+    its 1200 s, 1000 took it to 1084.6 s once phases 46-48 ran on a slow
+    host, and 500 left it past 1200 s on one: its token rings run to
+    their budgets at 15-20 ms a superstep, in both legs and in their solo
+    runs): the pack through
     the port's ``SweepService`` twice, ``pack_mode="first-fit"`` and
     ``"predicted"``, each with ``inject="fail:2"``, ``max_bucket=2`` and
     the bench's chunk. Gates: ``report.ok`` and a retry in each leg;
-    every streamed record equal to the port's ``solo_result`` on the card;
+    every streamed record equal to the port's ``solo_result`` on the CPU
+    (:func:`leg_hetero_solos`);
     the bench's packing gates (``budget_efficiency`` strictly better,
     ``pad_waste_frac`` no worse, equal engine builds, one ``pack_decision``
     per bucket and none for first-fit); K1 once per fleet superstep of
@@ -2985,10 +3266,11 @@ def phase_sweep_hetero(device, n=4096, steps=500):
     predicted leg, whose journal is kept for phase 48's ledger."""
     import shutil
 
-    from timewarp_tpu_torch.sweep import solo_result
     from timewarp_tpu_torch.sweep.journal import util_rollup
     pack, chunk = hetero_pack(n, steps)
-    want = {c.run_id: solo_result(c, device=device) for c in pack.configs}
+    want = LEGS.get("hetero_solos") \
+        if LEGS is not None and (n, steps) == (HETERO_N, HETERO_STEPS) \
+        else leg_hetero_solos("cpu", n, steps)
     launches = {"fire_compact": 0, "mailbox_insert": 0}
     legs = {}
     for mode in ("first-fit", "predicted"):
@@ -3027,15 +3309,16 @@ def phase_sweep_hetero(device, n=4096, steps=500):
             f"{leg['delivered'] / leg['wall']} rollup={leg['roll']} "
             f"engine_builds={leg['builds']} pack_decisions="
             f"{leg['decisions']} buckets={leg['buckets']}")
-    say(f"sweep_hetero: every streamed record = its solo run on the card "
+    say(f"sweep_hetero: every streamed record = its solo run on the CPU "
         f"(supersteps {[w['supersteps'] for w in want.values()]}); "
         f"launches={launches}")
     return launches, keep
 
 
-def phase_chaos_pack(device, chaos_eng, chaos_fin, n=CHAOS_N, B=CHAOS_B,
-                     chunk=64):
-    """The 8 worlds of ``bench.py`` ``gossip_100k_chaos`` as a pack, one
+def phase_chaos_pack(device, chaos_eng, n=CHAOS_N, B=CHAOS_B, chunk=64,
+                     budget=CHAOS_PACK_BUDGET):
+    """The 8 worlds of ``bench.py`` ``gossip_100k_chaos`` as a pack at
+    ``budget`` supersteps each, one
     bucket (``max_bucket=8``), through the port's ``SweepService`` with
     ``chunk=64`` and ``verify="digest"``: with ``inject="fail:2"``; killed
     by ``inject="die:3"`` (``SweepKilled``) and resumed; and split 4 + 4
@@ -3043,8 +3326,10 @@ def phase_chaos_pack(device, chaos_eng, chaos_fin, n=CHAOS_N, B=CHAOS_B,
     (a retry; the kill mid-bucket, no world lost or journaled twice across
     the resume; the split journaled); every streamed record equal to the
     world's solo run on the card and to world b's row of the chaos fleet
-    run of phase 27's engine from its initial state (``chain_digest`` of
-    its trace, its counters; that run's final state = phase 27's); K1 and
+    run of phase 27's engine from its initial state for ``budget``
+    supersteps (``chain_digest`` of its trace, its counters; that run's
+    final state = the engine's ``run_quiet`` for as many, every world past
+    the last fault window's end at 120 ms); K1 and
     K2 once per fleet superstep of every bucket ``run`` call; then K2 and
     K1 against their plain versions on the bucket's busiest superstep,
     and their times there. Returns the launches, the kernels' errors, the
@@ -3057,12 +3342,17 @@ def phase_chaos_pack(device, chaos_eng, chaos_fin, n=CHAOS_N, B=CHAOS_B,
     from timewarp_tpu_torch.sweep import solo_result
     from timewarp_tpu_torch.sweep.spec import (DIGEST_ZERO, chain_digest,
                                                result_leaves, world_result)
-    pack = chaos_pack(n, B)
+    pack = chaos_pack(n, B, budget)
     # world b's row of the chaos fleet run (phase 27's engine), traced from
-    # its initial state to quiescence
-    fin, traces = chaos_eng.run(1 << 20)
-    _states_equal("chaos fleet traced run = phase 27's final state", fin,
-                  chaos_fin, chaos_eng.scenario)
+    # its initial state for the pack's budget
+    fin, traces = chaos_eng.run(budget)
+    _states_equal("chaos fleet traced run = run_quiet", fin,
+                  chaos_eng.run_quiet(budget), chaos_eng.scenario)
+    _require_all("chaos fleet rows", {
+        f"every world {budget} supersteps":
+            [len(t) for t in traces] == [budget] * B,
+        "every world past the last fault window (120 ms)":
+            min(int(t.times[-1]) for t in traces) >= 120_000})
     host = result_leaves(fin)
     rows = {c.run_id: world_result(c, fin, b, chain_digest(
         DIGEST_ZERO, traces[b]), len(traces[b]), host)
@@ -3240,8 +3530,10 @@ SEARCH_REF = {
 CHAOS_MAX_DELAY_US = 5_000
 #: phase 48's minimization trials: each is a from-scratch run of one
 #: 100 000-node world (about 300 supersteps), together most of the phase;
-#: 4, not 16, keeps chip_smoke inside its 1200 s on the slowest host seen
-CHAOS_MINIMIZE_TRIALS = 4
+#: 2, not 16, keeps chip_smoke inside its 1200 s on the slowest hosts seen
+#: (with 1 the minimizer kept the counterexample as found; with 2 it
+#: shrank it)
+CHAOS_MINIMIZE_TRIALS = 2
 #: the modules whose ``build_bucket_engine`` the search's fleets come from
 SEARCH_BUILDERS = ["timewarp_tpu_torch.sweep.bucket",
                    "timewarp_tpu_torch.search.fork"]
@@ -3698,6 +3990,17 @@ def _serve_leg(device, cfgs, launches, pack_mode, artifact, chunk):
     return SweepJournal(root).scan(), rec, wall, t_admit, root, late
 
 
+@cpu_leg("serve_solos")
+def leg_serve_solos(dev, n=SERVE_N, steps=SERVE_STEPS):
+    """Phase 49's solo twins: ``solo_result`` of every config of
+    :func:`serve_gossip_configs` on ``dev`` (the CPU, in the CPU legs'
+    process)."""
+    from timewarp_tpu_torch.sweep.spec import RunConfig, solo_result
+    return {c.run_id: solo_result(c, device=dev)
+            for c in (RunConfig.from_json(d, 0)
+                      for d in serve_gossip_configs(n, steps))}
+
+
 def phase_serve_gossip(device, n=SERVE_N, steps=SERVE_STEPS):
     """``bench.py`` ``serve_gossip`` on the card (:func:`serve_gossip_configs`,
     chunk ``max(32, steps // 8)`` as the bench's): one 8-slot open bucket
@@ -3706,7 +4009,8 @@ def phase_serve_gossip(device, n=SERVE_N, steps=SERVE_STEPS):
     first chunk; two legs, ``first-fit`` and then ``predicted`` with an
     artifact fitted from the first leg's own results (``training_rows`` ->
     ``fit_rows``). Gates on both legs: every config served, each
-    ``world_done`` equal to its solo run on the card, ``engine_builds`` 1
+    ``world_done`` equal to its solo run on the CPU
+    (:func:`leg_serve_solos`), ``engine_builds`` 1
     in every journaled ``bucket_util`` and one engine built, the late
     half admitted mid-bucket by a rebind (:func:`_admitted_mid_bucket`)
     and the bucket's fleet supersteps past the largest budget, K1 once per
@@ -3720,10 +4024,12 @@ def phase_serve_gossip(device, n=SERVE_N, steps=SERVE_STEPS):
 
     from timewarp_tpu_torch.pack import fit_rows, training_rows
     from timewarp_tpu_torch.sweep.journal import util_rollup
-    from timewarp_tpu_torch.sweep.spec import RunConfig, solo_result
+    from timewarp_tpu_torch.sweep.spec import RunConfig
     cfgs = serve_gossip_configs(n, steps)
     rcfgs = [RunConfig.from_json(d, 0) for d in cfgs]
-    want = {c.run_id: solo_result(c, device=device) for c in rcfgs}
+    want = LEGS.get("serve_solos") \
+        if LEGS is not None and (n, steps) == (SERVE_N, SERVE_STEPS) \
+        else leg_serve_solos("cpu", n, steps)
     launches = {"fire_compact": 0, "mailbox_insert": 0}
     chunk = max(32, steps // 8)
     artifact = None
@@ -3777,7 +4083,7 @@ def phase_serve_gossip(device, n=SERVE_N, steps=SERVE_STEPS):
             _require_all("serve training rows", {
                 "one row per world": len(rows) == len(cfgs)})
             artifact = fit_rows(rows)
-    say(f"serve_gossip: every world_done = its solo run on the card "
+    say(f"serve_gossip: every world_done = its solo run on the CPU "
         f"(supersteps {[w['supersteps'] for w in want.values()]}); "
         f"launches={launches}")
     return launches, want
@@ -3811,8 +4117,9 @@ def _expected_builds(batches):
 
 
 def phase_served_chaos(device, want, pack_wall, n=CHAOS_N, B=CHAOS_B,
-                       chunk=64, ttl_s=3.0):
-    """Phase 43's chaos pack served: a ``ServeFrontend`` on host ``a``
+                       chunk=64, ttl_s=3.0, budget=CHAOS_PACK_BUDGET):
+    """Phase 43's chaos pack (``budget`` supersteps a world) served: a
+    ``ServeFrontend`` on host ``a``
     admits four worlds into one 8-slot open bucket (``chunk`` 64); curator
     ``a`` runs on the card with ``die_after_chunks=3`` and a ``ttl_s``
     lease, and once its bucket has started (the first chunk running) the
@@ -3841,7 +4148,7 @@ def phase_served_chaos(device, want, pack_wall, n=CHAOS_N, B=CHAOS_B,
     from timewarp_tpu_torch.serve.frontend import ServeFrontend
     from timewarp_tpu_torch.serve.worker import checkpoint_meta
     from timewarp_tpu_torch.sweep import SweepJournal
-    cfgs = [c.to_json() for c in chaos_pack(n, B).configs]
+    cfgs = [c.to_json() for c in chaos_pack(n, B, budget).configs]
     root = tempfile.mkdtemp(prefix="served-chaos-", dir=_scratch())
     launches = {"fire_compact": 0, "mailbox_insert": 0}
     ja = SweepJournal(root, host="a")
@@ -4108,6 +4415,438 @@ def phase_serve_wire(device, want, n=SERVE_N, steps=SERVE_STEPS):
     return launches
 
 
+# -- multi-device: the sharded engines on torch.distributed ---------------
+
+SHARD_D = 2              # gloo ranks sharing the card
+SHARD_STEPS = 64         # supersteps of phases 52 and 53
+K1P_REPLACES = "timewarp_tpu/interp/jax_engine/sharded.py:347"
+
+
+def _comm_timers(comm):
+    """Wrap ``comm``'s collectives in timers (the device drained before
+    and after each, so a collective's time is its own: with gloo, the
+    copies to the host and back and the transport): seconds spent in the
+    exchange (``all_to_all`` and the roll's sends) and in the reductions
+    (pop-min, counters, liveness)."""
+    import torch
+    acc = {"exchange": 0.0, "reduce": 0.0}
+    cuda = comm.device.type == "cuda"
+
+    def wrap(name, key):
+        f = getattr(comm, name)
+
+        def timed(*a, **kw):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            if cuda:
+                torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return out
+        setattr(comm, name, timed)
+    wrap("all_to_all", "exchange")
+    wrap("_send_to", "exchange")
+    wrap("_reduce", "reduce")
+    return acc
+
+
+def _rank_run(tag, run, comm, steps_of, prof_run):
+    """``run()`` on every rank at once, timed between barriers, with the
+    collectives' timers and the kernels' launches counted over it (the
+    caller zeroes the counts just before); then ``prof_run(result)`` (a
+    few supersteps more) under ``torch.profiler`` for each rank's device
+    time, and the card's idle share: one minus the ranks' kernel time
+    summed, over the profiled run's wall. Prints the rank's line; returns
+    ``(result, record)``."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    cuda = comm.device.type == "cuda"
+    acc = _comm_timers(comm)
+    dist.barrier()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = steps_of(out)
+    rec = dict(wall=wall, steps=steps, exchange_s=acc["exchange"],
+               reduce_s=acc["reduce"], launches=dict(ci.LAUNCHES))
+    if cuda:
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            prof_run(out)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t1
+        dev_s = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        both = [None] * dist.get_world_size()
+        dist.all_gather_object(both, (dev_s, pwall))
+        rec.update(device_s=dev_s, idle_share_rank=1 - dev_s / pwall,
+                   idle_share_card=1 - sum(d for d, _ in both)
+                   / max(w for _, w in both))
+    say(f"rank {dist.get_rank()} {tag}: supersteps={steps} wall_s={wall} "
+        f"wall_ms_per_superstep={wall / max(steps, 1) * 1e3} "
+        f"exchange_share={acc['exchange'] / wall} (all_to_all and roll "
+        f"with host staging, {acc['exchange']} s) reduce_share="
+        f"{acc['reduce'] / wall} (pop-min, counters, liveness) "
+        + (f"device_idle_share_rank={rec['idle_share_rank']} "
+           f"device_idle_share_card={rec['idle_share_card']}"
+           if cuda else "device idle share not measured on the CPU"))
+    return out, rec
+
+
+def _take_k1(eng, drive):
+    """K1's arguments at the busiest superstep ``drive()`` runs on the
+    node-sharded ``eng`` (the most entries K1 inserts), taken where the
+    engine's stage receives them, at their solo shapes."""
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    taken = {"valid": -1}
+    insert = eng.stage.insert
+
+    def take(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts):
+        start, cnt = ci.bucket_bounds(sd[0], eng.stage.n)
+        valid = int(cnt.sum())
+        if valid > taken["valid"]:
+            taken.update(valid=valid, args=(
+                start, cnt, None if counts is None else counts[0],
+                drel_s[0], src_s[0] if eng.stage.inbox_src else None,
+                pay_s[0], mb_rel[0], mb_src[0], mb_payload[0]))
+        return insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
+                      counts)
+    eng.stage.insert = take
+    try:
+        drive()
+    finally:
+        del eng.stage.insert
+    return taken["args"], taken["valid"]
+
+
+def rank_node_sharded(device, steps=SHARD_STEPS, n=STEADY_N):
+    """Phase 52 in one rank: steady gossip at ``n`` through
+    ``ShardedFusedSparseEngine`` (K1′) and ``ShardedEngine``, ``run`` for
+    ``steps`` supersteps each, K1 counted over each run, the two engines'
+    shards of the state equal on the rank (the fused one's gathered for
+    the caller); then K1′ at the rank's busiest superstep of the same
+    ``steps`` (a ``run_quiet`` from the start; the gossip saturates past
+    superstep 32) against its plain version (bit-equal) and, one rank
+    at a time, its time and bound."""
+    import torch
+    import torch.distributed as dist
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.sharded import (
+        ShardedEngine, ShardedFusedSparseEngine)
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        state_to_numpy
+    from timewarp_tpu_torch.parallel import make_mesh
+    rank = dist.get_rank()
+    sc, link = steady_gossip(n)
+    mesh = make_mesh()
+    out = {}
+    for name, cls in (("fused", ShardedFusedSparseEngine),
+                      ("general", ShardedEngine)):
+        eng = cls(sc, link, mesh, device=device)
+        ci.reset_launches()
+        (st, tr), rec = _rank_run(
+            f"phase 52 {cls.__name__} steady gossip n={n}",
+            lambda: eng.run(steps), eng.comm, lambda r: len(r[1]),
+            lambda r: eng.run_quiet(16, r[0]))
+        rec["S"] = eng.stage.S
+        if name == "fused":
+            fused_shard = state_to_numpy(st, sc)
+            g = state_to_numpy(eng.gather_state(st), sc)
+        else:
+            _np_states_equal(f"phase 52 rank {rank}: ShardedEngine's shard "
+                             "vs ShardedFusedSparseEngine's",
+                             fused_shard, state_to_numpy(st, sc))
+            g = None
+        out[name] = dict(rec, trace=tr, state=g if rank == 0 else None)
+        if name == "fused":
+            args, valid = _take_k1(eng, lambda: eng.run_quiet(steps))
+            got = ci.mailbox_insert(*args)
+            want = ci.mailbox_insert_plain(*args)
+            torch.cuda.synchronize()
+            err = _equal(f"K1' rank {rank}", got, want)
+            r = {}
+            for turn in range(dist.get_world_size()):
+                if turn == rank:
+                    nbytes = k1_bytes(args)
+                    r = dict(ms=_time_ms(lambda: ci.mailbox_insert(*args)),
+                             plain_ms=_time_ms(
+                                 lambda: ci.mailbox_insert_plain(*args),
+                                 queued=False),
+                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             bytes=nbytes)
+                dist.barrier()
+            say(f"rank {rank} K1' (mailbox_insert per shard) at its busiest "
+                f"superstep: n_local={args[6].shape[1]} S2={args[3].numel()} "
+                f"valid={valid} K={args[6].shape[0]} P={args[8].shape[1]} "
+                f"overflow={int(got[3])} bit-equal max_abs_err={err} "
+                f"kernel_ms={r['ms']} plain_ms={r['plain_ms']} bound_ms="
+                f"{r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s; "
+                f"{nvidia_smi()}; no single PyTorch call computes this "
+                "function: library_ms null)")
+            out["k1p"] = dict(r, err=err, valid=valid, n_local=args[6].shape[1],
+                              S2=args[3].numel())
+        del eng, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_edge_sharded(device, steps=SHARD_STEPS, n=RING_N):
+    """Phase 53 in one rank: the dense ring at ``n`` through
+    ``ShardedEdgeEngine`` (the ring's delivery a roll over the ranks)."""
+    import torch.distributed as dist
+    from timewarp_tpu_torch.interp.torch_engine.sharded import \
+        ShardedEdgeEngine
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        edge_state_to_numpy
+    from timewarp_tpu_torch.parallel import make_mesh
+    eng = ShardedEdgeEngine(*dense_ring(n), make_mesh(), device=device)
+    (st, tr), rec = _rank_run(f"phase 53 ShardedEdgeEngine dense ring n={n}",
+                              lambda: eng.run(steps), eng.comm,
+                              lambda r: len(r[1]),
+                              lambda r: eng.run_quiet(16, r[0]))
+    g = edge_state_to_numpy(eng.gather_state(st))
+    return dict(rec, trace=tr, state=g if dist.get_rank() == 0 else None)
+
+
+def rank_fleet_sharded(device, n=CHAOS_N):
+    """Phase 54 in one rank: the chaos fleet (phase 27's 8 worlds and
+    schedules) through ``ShardedBatchedEngine``, this rank's worlds to
+    quiescence, K2 and K1 counted."""
+    import torch.distributed as dist
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.sharded import \
+        ShardedBatchedEngine
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        state_to_numpy
+    from timewarp_tpu_torch.parallel import make_mesh
+    sc, link, spec, fleet, _ = chaos_fleet(n)
+    eng = ShardedBatchedEngine(sc, link, make_mesh(axis="worlds"),
+                               batch=spec, faults=fleet, window="auto",
+                               device=device)
+    ci.reset_launches()
+    fin, rec = _rank_run(
+        f"phase 54 ShardedBatchedEngine chaos fleet B={spec.B} n={n}",
+        lambda: eng.run_quiet(1 << 20), eng.shard_comm,
+        lambda r: eng.last_run_stats["fleet_supersteps"],
+        lambda r: eng.run_quiet(48))
+    rec["local_worlds"] = int(fin.wake.shape[0])
+    g = state_to_numpy(eng.gather_state(fin), sc)
+    return dict(rec, state=g if dist.get_rank() == 0 else None)
+
+
+def small_sharded_cases(device, n=1 << 12):
+    """Phase 55 in one rank (card or CPU ranks alike): each sharded engine
+    at 2^12 through ``run``: traces and gathered states."""
+    import torch.distributed as dist
+    from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
+    from timewarp_tpu_torch.interp.torch_engine.sharded import (
+        ShardedBatchedEngine, ShardedEdgeEngine, ShardedEngine,
+        ShardedFusedSparseEngine)
+    from timewarp_tpu_torch.interp.torch_engine.state_io import (
+        edge_state_to_numpy, state_to_numpy)
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.models.token_ring import token_ring
+    from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
+    from timewarp_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    wave = gossip(n, fanout=8, think_us=2_000, burst=True, end_us=5_000_000,
+                  mailbox_cap=8)
+    wlink = Quantize(UniformDelay(8_000, 30_000), 1_000)
+    ring = token_ring(n, n_tokens=64, think_us=1_000, bootstrap_us=1_000,
+                      end_us=400_000, with_observer=False)
+    sc, link, _, fleet, _ = chaos_fleet(n, 4)
+    out = {}
+    for tag, eng, steps in (
+            ("ShardedEngine gossip wave", ShardedEngine(
+                wave, wlink, mesh, window="auto", seed=11, device=device),
+             48),
+            ("ShardedFusedSparseEngine gossip wave",
+             ShardedFusedSparseEngine(wave, wlink, mesh, window="auto",
+                                      seed=11, device=device), 48),
+            ("ShardedEdgeEngine uniform ring", ShardedEdgeEngine(
+                ring, UniformDelay(1_000, 5_000), mesh, seed=11,
+                device=device), 100),
+            ("ShardedBatchedEngine fleet, faults", ShardedBatchedEngine(
+                sc, link, make_mesh(axis="worlds"),
+                batch=BatchSpec(seeds=(0, 1, 2, 3)), faults=fleet,
+                window="auto", device=device), 48)):
+        (st, tr), rec = _rank_run(f"phase 55 {tag} n={n} on {device}",
+                                  lambda: eng.run(steps), eng.shard_comm,
+                                  lambda r: max(len(t) for t in r[1])
+                                  if isinstance(r[1], list) else len(r[1]),
+                                  lambda r: eng.run_quiet(16))
+        g = eng.gather_state(st)
+        g = edge_state_to_numpy(g) if tag.startswith("ShardedEdge") \
+            else state_to_numpy(g, eng.scenario)
+        out[tag] = dict(rec, trace=tr,
+                        state=g if dist.get_rank() == 0 else None)
+    return out
+
+
+@cpu_leg("ranks")
+def leg_ranks(dev, n=1 << 12):
+    """Phase 55's CPU half: :func:`small_sharded_cases` in ``SHARD_D``
+    gloo ranks on the CPU, one torch thread each (rank 0's result, which
+    holds the gathered states)."""
+    from timewarp_tpu_torch.parallel.launch import spawn
+    return spawn("chip_smoke:small_sharded_cases", SHARD_D, backend="gloo",
+                 device=dev, args=(n,), threads=1)[0]
+
+
+def ranks_on_card(device, steps=SHARD_STEPS, sizes=None):
+    """Phases 52-55 (the card's half of 55) in one gloo rank sharing the
+    card: each phase between barriers, its wall measured on rank 0.
+    ``sizes`` (the node counts of 52, 53, 54 and 55) defaults to the
+    configurations' own."""
+    import torch.distributed as dist
+    n52, n53, n54, n55 = sizes or (STEADY_N, RING_N, CHAOS_N, 1 << 12)
+    out, walls = {}, {}
+    for phase, fn in ((52, lambda: rank_node_sharded(device, steps, n52)),
+                      (53, lambda: rank_edge_sharded(device, steps, n53)),
+                      (54, lambda: rank_fleet_sharded(device, n54)),
+                      (55, lambda: small_sharded_cases(device, n55))):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out[phase] = fn()
+        dist.barrier()
+        walls[phase] = time.perf_counter() - t0
+    out["walls"] = walls
+    return out
+
+
+def _np_states_equal(what, a, b) -> None:
+    for name in a:
+        x, y = a[name], b[name]
+        same = all(np.array_equal(x[k], y[k]) for k in x) \
+            if name == "states" else np.array_equal(x, y)
+        if not same:
+            raise AssertionError(f"{what}: state.{name} differs")
+
+
+def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
+    """Phases 52-55: the multi-device slice, ranks of ``torch.distributed``
+    (gloo, sharing the card) started by ``parallel.launch.spawn``; each
+    sharded run held equal to its one-device run over the same supersteps
+    (every leaf of the gathered state, every counter, the trace's digest
+    chain), the card ranks to CPU ranks at 2^12. ``sizes`` as
+    :func:`ranks_on_card`'s. Returns ``(K1′ record, K1′ launches, K2/K1
+    launches of phase 54)``."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.state_io import (
+        edge_state_to_numpy, state_to_numpy)
+    from timewarp_tpu_torch.parallel.launch import spawn
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    n52, n53, n54, n55 = sizes or (STEADY_N, RING_N, CHAOS_N, 1 << 12)
+    # the one-device runs first, while the card is the script's alone
+    sc, link = steady_gossip(n52)
+    solo_st, solo_tr = TorchEngine(sc, link, device=device).run(steps)
+    solo52 = state_to_numpy(solo_st, sc)
+    del solo_st
+    ring_st, ring_tr = EdgeEngine(*dense_ring(n53), device=device).run(
+        steps)
+    solo53 = edge_state_to_numpy(ring_st)
+    del ring_st
+    want54 = state_to_numpy(chaos_fin, chaos_fleet(n54)[0])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn("chip_smoke:ranks_on_card", SHARD_D, backend="gloo",
+                device=device.type, args=(steps, sizes))
+    spawn_wall = time.perf_counter() - t0
+    walls = res[0]["walls"]
+    say(f"sharded ranks: {SHARD_D} gloo ranks on cuda:0 spawn_and_run_s="
+        f"{spawn_wall} (phases {sum(walls.values())} s, the rest starting "
+        "the ranks)")
+
+    # 52: node-sharded gossip = the one-device run, K1′ once per superstep
+    r52 = [r[52] for r in res]
+    _np_states_equal("phase 52 sharded fused vs one device", solo52,
+                     r52[0]["fused"]["state"])
+    for name in ("fused", "general"):
+        assert_traces_equal(solo_tr, r52[0][name]["trace"], "one device",
+                            f"sharded {name}")
+        for r, rr in enumerate(r52):
+            ln = rr[name]["launches"]
+            _require_all(f"phase 52 {name} rank {r}", {
+                "K1 once per superstep": ln["mailbox_insert"] == len(solo_tr),
+                "no K2/K3/K4": ln["fire_compact"] == ln["sample_insert"]
+                == ln["fused_ring"] == 0,
+                "the same trace on every rank": np.array_equal(
+                    rr[name]["trace"].recv_hash, solo_tr.recv_hash)})
+    _require_all("phase 52", {"S2 = D * bucket_cap in 1024-entry tiles":
+                              r52[0]["fused"]["S"] % 1024 == 0})
+    k1p = max((rr["k1p"] for rr in r52), key=lambda r: r["ms"])
+    k1p_launches = sum(rr[nm]["launches"]["mailbox_insert"]
+                       for rr in r52 for nm in ("fused", "general"))
+    fs = int(solo52["delivered"])
+    say(f"phase 52: node-sharded steady gossip n={n52} over {SHARD_D} "
+        f"ranks, {len(solo_tr)} supersteps: ShardedFusedSparseEngine = "
+        f"ShardedEngine = TorchEngine (traces, every leaf, delivered={fs}, "
+        f"overflow={int(solo52['overflow'])}); K1' launched "
+        f"{k1p_launches} times in all (once per superstep on each rank)")
+    say(f"phase 52 wall_s={walls[52]}")
+
+    # 53: the sharded ring = EdgeEngine
+    r53 = res[0][53]
+    assert_traces_equal(ring_tr, r53["trace"], "EdgeEngine", "sharded ring")
+    _np_states_equal("phase 53 sharded ring vs EdgeEngine", solo53,
+                     r53["state"])
+    say(f"phase 53: sharded dense ring n={n53} over {SHARD_D} ranks, "
+        f"{len(ring_tr)} supersteps = EdgeEngine (traces, every leaf, "
+        f"delivered={int(solo53['delivered'])})")
+    say(f"phase 53 wall_s={walls[53]}")
+
+    # 54: the sharded chaos fleet = phase 27's worlds
+    r54 = [r[54] for r in res]
+    _np_states_equal("phase 54 sharded chaos fleet vs phase 27", want54,
+                     r54[0]["state"])
+    fleet_launches = {"fire_compact": 0, "mailbox_insert": 0}
+    for r, rr in enumerate(r54):
+        ln = rr["launches"]
+        _require_all(f"phase 54 rank {r}", {
+            "4 worlds a rank": rr["local_worlds"] == CHAOS_B // SHARD_D,
+            "K2 and K1 once per fleet superstep":
+                ln["fire_compact"] == ln["mailbox_insert"] == rr["steps"],
+            "no K3/K4": ln["sample_insert"] == ln["fused_ring"] == 0})
+        for k in fleet_launches:
+            fleet_launches[k] += ln[k]
+    say(f"phase 54: sharded chaos fleet B={CHAOS_B} n={n54} over "
+        f"{SHARD_D} ranks of {CHAOS_B // SHARD_D} worlds: every leaf = phase "
+        f"27's fleet; fleet supersteps per rank {[rr['steps'] for rr in r54]}"
+        f", K2/K1 once per fleet superstep on each rank")
+    say(f"phase 54 wall_s={walls[54]}")
+
+    # 55: the card's ranks = CPU ranks at 2^12
+    t0 = time.perf_counter()
+    cpu = LEGS.get("ranks") if LEGS is not None and sizes is None \
+        else leg_ranks("cpu", n55)
+    cpu_wall = time.perf_counter() - t0
+    card = res[0][55]
+    for tag, c in card.items():
+        g = cpu[tag]
+        ta, tb = (c["trace"], g["trace"])
+        for w, (x, y) in enumerate(zip(*(t if isinstance(t, list) else [t]
+                                         for t in (ta, tb)))):
+            assert_traces_equal(x, y, f"card {tag} w{w}", "CPU ranks")
+        _np_states_equal(f"phase 55 {tag}: card vs CPU ranks", c["state"],
+                         g["state"])
+        say(f"phase 55: {tag}: card ranks = CPU ranks (traces, every leaf; "
+            f"{c['steps']} supersteps, card wall_s={c['wall']} CPU wall_s="
+            f"{g['wall']})")
+    say(f"phase 55 wall_s={walls[55] + cpu_wall}")
+    return k1p, k1p_launches, fleet_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4115,7 +4854,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from timewarp_tpu_torch.utils import build
+    global LEGS
     t_start = time.perf_counter()
+    LEGS = CpuLegs()
+    try:
+        return run_phases(torch, build, t_start)
+    finally:
+        LEGS.stop()
+
+
+def run_phases(torch, build, t_start) -> int:
     device = torch.device("cuda")
     smi = nvidia_smi()
     say(smi)
@@ -4134,6 +4882,7 @@ def main() -> int:
     def timed(phase, fn, *a, **kw):
         out, wall = _timed(lambda: fn(*a, **kw))
         say(f"phase {phase} wall_s={wall}")
+        LEGS.drain()
         return out
 
     err_k2 = timed(2, phase_compact, device)
@@ -4222,7 +4971,7 @@ def main() -> int:
 
     hetero_launches, hetero_keep = timed(42, phase_sweep_hetero, device)
     pack_launches, pack_errs, pack, pack_wall, pack_util, pack_want = timed(
-        43, phase_chaos_pack, device, chaos_eng, chaos_fin)
+        43, phase_chaos_pack, device, chaos_eng)
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += hetero_launches[k] + pack_launches[k]
     err_k2 = max(err_k2, pack_errs[0])
@@ -4250,6 +4999,12 @@ def main() -> int:
     err_k2 = max(err_k2, served_errs[0])
     err_k1 = max(err_k1, served_errs[1])
 
+    k1p, k1p_launches, shard_fleet_launches = phase_sharded(device,
+                                                            chaos_fin)
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += shard_fleet_launches[k]
+
+    LEGS.drain(wait=True)
     say(f"chip_smoke wall_s={time.perf_counter() - t_start}")
     kernels = []
     for name, src, repl, err, r in (
@@ -4267,6 +5022,13 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r.get("bound_by", "bytes"), "library_ms": None})
+    kernels.append({
+        "name": "mailbox_insert_per_shard", "route": "cuda",
+        "source": "timewarp_tpu_torch/csrc/mailbox_insert.cu",
+        "replaces": K1P_REPLACES, "launches": k1p_launches,
+        "max_abs_err": k1p["err"], "ms": k1p["ms"],
+        "plain_ms": k1p["plain_ms"], "bound_ms": k1p["bound_ms"],
+        "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -4276,4 +5038,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-legs"]:
+        sys.exit(cpu_legs_main(sys.argv[2]))
     sys.exit(main())

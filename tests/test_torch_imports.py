@@ -7,7 +7,9 @@ imported first and alone, and so are the sweep service's packages
 ``sweep``, ``pack``, ``manage`` and ``interp.aio``, the chaos search's
 ``search``, the cross-run plane's ``obs.ledger``, ``obs.regress`` and
 ``obs.watch``, and the network stack's and serving layer's ``net`` and
-``serve``); every engine (``TorchEngine``, ``FusedSparseEngine``,
+``serve``, and the multi-device layer's ``parallel`` and
+``interp.torch_engine.sharded``; a rank that ``parallel.launch.spawn``
+starts holds neither either); every engine (``TorchEngine``, ``FusedSparseEngine``,
 ``EdgeEngine``, ``FusedRingEngine``), the sweep's entry points
 (``SweepService``, ``build_bucket_engine``, ``solo_result``), the
 search's (``ChaosSearch``, ``evaluate_configs``, ``rejudge_repro``,
@@ -75,7 +77,9 @@ def test_import_leaves_jax_and_reference_out():
               "obs.regress", "obs.watch", "net", "net.message",
               "net.backend", "net.transfer", "net.dialog", "net.rpc",
               "serve", "serve.hosts", "serve.lease", "serve.worker",
-              "serve.curator", "serve.frontend"):
+              "serve.curator", "serve.frontend", "parallel",
+              "parallel.mesh", "parallel.launch",
+              "interp.torch_engine.sharded"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -96,7 +100,9 @@ def test_import_leaves_jax_and_reference_out():
                                  "obs.ledger", "obs.regress",
                                  "obs.watch", "net", "net.backend",
                                  "net.rpc", "serve", "serve.worker",
-                                 "serve.curator", "serve.frontend"])
+                                 "serve.curator", "serve.frontend",
+                                 "parallel", "parallel.launch",
+                                 "interp.torch_engine.sharded"])
 def test_plane_packages_import_alone(mod):
     """Each run-mode plane's package, imported first and alone in a fresh
     interpreter (the plane modules copied from the reference keep their
@@ -111,6 +117,15 @@ def test_plane_packages_import_alone(mod):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("0 "), out.stdout
+
+
+def test_spawned_rank_holds_neither():
+    """A rank started by ``parallel.launch.spawn`` (the ``spawn`` start
+    method, from this process, which holds JAX) imports neither."""
+    from timewarp_tpu_torch.parallel.launch import spawn
+    got = spawn("torch_sharded_cases:rank_modules", 2, backend="gloo",
+                device="cpu")
+    assert got == [[], []]
 
 
 def test_sources_import_neither_jax_nor_reference():

@@ -30,9 +30,10 @@ class DynDispatch(NamedTuple):
 
 
 class LocalComm:
-    """Single-device node ownership: this device holds every node. (The
-    reference's collectives are identities here; a sharded engine will
-    bring ``torch.distributed`` ones.)"""
+    """Single-device node ownership: this device holds every node, and
+    the collectives are identities (the reference's ``LocalComm``). The
+    sharded engines swap in ``parallel.mesh.MeshComm``, whose collectives
+    run over ``torch.distributed``, so one superstep body serves both."""
 
     def __init__(self, n_global: int, device: torch.device) -> None:
         self.n_global = n_global
@@ -43,6 +44,29 @@ class LocalComm:
         """Global ids of the nodes this device owns, int32."""
         return torch.arange(self.n_local, dtype=torch.int32,
                             device=self.device)
+
+    def all_min(self, x):
+        """Elementwise minimum over the devices of ``x`` (a tensor)."""
+        return x
+
+    def all_sum(self, x, u32=()):
+        """Elementwise sum over the devices of ``x``: a tensor, or a
+        tuple of tensors reduced together (each keeps its dtype; the
+        entries indexed by ``u32`` are wrapping uint32 digests)."""
+        return x
+
+    def all_max(self, x):
+        """Elementwise maximum over the devices of ``x`` (a tensor)."""
+        return x
+
+    def roll(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        """Global roll by ``s`` along the last (node) axis."""
+        return torch.roll(x, s, dims=-1)
+
+    def local_rows(self, table) -> torch.Tensor:
+        """This device's slice of a global per-node table along its last
+        axis (numpy or tensor), on the device."""
+        return torch.as_tensor(table).to(self.device)
 
 
 def init_states_wake(scenario, device: torch.device):

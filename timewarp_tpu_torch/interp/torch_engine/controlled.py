@@ -84,15 +84,21 @@ class ControlledRunMixin:
             rung_pin=torch.full((), decision.rung_pin, dtype=torch.int32,
                                 device=self.device))
 
+    def _host_worlds(self, x):
+        """A per-world tensor (or a solo 0-d one) as the run's host
+        value, what the chunked drivers decide on (the world-sharded
+        engine gathers every rank's worlds, so its ranks decide alike)."""
+        return x.cpu().numpy()
+
     def _controlled_progress(self, state, budgets, start):
         """(steps_done, remaining, active) — ``fleet_progress``'s law
         generalized to solo states (0-d tensors reduce identically)."""
-        steps_done = (state.steps.cpu().numpy().astype(np.int64)
+        steps_done = (self._host_worlds(state.steps).astype(np.int64)
                       - np.asarray(start, np.int64))
         remaining = np.maximum(np.asarray(budgets, np.int64)
                                - steps_done, 0)
-        active = (self.world_active(state).cpu().numpy()
-                  & (remaining > 0))
+        active = self._host_worlds(self.world_active(state)) \
+            & (remaining > 0)
         return steps_done, remaining, active
 
     def run_controlled(self, budgets, state=None):
@@ -122,7 +128,7 @@ class ControlledRunMixin:
         if np.min(budgets) < 0:
             raise ValueError("step budgets must be >= 0")
         st = state if state is not None else self.init_state()
-        start = st.steps.cpu().numpy().astype(np.int64)
+        start = self._host_worlds(st.steps).astype(np.int64)
         rows = [[] for _ in range(batch.B)] if batch is not None \
             else []
         chunk_stats, frame_chunks, flight_chunks = [], [], []
@@ -133,7 +139,7 @@ class ControlledRunMixin:
                 st, budgets, start)
             if not np.any(active):
                 break
-            t_now = int(np.min(st.time.cpu().numpy()))
+            t_now = int(np.min(self._host_worlds(st.time)))
             dec, fresh = ctrl.decide(ci, self.last_run_telemetry, t_now)
             if self._dyn_ok and dec.window_us > self.window:
                 from ...dispatch.trace import DispatchTraceError

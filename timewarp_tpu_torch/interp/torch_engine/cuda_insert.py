@@ -376,17 +376,20 @@ class InsertStage:
     ``route_cap``, a droppy link, or window 1 with ``max_out`` 1) nothing
     is compacted and ``insert_cap`` is refused; the batch is the eager
     width ``n_nodes * max_out``, or ``route_cap`` when smaller, which is
-    not rounded. Unlike the reference, ``n_nodes`` need not be a
+    not rounded. A node-sharded engine's stage serves its rank: ``n`` the
+    rank's nodes, ``batch`` the eager width after the exchange (``D ·
+    bucket_cap``). Unlike the reference, ``n_nodes`` need not be a
     multiple of 1024."""
 
     def __init__(self, scenario, n: int, *, window: int,
                  insert_cap: Optional[int], adaptive: bool = True,
-                 route_cap: Optional[int] = None) -> None:
+                 route_cap: Optional[int] = None,
+                 batch: Optional[int] = None) -> None:
         M = scenario.max_out
         self.n, self.M = n, M
         self.W = int(window)
         self.inbox_src = scenario.inbox_src
-        full = n * M
+        full = n * M if batch is None else int(batch)
         if insert_cap is not None:
             if int(insert_cap) < M:
                 raise ValueError(f"insert_cap must be >= max_out={M} (one "

@@ -206,19 +206,21 @@ class EdgeEngine(PlanesMixin):
         self.cap = int(cap)
         n = scenario.n_nodes
         self.topo = topo = EdgeTopology.build(scenario.static_dst, n)
-        self.comm = LocalComm(n, dev)
-        self._node_ids = ids = self.comm.node_ids()
+        self.comm = comm = self._make_comm(n, dev)
+        self._node_ids = ids = comm.node_ids()
 
         def tab(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return comm.local_rows(torch.from_numpy(np.ascontiguousarray(a)))
         # per edge: its senders (elementwise for shift edges), their
-        # outbox slots and, for gather edges, the static index map
+        # outbox slots and, for gather edges, the static index map; each
+        # over this device's nodes
         self._src_rows = torch.stack([
             torch.remainder(ids - sh[0], n).to(torch.int32)
             if sh is not None else tab(topo.in_src[e])
             for e, sh in enumerate(topo.shift)])                  # [E, N]
         self._slot_rows = torch.stack([
-            torch.full((n,), sh[1], dtype=torch.int32, device=dev)
+            torch.full((comm.n_local,), sh[1], dtype=torch.int32,
+                       device=dev)
             if sh is not None else tab(topo.in_slot[e])
             for e, sh in enumerate(topo.shift)])                  # [E, N]
         self._gather = [None if sh is not None else
@@ -227,6 +229,11 @@ class EdgeEngine(PlanesMixin):
         self._sd = tab(np.asarray(scenario.static_dst, np.int32).T)  # [M, N]
         self._setup_faults(faults)
         self._bind_controller(controller)
+
+    def _make_comm(self, n_global: int, device: torch.device):
+        """The node-ownership object: every node on this device (the
+        sharded edge engine gives this rank's nodes, sharded.py)."""
+        return LocalComm(n_global, device)
 
     def _setup_faults(self, faults) -> None:
         """Hold one schedule's tensor tables (the edge engine runs one
@@ -341,7 +348,7 @@ class EdgeEngine(PlanesMixin):
             st.wake, torch.where(nnr == I32MAX, NEVER, base + nnr.long()))
         ft = self._ft
         if ft is None:
-            t = node_next.min()
+            t = self.comm.all_min(node_next.min())
             if int(t) >= NEVER:    # the loop's one host sync per superstep
                 return None
         else:
@@ -440,8 +447,10 @@ class EdgeEngine(PlanesMixin):
         for e, sh in enumerate(topo.shift):
             if sh is not None:
                 s, slot = sh
-                arr_v = torch.roll(out_valid[slot], s)
-                arr_p = torch.roll(out_pay[slot], s, dims=1)     # [P, N]
+                # the ring's delivery: a roll along the node axis (over
+                # the mesh, one boundary slice to the next rank)
+                arr_v = self.comm.roll(out_valid[slot], s)
+                arr_p = self.comm.roll(out_pay[slot], s)         # [P, N]
                 slot_e = slot
             else:
                 flat_idx, in_valid = self._gather[e]
@@ -499,6 +508,31 @@ class EdgeEngine(PlanesMixin):
                 dtype=torch.int32)
 
         recv_count = deliver.sum(dtype=torch.int32)
+        traced = ()
+        if with_trace:
+            # 8. trace digests (order-independent): from the pre-sort mask
+            fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids),
+                                            0))
+            d_abs = base + torch.where(deliver, st.q_rel, 0).long()
+            rsrc = self._src_rows[:, None, :].expand(E, C, n) \
+                if sc.inbox_src else torch.zeros(
+                    (E, C, n), dtype=torch.int32, device=self.device)
+            rmix = mix32(RECV, node_ids.expand(E, C, n), rsrc, tlo(d_abs),
+                         thi(d_abs), st.q_pay[:, :, 0, :])
+            recv_hash = u32sum(torch.where(deliver, rmix, 0))
+            traced = (fire.sum(), fired_hash, recv_hash, sent_count,
+                      sent_hash & 0xFFFFFFFF)
+        # the step's counters and digests over every device, in one
+        # reduction (the identity on one device; digests wrap at 2^32)
+        sums = self.comm.all_sum(
+            (overflow_step, unrouted_step, misrouted_step, bad_delay_step,
+             recv_count, fault_step) + traced
+            + (() if senders is None else (senders,)),
+            u32=(7, 8, 10) if traced else ())
+        (overflow_step, unrouted_step, misrouted_step, bad_delay_step,
+         recv_count, fault_step) = sums[:6]
+        if senders is not None:
+            senders = sums[-1]
         new_st = EdgeState(
             states=states, wake=wake,
             q_rel=torch.stack(rel_rows),
@@ -521,17 +555,11 @@ class EdgeEngine(PlanesMixin):
             planes = self._plane_rows(st, new_st, deliver, t, base, senders,
                                       fault_step)
 
-        # 8. trace digests (order-independent): from the pre-sort mask
-        fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0))
-        d_abs = base + torch.where(deliver, st.q_rel, 0).long()
-        rsrc = self._src_rows[:, None, :].expand(E, C, n) if sc.inbox_src \
-            else torch.zeros((E, C, n), dtype=torch.int32, device=self.device)
-        rmix = mix32(RECV, node_ids.expand(E, C, n), rsrc, tlo(d_abs),
-                     thi(d_abs), st.q_pay[:, :, 0, :])
-        recv_hash = u32sum(torch.where(deliver, rmix, 0))
+        fired_count, fired_hash, recv_hash, sent_count, sent_hash = \
+            sums[6:11]
         row = torch.stack([
-            t, fire.sum().long(), fired_hash, recv_count.long(), recv_hash,
-            sent_count.long(), sent_hash & 0xFFFFFFFF, overflow_step.long()])
+            t, fired_count.long(), fired_hash, recv_count.long(), recv_hash,
+            sent_count.long(), sent_hash, overflow_step.long()])
         return new_st, row, planes
 
     def _plane_rows(self, st, new_st, deliver, t, base, senders,

@@ -54,6 +54,15 @@ the ``short_delay`` count and the causality plane's straggler. K1 and K2
 never see the window: K2 compacts the window-offset plane whenever the
 bound exceeds 1, and K1 inserts epoch-relative deliver times.
 
+Node ownership is the ``comm`` object (common.py ``LocalComm``: every
+node here, its collectives identities). The node-sharded engines
+(sharded.py) give a ``parallel.mesh.MeshComm`` instead, and the same
+superstep then runs on one rank's nodes: the pop-min is ``all_min``, the
+superstep's counters and digests are summed over the ranks in one
+``all_sum``, and the eager path hands each message to its destination's
+rank in :meth:`TorchEngine._exchange` before the sort. The adaptive and
+lazy regimes are single-device only, as in the reference.
+
 The emitted traces and final states equal ``JaxEngine``'s bit for bit
 (tests/test_torch_engine.py, test_torch_routing.py,
 test_torch_world_batch.py, test_torch_faults.py), and so do the planes'
@@ -358,16 +367,24 @@ class TorchEngine(PlanesMixin):
         if route_cap is not None and route_cap < 1:
             raise ValueError(f"route_cap must be >= 1, got {route_cap}")
         self.route_cap = None if route_cap is None else int(route_cap)
+        # type checks, NOT isinstance: MeshComm subclasses LocalComm. A
+        # sharded engine routes on the eager path only, the one that
+        # hands each message to its destination's rank (_exchange)
+        local = type(self.comm) is LocalComm
         #: the regime step 6 takes (reference ``_adaptive_regime``)
         self.adaptive = (self.route_cap is None and not link.can_drop
+                         and local
                          and (self.window > 1 or scenario.max_out > 1))
         #: outside it: sort first and sample only the route_cap prefix
-        #: (the lazy path), else sample every slot (the eager path)
-        self.lazy = self.route_cap is not None and not link.can_drop
-        self.stage = InsertStage(scenario, scenario.n_nodes,
+        #: (the lazy path), else sample every slot (the eager path). The
+        #: lazy path never runs sharded: it skips the exchange
+        self.lazy = (self.route_cap is not None and not link.can_drop
+                     and local)
+        self.stage = InsertStage(scenario, self.comm.n_local,
                                  window=self.window, insert_cap=insert_cap,
                                  adaptive=self.adaptive,
-                                 route_cap=self.route_cap)
+                                 route_cap=self.route_cap,
+                                 batch=self._exchange_width())
         if self.adaptive:
             # the kernel path's "rung": the compacted batch's static
             # width in senders
@@ -391,9 +408,47 @@ class TorchEngine(PlanesMixin):
         self.record_events = int(record_events)
         self.scenario, self.link = sc, link
         self.s0, self.s1 = seed_words(seed)
-        self.comm = LocalComm(sc.n_nodes, self.device)
+        self.comm = self._make_comm(sc.n_nodes, self.device)
         self._node_ids = self.comm.node_ids()
         self._world = _World(self.s0, self.s1, link, None)
+
+    def _make_comm(self, n_global: int, device: torch.device):
+        """The node-ownership object: every node on this device (the
+        node-sharded engines give this rank's nodes, sharded.py)."""
+        return LocalComm(n_global, device)
+
+    def _exchange_width(self) -> Optional[int]:
+        """The eager batch's width after :meth:`_exchange` (None: the
+        outbox width ``n_nodes * max_out``, nothing exchanged)."""
+        return None
+
+    def _exchange(self, ok, drel, dst_f, smrank, woff, pay_f):
+        """Hand routed messages to the device that owns their destination
+        (reference ``_exchange``), returning ``(ok, drel, row, smrank,
+        woff, pay, bucket_overflow)`` for the messages this device's nodes
+        receive, ``row`` the local mailbox row. One device: the identity,
+        the global destination is the row. The node-sharded engines
+        bucket by destination rank and swap the buckets in one
+        ``all_to_all`` (sharded.py); insertion sorts on ``(row, woff,
+        smrank)``, so the order an exchange returns never matters."""
+        return ok, drel, dst_f, smrank, woff, pay_f, None
+
+    def _any_world(self, flags: np.ndarray) -> np.ndarray:
+        """The run loop's liveness flags (bool ``[k]``) over the worlds of
+        every device (reference ``_any_world``): this device's; the
+        world-sharded engine ORs them over the ranks."""
+        return flags
+
+    def _local_worlds(self, v: np.ndarray) -> np.ndarray:
+        """This device's entries of a per-world host vector over the
+        whole fleet (the world-sharded engine's rank slice)."""
+        return v
+
+    def _gather_rows(self, cols, act, planes, steps_at):
+        """A traced run's trace columns ``[T, B, 8]``, live mask ``[T,
+        B]``, plane rows and starting steps, over every world (this
+        device's; the world-sharded engine gathers the ranks')."""
+        return cols, act, planes, steps_at
 
     # -- the world axis and the fault schedule ------------------------------
 
@@ -602,7 +657,7 @@ class TorchEngine(PlanesMixin):
         node_next = torch.minimum(
             st.wake, torch.where(nnr == I32MAX, NEVER,
                                  st.time[:, None] + nnr.long()))
-        t_raw = node_next.amin(dim=1)
+        t_raw = self.comm.all_min(node_next.amin(dim=1))
         ft = self._world.ft
         if ft is None:
             return node_next, t_raw, t_raw
@@ -785,19 +840,24 @@ class TorchEngine(PlanesMixin):
                 self._rec_sends(ok, downm, src_f, dst_f, tmsg, tmsg + flight)
             if downm is not None:
                 ok = ok & ~downm
-        sort_dst = torch.where(ok, dst_f, n)
-        perm = sort_batch(sort_dst, woff, smrank)
+        # 6.5. hand each message to the device that owns its destination
+        #      (identity on one device; sharded: buckets + all_to_all)
+        ok_r, drel_r, row_r, smrank_r, woff_r, pay_r, bucket_ovf = \
+            (ok, None, dst_f, smrank, woff, pay_f, None) if self.lazy \
+            else self._exchange(ok, drel, dst_f, smrank, woff, pay_f)
+        sort_dst = torch.where(ok_r, row_r, n)
+        perm = sort_batch(sort_dst, woff_r, smrank_r)
         route_drop_step = self._zeros(B)
-        if self.route_cap is not None and self.route_cap < S:
+        if self.route_cap is not None and self.route_cap < perm.shape[1]:
             # valid messages sort ahead of the sentinel: the prefix is
             # exact while the active count fits, the excess is counted
             perm = perm[:, :self.route_cap]
-            route_drop_step = ok.sum(dim=1, dtype=torch.int32) \
+            route_drop_step = ok_r.sum(dim=1, dtype=torch.int32) \
                 - (sort_dst.gather(1, perm) < n).sum(dim=1,
                                                      dtype=torch.int32)
-        sd, smrank_s = sort_dst.gather(1, perm), smrank.gather(1, perm)
+        sd, smrank_s = sort_dst.gather(1, perm), smrank_r.gather(1, perm)
         src_s = torch.div(smrank_s, M, rounding_mode="floor")
-        pay_s = _take(pay_f, perm).contiguous()
+        pay_s = _take(pay_r, perm).contiguous()
         ok_s = sd < n
         if self.lazy:
             woff_s = woff.gather(1, perm)
@@ -809,9 +869,11 @@ class TorchEngine(PlanesMixin):
                 self._rec_sends(ok_s, None, src_s, sd, tmsg_s,
                                 tmsg_s + flight_s)
         else:
-            drel_s = drel.gather(1, perm)
+            drel_s = drel_r.gather(1, perm)
         mrel, msrc, mpay, overflow_step = self.stage.insert(
             sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload, counts)
+        if bucket_ovf is not None:
+            overflow_step = overflow_step + bucket_ovf
         # the SENT digest: lazy over the sliced survivors (all that has a
         # delay), eager over every ok message at the unsliced width
         if self.lazy:
@@ -1043,9 +1105,34 @@ class TorchEngine(PlanesMixin):
         overflow)`` and plane rows."""
         sc = self.scenario
         K, n = sc.mailbox_cap, self.comm.n_local
-        B = st.wake.shape[0]
         node_ids = self._node_ids
         recv_count = deliver.sum(dim=(1, 2), dtype=torch.int32)
+        traced = ()
+        if with_trace:
+            # trace digests (order-independent): from the pre-sort mask
+            fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids),
+                                            0), dim=1)
+            d_abs = base[:, None, None] + torch.where(deliver, st.mb_rel,
+                                                      0).long()
+            recv_mix = mix32(
+                RECV, node_ids.view(1, 1, n),
+                st.mb_src if sc.inbox_src else torch.zeros_like(st.mb_src),
+                tlo(d_abs), thi(d_abs), st.mb_payload[:, :, 0, :])
+            recv_hash = u32sum(torch.where(deliver, recv_mix, 0),
+                               dim=(1, 2))
+            traced = (fire.sum(dim=1), fired_hash, recv_hash, sent_count,
+                      sent_hash)
+        # the step's counters and digests over every device, in one
+        # reduction (the identity on one device; digests wrap at 2^32)
+        sums = self.comm.all_sum(
+            (overflow_step, bad_dst_step, bad_delay_step, short_step,
+             route_drop_step, recv_count, fault_step) + traced
+            + (() if senders is None else (senders,)),
+            u32=(8, 9, 11) if traced else ())
+        (overflow_step, bad_dst_step, bad_delay_step, short_step,
+         route_drop_step, recv_count, fault_step) = sums[:7]
+        if senders is not None:
+            senders = sums[-1]
         ev_time, ev_meta, ev_count = st.ev_time, st.ev_meta, st.ev_count
         if self.record_events:
             one = map_state(lambda x: x[0], st)
@@ -1071,18 +1158,10 @@ class TorchEngine(PlanesMixin):
             planes = self._plane_rows(st, new_st, deliver, mb_rel, t, base,
                                       senders, route_drop_step, fault_step,
                                       short_step, strag)
-        # trace digests (order-independent): from the pre-sort mask
-        fired_hash = u32sum(torch.where(fire, mix32(FIRED, node_ids), 0),
-                            dim=1)
-        d_abs = base[:, None, None] + torch.where(deliver, st.mb_rel,
-                                                  0).long()
-        recv_mix = mix32(
-            RECV, node_ids.view(1, 1, n),
-            st.mb_src if sc.inbox_src else torch.zeros_like(st.mb_src),
-            tlo(d_abs), thi(d_abs), st.mb_payload[:, :, 0, :])
-        recv_hash = u32sum(torch.where(deliver, recv_mix, 0), dim=(1, 2))
+        fired_count, fired_hash, recv_hash, sent_count, sent_hash = \
+            sums[7:12]
         rows = torch.stack([
-            t, fire.sum(dim=1), fired_hash, recv_count.long(), recv_hash,
+            t, fired_count, fired_hash, recv_count.long(), recv_hash,
             sent_count.long(), sent_hash, overflow_step.long()], dim=1)
         return new_st, rows, planes
 
@@ -1180,7 +1259,7 @@ class TorchEngine(PlanesMixin):
         rows (planes.py)."""
         st = self._start(state)
         budgets = self._budgets(max_steps)
-        done = np.zeros(self.B, np.int64)
+        done = np.zeros(len(budgets), np.int64)
         planes_on = with_trace and self._planes_on
         steps_at = st.steps.cpu().numpy() if planes_on else None
         steps0 = int(st.steps.sum())
@@ -1197,7 +1276,8 @@ class TorchEngine(PlanesMixin):
                 left = done < budgets
                 act = (hs[0] < NEVER) & left
                 go = act if with_trace else (hs[1] < NEVER) & left
-                if not (go.any() and act.any()):
+                if not all(self._any_world(np.array([go.any(),
+                                                     act.any()]))):
                     break
                 new, row, pl = self._superstep(st, node_next, t, with_trace)
                 if not act.all():
@@ -1231,8 +1311,10 @@ class TorchEngine(PlanesMixin):
         if not with_trace:
             return self._end(st), None
         cols = torch.stack(rows).cpu().numpy() if rows else \
-            np.zeros((0, self.B, 8), np.int64)
-        act = np.asarray(acts, bool).reshape(-1, self.B)
+            np.zeros((0, len(budgets), 8), np.int64)
+        act = np.asarray(acts, bool).reshape(-1, len(budgets))
+        cols, act, planes, steps_at = self._gather_rows(cols, act, planes,
+                                                        steps_at)
         if planes_on:
             self._capture_planes(planes, act, cols[:, :, 0], steps_at)
         traces = [SuperstepTrace.from_columns(cols[act[:, b], b].T)
@@ -1292,11 +1374,12 @@ class TorchEngine(PlanesMixin):
         remaining, active)``, ``steps_done`` measured from ``start``,
         ``remaining`` the clipped budgets, and a world active while it
         has a pending event and budget left."""
-        steps_done = (state.steps.cpu().numpy().astype(np.int64)
+        steps_done = (self._host_worlds(state.steps).astype(np.int64)
                       - np.asarray(start, np.int64))
         remaining = np.maximum(np.asarray(budgets, np.int64)
                                - steps_done, 0)
-        active = self.world_active(state).cpu().numpy() & (remaining > 0)
+        active = self._host_worlds(self.world_active(state)) \
+            & (remaining > 0)
         return steps_done, remaining, active
 
     def run_stream(self, budgets, state: Optional[EngineState] = None,

@@ -94,11 +94,12 @@ class PlanesMixin(ControlledRunMixin, VerifiedRunMixin,
         N]`` (relative to the new epoch ``t`` ``[B]``), and in ``"full"``
         mode the mailbox fill and per-node peak."""
         B = wake.shape[0]
+        comm = self.comm
         rel2 = rel.reshape(B, -1)
         mmin = rel2.amin(dim=1)
-        nxt = torch.minimum(wake.amin(dim=1),
-                            torch.where(mmin == I32MAX, NEVER,
-                                        t + mmin.long()))
+        nxt = comm.all_min(torch.minimum(
+            wake.amin(dim=1), torch.where(mmin == I32MAX, NEVER,
+                                          t + mmin.long())))
         cols = [senders.long(), torch.full_like(t, self._t_rung),
                 route_drop.long(), fault_dropped.long(),
                 torch.where(nxt >= NEVER, -1, nxt - t)]
@@ -106,7 +107,8 @@ class PlanesMixin(ControlledRunMixin, VerifiedRunMixin,
             # the mailbox occupancy plane: one extra pass over it
             fill = (rel < I32MAX).reshape(B, -1, rel.shape[-1]).sum(
                 dim=1, dtype=torch.int64)                          # [B, N]
-            cols += [fill.sum(dim=1), fill.amax(dim=1)]
+            cols += [comm.all_sum(fill.sum(dim=1)),
+                     comm.all_max(fill.amax(dim=1))]
         return torch.stack(cols, dim=1)
 
     # -- host-side capture ----------------------------------------------------

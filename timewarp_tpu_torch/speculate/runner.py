@@ -202,7 +202,9 @@ class SpeculativeRunMixin:
                 fixed_w=self._spec_w, chunk=chunk, replay=replay)
         policy.begin(self)
         st = state if state is not None else self.init_state()
-        start = st.steps.cpu().numpy().astype(np.int64)
+        # per-world host vectors over the whole fleet (a world-sharded
+        # engine gathers its ranks'; its states hold the rank's worlds)
+        start = self._host_worlds(st.steps).astype(np.int64)
         rows = [[] for _ in range(nworld)]
         chunk_stats, frame_chunks, flight_chunks = [], [], []
         self.last_run_telemetry = None
@@ -231,7 +233,7 @@ class SpeculativeRunMixin:
                     on_quiesce(int(b), st)
             if not act.any():
                 break
-            t_now = int(np.min(st.time.cpu().numpy()))
+            t_now = int(np.min(self._host_worlds(st.time)))
             dec, _fresh = policy.decide(ci, self.last_run_telemetry, t_now)
             dyn = self.dyn_values(dec)
             if batch is not None:
@@ -307,7 +309,8 @@ class SpeculativeRunMixin:
                 stats1 = self.last_run_stats
                 tel1 = self.last_run_telemetry
                 fl1 = self.last_run_flight
-                vmask = torch.as_tensor(viol, device=self.device)
+                vmask = torch.as_tensor(self._local_worlds(viol),
+                                        device=self.device)
                 merged = _merge_worlds(vmask, st, st2)
                 bud_f = np.where(viol, budget, 0)
                 dyn_f = self.dyn_values(fdec)
