@@ -222,7 +222,8 @@ they check):
     the world's solo run on the card and to world b's row of phase 27's
     fleet run from its initial state; K1 and K2 once per fleet superstep
     of every call; K2 and K1 bit-equal to their plain versions on the
-    bucket's busiest superstep, and their times there;
+    bucket's busiest superstep, and their times there; the phase's
+    wall split into its pack lints, its construction lints and the rest;
 44. ``tests/test_zsweep.py``'s ``PACK`` through the service on the card
     and on the CPU: equal results and journals, wall-clock fields aside;
 45. what the service costs on phase 43's bucket: its service run's wall
@@ -322,9 +323,37 @@ both ranks' kernel time over a profiled run's wall):
 55. the card's ranks against two CPU ranks at 2^12: ``ShardedEngine`` and
     ``ShardedFusedSparseEngine`` on a gossip wave, ``ShardedEdgeEngine``
     on a uniform ring, ``ShardedBatchedEngine`` on a 4-world faulted
-    fleet; equal traces and every leaf.
+    fleet; equal traces and every leaf;
 
-The card-against-CPU phases (5, 11, 18, 23, 28, 36, 40 and 55) run
+then the analysis slice (``analysis/``, the oracle, ``obs/query.py``,
+``obs/bisect.py``, ``obs/profiler.py``):
+
+56. lint on the card: ``TorchEngine`` on the gossip wave at 2^17,
+    ``FusedSparseEngine`` on Praos at 2^20, ``FusedRingEngine`` and
+    ``EdgeEngine`` on the dense ring at 2^20, ``TorchEngine`` on steady
+    gossip at 2^20, each built with ``lint="error"`` (the construction
+    lint's ms printed), its superstep body scanned
+    (``lint_engine_jaxpr``: no TW700) and its off modes proven neutral
+    (TW705); every (code, severity) set = the same engine's at 2^12 on
+    the CPU;
+57. ``bisect_engines`` on phase 4's wave at 2^17 (32 supersteps in
+    chunks of 16, the flip's chunk the last): none
+    between two clean runs; against ``flip:2:2:time`` the pinned line
+    names chunk 1 and superstep 16; at 2^12 the card's line = the CPU
+    leg's; then the port's ``SuperstepOracle`` on the card =
+    ``TorchEngine`` on the card at 1024 nodes (trace, states, wakes,
+    counters); only the 2^17 bisection's launches join the kernels
+    line's counts, the oracle leg's are printed apart;
+58. world 0 of phase 27's chaos fleet solo, 8 supersteps around node
+    3's reset crash recorded in full at 100 000 nodes: ``explain_delivery``
+    of a delivery to node 3 is a well-formed chain (its send recorded
+    and earlier, the crash window named); K2 and K1 once per recorded
+    superstep; at 2^12 the ``FlightLog`` and chain = the CPU leg's;
+59. ``profile_session`` around 16 supersteps of the gossip wave at 2^17:
+    the Chrome trace parses and names K2 and K1 once per superstep.
+
+The card-against-CPU phases (5, 11, 18, 23, 28, 36, 40, 55, 56, 57
+and 58) run
 their card legs here and take their CPU legs from a second process
 (``chip_smoke.py --cpu-legs DIR``, started with the script, the card
 hidden from it, two torch threads; phase 55's CPU ranks one thread each)
@@ -339,8 +368,9 @@ prints the leg's wall there and how long it was waited for (``CPU leg
 Wall-clock overheads are printed and gated at 2x at most (the host is
 shared). Every phase prints its wall (``phase N wall_s=``), and the
 script its total (``chip_smoke wall_s=``). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
-over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43, 46-51 and 54,
-K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51 and 54; K1′,
+over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43, 46-51, 54 and
+57-59, K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51, 54 and 57-59;
+K1′,
 ``mailbox_insert_per_shard``, phase 52's ranks' K1 launches, its times
 from phase 52; every other time from phases 6, 13 and 19), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -799,7 +829,14 @@ def vs_cpu(key, device, check):
     ``check(card, cpu)`` against its CPU leg: at once without
     :data:`LEGS`, else as soon as the CPU legs' process has it (at a later
     phase's end, or at the script's)."""
-    card = CPU_LEGS[key](device)
+    against_cpu(key, CPU_LEGS[key](device), check)
+
+
+def against_cpu(key, card, check):
+    """``check(card, cpu)`` for a card result ``card`` (a leg's, or one
+    the phase made at its own sizes) against the CPU leg registered as
+    ``key``: at once without :data:`LEGS`, else as soon as the CPU legs'
+    process has it."""
     if LEGS is None:
         check(card, CPU_LEGS[key]("cpu"))
     else:
@@ -3223,6 +3260,53 @@ def _sweep_leg(device, pack, launches, jd=None, **kw):
     return report, wall, SweepJournal(jd).scan(), rec, jd
 
 
+class LintClock:
+    """The port's lint walls while the block runs: the pack lints
+    (``lint_pack``, their scenario traces included), the construction
+    lints that traced a scenario outside a pack lint (a cached report
+    costs nothing and is not counted), how many scenarios were traced,
+    and the block's wall."""
+
+    def __enter__(self):
+        import timewarp_tpu_torch.analysis as an
+        self.an, orig = an, (an.lint_scenario, an.lint_pack)
+        self.orig = orig
+        self.pack_s = self.build_s = 0.0
+        self.traced = 0
+        depth = [0]
+
+        def lint_scenario(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return orig[0](*a, **kw)
+            finally:
+                self.traced += 1
+                if not depth[0]:
+                    self.build_s += time.perf_counter() - t
+
+        def lint_pack(*a, **kw):
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return orig[1](*a, **kw)
+            finally:
+                depth[0] -= 1
+                self.pack_s += time.perf_counter() - t
+        an.lint_scenario, an.lint_pack = lint_scenario, lint_pack
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.wall = time.perf_counter() - self.t0
+        self.an.lint_scenario, self.an.lint_pack = self.orig
+        return False
+
+    def line(self, what):
+        return (f"{what}: pack_lint_s={self.pack_s} construction_lint_s="
+                f"{self.build_s} scenarios_traced={self.traced} rest_s="
+                f"{self.wall - self.pack_s - self.build_s}")
+
+
 def _scratch():
     """``build/`` beside this script (listed in .gitignore): sweep
     journals and checkpoints."""
@@ -4847,6 +4931,329 @@ def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
     return k1p, k1p_launches, fleet_launches
 
 
+# -- the analysis slice: lint, bisect, explain, profile ---------------------
+
+def lint_builds(n_wave, n_praos, n_ring, n_steady):
+    """Phase 56's engines by name: ``(class, scenario and link builder,
+    keyword arguments)`` — the main paths' configurations."""
+    from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.fused_ring import \
+        FusedRingEngine
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    return {
+        "general": (TorchEngine, lambda: gossip_wave(n_wave),
+                    {"window": "auto"}),
+        "fused": (FusedSparseEngine, lambda: praos_consensus(n_praos),
+                  {"window": "auto", "max_batch": n_praos * SLICE_M}),
+        "ring": (FusedRingEngine, lambda: dense_ring(n_ring), {}),
+        "edge": (EdgeEngine, lambda: dense_ring(n_ring), {}),
+        "steady": (TorchEngine, lambda: steady_gossip(n_steady), {}),
+    }
+
+
+def lint_engines(dev, sizes):
+    """Each engine of :func:`lint_builds` built with ``lint="error"`` on
+    ``dev``, its superstep body scanned (``lint_engine_jaxpr``) and its
+    off modes proven neutral (``prove_mode_neutrality``): per engine the
+    (code, severity) set of the three reports, the construction lint's
+    ms (a fresh scenario object, so nothing is cached) and the scan's and
+    proof's seconds."""
+    from timewarp_tpu_torch.analysis import (check_scenario,
+                                             lint_engine_jaxpr,
+                                             prove_mode_neutrality)
+    out = {}
+    for name, (cls, make, kw) in lint_builds(*sizes).items():
+        sc, link = make()
+        t0 = time.perf_counter()
+        rep = check_scenario(sc, "error", who=name)
+        lint_ms = (time.perf_counter() - t0) * 1e3
+        eng = cls(sc, link, lint="error", device=dev, **kw)
+        if eng.lint_report is not rep:
+            raise AssertionError(f"{name}: the construction lint was not "
+                                 "the scenario's cached report")
+        t1 = time.perf_counter()
+        scan = lint_engine_jaxpr(eng, name)
+        t2 = time.perf_counter()
+        proof = prove_mode_neutrality(
+            lambda **k: cls(sc, link, device=dev, **kw, **k), name)
+        t3 = time.perf_counter()
+        out[name] = dict(
+            codes=sorted({(f.code, f.severity) for f in
+                          rep.findings + scan.findings + proof.findings}),
+            lint_ms=lint_ms, scan_s=t2 - t1, proof_s=t3 - t2,
+            n=sc.n_nodes)
+    return out
+
+
+@cpu_leg("lint")
+def leg_lint(dev, n=1 << 12):
+    """Phase 56's leg: every engine's reports at 2^12."""
+    return lint_engines(dev, (n, n, n, n))
+
+
+def phase_lint(device):
+    """Phase 56: lint on the card (the reference's ``lint`` and
+    ``lint --jaxpr`` without the CLI). Every shipped engine at its main
+    path's size, ``lint="error"``: clean, its body traceable (no TW700),
+    its off modes neutral (TW705 proven); the (code, severity) sets equal
+    the same engines' at 2^12 on the CPU."""
+    card = lint_engines(device, (SLICE_N, PRAOS_N, RING_N, STEADY_N))
+    for name, r in card.items():
+        say(f"lint {name}: n={r['n']} construction_lint_ms={r['lint_ms']} "
+            f"body_scan_s={r['scan_s']} neutrality_proof_s={r['proof_s']} "
+            f"codes={r['codes']}")
+    _require_all("lint on the card", {
+        f"{name}: no TW700, TW705 proven":
+            not any(c == "TW700" for c, _ in r["codes"])
+            and ("TW705", "info") in r["codes"]
+            and not any(s == "error" for _, s in r["codes"])
+        for name, r in card.items()})
+
+    def check(card, cpu):
+        _require_all("lint card vs CPU", {
+            f"{name}: the card's codes = the CPU's at 2^12":
+                card[name]["codes"] == cpu[name]["codes"]
+            for name in card})
+        say("lint card vs CPU: every engine's (code, severity) set equal")
+    against_cpu("lint", card, check)
+
+
+def bisect_wave(dev, n, budget=32, chunk=16, flip="flip:2:2:time"):
+    """``bisect_engines`` on the gossip wave at ``n`` nodes: the clean run
+    against itself (None), then against a run with ``flip`` injected at
+    its chunk: the pinned line and its fields."""
+    from timewarp_tpu_torch.integrity import FlipInjector
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.obs.bisect import bisect_engines
+    sc, link = gossip_wave(n)
+
+    def make(record="off"):
+        return TorchEngine(sc, link, window="auto", record=record,
+                           record_cap=1 << 14, lint="off", device=dev)
+    same = bisect_engines(make, make, budget, chunk=chunk)
+    rep = bisect_engines(make, make, budget, chunk=chunk,
+                         names=("clean", "corrupt"),
+                         inject_b=lambda: FlipInjector(flip), basis="state")
+    return dict(same=same, line=rep.line(), chunk=rep.chunk,
+                superstep=rep.superstep, fields=rep.fields,
+                delta=rep.only_a + rep.only_b)
+
+
+@cpu_leg("bisect")
+def leg_bisect(dev, n=1 << 12):
+    """Phase 57's leg: the flip's bisection at 2^12."""
+    return bisect_wave(dev, n)
+
+
+def oracle_vs_engine(dev, n=1024, steps=1 << 12):
+    """The port's ``SuperstepOracle`` against ``TorchEngine`` on ``dev``,
+    the gossip wave at ``n`` nodes to quiescence: trace rows, final states
+    and wakes, and the never-silent counters."""
+    import torch
+    from timewarp_tpu_torch.interp.ref.superstep import SuperstepOracle
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    sc, link = gossip_wave(n)
+    oracle = SuperstepOracle(sc, link, window="auto", device=dev)
+    otr = oracle.run(steps)
+    st, etr = TorchEngine(sc, link, window="auto", device=dev).run(steps)
+    _same_traces("oracle vs TorchEngine", otr, etr)
+    _require_all("oracle vs TorchEngine", {
+        **{f"state {k} equal": torch.equal(v, st.states[k])
+           for k, v in oracle.states.items()},
+        "wake equal": oracle.wake == st.wake.tolist(),
+        **{f"{c} equal": getattr(oracle, f"{c}_total") == int(
+            getattr(st, c)) for c in ("overflow", "bad_dst", "short_delay",
+                                      "fault_dropped")}})
+    return len(otr), int(st.delivered)
+
+
+def phase_bisect(device, n=SLICE_N):
+    """Phase 57: ``bisect_engines`` on the card at full width (phase 4's
+    gossip wave, 2^17 nodes, 32 supersteps in chunks of 16): the clean run
+    against itself reports none; against a run with ``flip:2:2:time`` (a
+    bit of the epoch flipped as chunk 1 starts, before superstep 16) the
+    pinned line names chunk 1 and superstep 16; at 2^12 the card's line
+    equals the CPU leg's. Then the oracle leg: the
+    port's ``SuperstepOracle`` on the card = ``TorchEngine`` on the card
+    at 1024 nodes. Returns the 2^17 bisection's K2/K1 launches (the main
+    path's; the 2^12 comparison's and the oracle leg's are not summed)."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    full, full_s = _timed(lambda: bisect_wave(device, n))
+    torch.cuda.synchronize()
+    launches = dict(ci.LAUNCHES)
+    say(f"bisect n={n} wall_s={full_s}: {full['line']}")
+    _require_all("bisect on the card", {
+        "clean vs clean: none": full["same"] is None,
+        "the flip's chunk (1) named": full["chunk"] == 1
+        and "chunk 1 " in full["line"],
+        "superstep 16 named": full["superstep"] == 16
+        and "superstep 16 " in full["line"],
+        "a field clause": bool(full["fields"]),
+        "K2 = K1 > 0": launches["fire_compact"] == launches[
+            "mailbox_insert"] > 0})
+    small, small_s = _timed(lambda: bisect_wave(device, 1 << 12))
+    say(f"bisect n=4096 wall_s={small_s}")
+
+    def check(card, cpu):
+        _require_all("bisect card vs CPU at 2^12", {
+            "none on both": card["same"] is None and cpu["same"] is None,
+            "the pinned lines equal": card["line"] == cpu["line"]})
+        say(f"bisect card vs CPU at 2^12: equal lines: {card['line']}")
+    against_cpu("bisect", small, check)
+    ci.reset_launches()
+    (steps, delivered), oracle_s = _timed(lambda: oracle_vs_engine(device))
+    torch.cuda.synchronize()
+    say(f"oracle vs TorchEngine on the card: gossip wave n=1024 "
+        f"supersteps={steps} delivered={delivered} wall_s={oracle_s}: "
+        f"traces, states, wakes "
+        f"and counters equal; its TorchEngine's launches (not summed): "
+        f"{dict(ci.LAUNCHES)}")
+    say(f"bisect n={n} launches (summed): {launches}")
+    return launches
+
+
+def explain_world(dev, n, lead=55, span=8, node=3):
+    """World 0 of phase 27's chaos fleet solo on ``dev``: ``lead``
+    supersteps unrecorded, then ``span`` recorded in full (around node
+    ``node``'s reset crash, 20-60 ms, under the partition): the
+    ``FlightLog``, the first delivery to ``node`` whose chain names the
+    crash window with its send recorded, that chain, and the recorded
+    run's K2/K1 launches and supersteps."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.obs.query import (chain_lines, explain_delivery,
+                                              find_deliveries)
+    sc, link, spec, fleet, _ = chaos_fleet(n)
+    sched = fleet.world_schedule(0)
+    kw = dict(seed=spec.seeds[0], window="auto", faults=sched, lint="off",
+              device=dev)
+    held = TorchEngine(sc, link, **kw).run_quiet(lead)
+    rec = TorchEngine(sc, link, record="full",
+                      record_cap=1 << (4 * n).bit_length(), **kw)
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    ci.reset_launches()
+    _, tr = rec.run(span, state=held)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = dict(ci.LAUNCHES)
+    log = rec.last_run_flight
+    res = None
+    for nth in range(len(find_deliveries(log, dst=node))):
+        got = explain_delivery(log, dst=node, nth=nth, faults=sched)
+        steps = [c["step"] for c in got["chain"]]
+        if "crash_window" in steps and not got["chain"][0].get("unknown"):
+            res = got
+            break
+    if res is None:
+        raise AssertionError(f"explain: no recorded delivery to node "
+                             f"{node} with its send and the crash window "
+                             f"(n={n})")
+    cols = {c: getattr(log, c) for c in ("superstep", "t_sup", "kind", "src",
+                                         "dst", "send_t", "t", "tag")}
+    return dict(cols=cols, dropped=log.dropped, chain=res["chain"],
+                lines=chain_lines(res), launches=launches,
+                supersteps=len(tr), n=n)
+
+
+@cpu_leg("explain")
+def leg_explain(dev, n=1 << 12):
+    """Phase 58's leg: the recorded chaos world at 2^12."""
+    return explain_world(dev, n)
+
+
+def phase_explain(device, n=CHAOS_N):
+    """Phase 58: explain a delivery at 100 000 nodes. World 0 of phase
+    27's chaos fleet recorded in full on the card over 8 supersteps
+    around node 3's reset crash: ``explain_delivery`` for a delivery to
+    node 3 gives a well-formed chain (its send recorded and before the
+    delivery, the crash window and the deferrals named, the delivery
+    last); K2 and K1 launched once per recorded superstep. At 2^12 the
+    card's ``FlightLog`` and chain equal the CPU leg's."""
+    full = explain_world(device, n)
+    chain = full["chain"]
+    send, deliver = chain[0], chain[-1]
+    kinds = [c["step"] for c in chain]
+    say(f"explain n={n}: {full['supersteps']} recorded supersteps, "
+        f"{len(full['cols']['kind'])} events, dropped {full['dropped']}; "
+        f"launches={full['launches']}")
+    for line in full["lines"]:
+        say(f"  {line}")
+    _require_all("explain on the card", {
+        "the send first, recorded": send["step"] == "send"
+        and not send.get("unknown"),
+        "the send precedes its delivery": send["t_us"] < deliver["t_us"]
+        <= deliver["consumed_t_us"],
+        "the delivery last": deliver["step"] == "deliver",
+        "the crash window named": "crash_window" in kinds,
+        "K2 = K1 = the recorded supersteps":
+            full["launches"]["fire_compact"] == full["launches"][
+                "mailbox_insert"] == full["supersteps"]})
+    small = explain_world(device, 1 << 12)
+
+    def check(card, cpu):
+        _require_all("explain card vs CPU at 2^12", {
+            **{f"FlightLog {c} equal": np.array_equal(v, cpu["cols"][c])
+               for c, v in card["cols"].items()},
+            "dropped equal": card["dropped"] == cpu["dropped"],
+            "chains equal": card["lines"] == cpu["lines"]
+            and card["chain"] == cpu["chain"]})
+        say(f"explain card vs CPU at 2^12: {len(card['cols']['kind'])} "
+            "events and the chain equal")
+    against_cpu("explain", small, check)
+    return full["launches"]
+
+
+def phase_profile_session(device, n=SLICE_N, steps=16):
+    """Phase 59: ``obs.profiler.profile_session`` around 16 supersteps of
+    the gossip wave at 2^17 (after 8 warm ones): the Chrome trace it
+    writes parses and names K2 and K1 once per superstep."""
+    import os
+
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.obs.profiler import TRACE_FILE, profile_session
+    sc, link = gossip_wave(n)
+    eng = TorchEngine(sc, link, window="auto", insert_cap=SLICE_S,
+                      device=device)
+    st = eng.run_quiet(8)
+    torch.cuda.synchronize()
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "profile-session")
+    shutil.rmtree(logdir, ignore_errors=True)
+    ci.reset_launches()
+    with profile_session(logdir) as got:
+        st = eng.run_quiet(steps, st)
+        torch.cuda.synchronize()
+    launches = dict(ci.LAUNCHES)
+    path = os.path.join(logdir, TRACE_FILE)
+    with open(path) as f:
+        doc = json.load(f)
+    size = os.path.getsize(path)
+    shutil.rmtree(logdir, ignore_errors=True)
+    names = [e.get("name", "") for e in doc.get("traceEvents", [])
+             if e.get("cat") == "kernel"]
+    counts = {k: sum(k in nm for nm in names)
+              for k in ("fire_compact_kernel", "mailbox_insert_kernel")}
+    say(f"profile session: {steps} supersteps, trace {size} bytes, "
+        f"{len(names)} kernel events, {counts}, launches={launches}")
+    _require_all("profile session", {
+        "a session ran": got == logdir,
+        **{f"{k} once per superstep": c == steps
+           for k, c in counts.items()},
+        "K2 = K1 = the supersteps": launches["fire_compact"]
+        == launches["mailbox_insert"] == steps})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4970,8 +5377,10 @@ def run_phases(torch, build, t_start) -> int:
     timed(41, phase_spec_times, device, spec_eng, cons_eng, wide)
 
     hetero_launches, hetero_keep = timed(42, phase_sweep_hetero, device)
-    pack_launches, pack_errs, pack, pack_wall, pack_util, pack_want = timed(
-        43, phase_chaos_pack, device, chaos_eng)
+    with LintClock() as lint43:
+        pack_launches, pack_errs, pack, pack_wall, pack_util, pack_want = \
+            timed(43, phase_chaos_pack, device, chaos_eng)
+    say(lint43.line("phase 43 split"))
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += hetero_launches[k] + pack_launches[k]
     err_k2 = max(err_k2, pack_errs[0])
@@ -5003,6 +5412,14 @@ def run_phases(torch, build, t_start) -> int:
                                                             chaos_fin)
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += shard_fleet_launches[k]
+
+    timed(56, phase_lint, device)
+    bisect_launches = timed(57, phase_bisect, device)
+    explain_launches = timed(58, phase_explain, device)
+    profile_launches = timed(59, phase_profile_session, device)
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += (bisect_launches[k] + explain_launches[k]
+                        + profile_launches[k])
 
     LEGS.drain(wait=True)
     say(f"chip_smoke wall_s={time.perf_counter() - t_start}")

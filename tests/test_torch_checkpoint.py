@@ -45,6 +45,11 @@ from timewarp_tpu_torch.models import praos as tp
 from timewarp_tpu_torch.models import token_ring as tr
 from timewarp_tpu_torch.net import delays as td
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def _ring(mod, n=48):
     return (mod.token_ring(n, n_tokens=8, think_us=2_000, bootstrap_us=1000,

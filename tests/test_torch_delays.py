@@ -27,6 +27,11 @@ from timewarp_tpu.net import delays as jd
 from timewarp_tpu_torch.core import rng as trng
 from timewarp_tpu_torch.net import delays as td
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 N_DRAWS = 1 << 16
 
 

@@ -54,6 +54,12 @@ from timewarp_tpu_torch.net import delays as td
 from timewarp_tpu_torch.obs.metrics import (MetricsRegistry,
                                             validate_metrics_file)
 from timewarp_tpu_torch.utils.checkpoint import save_state
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 BUDGET = 1 << 14
 

@@ -44,6 +44,11 @@ from timewarp_tpu_torch.interp.torch_engine.state_io import (
 from timewarp_tpu_torch.models.token_ring import token_ring as tring
 from timewarp_tpu_torch.net import delays as td
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def jax_leaves(st):
     """A reference state as numpy leaves (``states`` a dict)."""

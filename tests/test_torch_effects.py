@@ -21,6 +21,12 @@ import logging
 from types import SimpleNamespace
 
 import pytest
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 ROOTS = ("timewarp_tpu", "timewarp_tpu_torch")
 

@@ -41,6 +41,11 @@ from timewarp_tpu_torch.models import praos as tp
 from timewarp_tpu_torch.models.token_ring import token_ring as tring
 from timewarp_tpu_torch.net import delays as td
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def _quantized_uniform(mod):
     return mod.Quantize(mod.UniformDelay(8_000, 30_000), 1_000)

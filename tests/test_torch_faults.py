@@ -54,6 +54,11 @@ from timewarp_tpu_torch.models import gossip as tg
 from timewarp_tpu_torch.models import token_ring as tr
 from timewarp_tpu_torch.net import delays as td
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def _np(st):
     return JState(**state_to_numpy(st))

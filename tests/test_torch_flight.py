@@ -58,6 +58,12 @@ from timewarp_tpu_torch.obs.flight import (ACTION_NAMES, EV_DELIVER,
                                            EV_FAULT, TAG_PURGE, TAG_RESTART,
                                            FlightWriter, load_flight_jsonl)
 from timewarp_tpu_torch.obs.metrics import validate_metrics_file
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 COLS = ("superstep", "t_sup", "kind", "src", "dst", "send_t", "t", "tag")
 

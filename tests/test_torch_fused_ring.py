@@ -47,6 +47,11 @@ from timewarp_tpu_torch.models.token_ring import token_ring as tring
 from timewarp_tpu_torch.net import delays as td
 from test_torch_edge_engine import assert_leaves_equal, jax_leaves
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 I32MAX = 2**31 - 1
 N = 8192           # the reference kernel's minimum width
 

@@ -39,6 +39,12 @@ from timewarp_tpu_torch.models import gossip as tg
 from timewarp_tpu_torch.models import praos as tp
 from timewarp_tpu_torch.models.token_ring import token_ring
 from timewarp_tpu_torch.net import delays as td
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 N = 1024
 

@@ -16,10 +16,11 @@ search's (``ChaosSearch``, ``evaluate_configs``, ``rejudge_repro``,
 ``minimize_counterexample``, ``fork_bucket``) and the serving layer's
 (``OpenBucketRunner``, ``ServeCurator``) run on the card by default,
 raising on a machine without CUDA unless the caller passes
-``device="cpu"``; and what the port does not have yet is refused loudly:
-``lint="warn"``/``"error"``, while ``SweepService(host=...)`` runs on the
-serving layer's leases and ``fit_from_ledger`` reads the port's run
-ledger.
+``device="cpu"``; every service takes the reference's ``lint`` modes and
+refuses any other, ``SweepService(host=...)`` runs on the serving
+layer's leases and ``fit_from_ledger`` reads the port's run ledger. The
+analysis package, the oracle and the query, bisect and profiler tools
+import alone too.
 
 Tolerance: exact (membership and source checks).
 """
@@ -31,6 +32,11 @@ import sys
 
 import pytest
 import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "timewarp_tpu_torch"
 
@@ -79,7 +85,13 @@ def test_import_leaves_jax_and_reference_out():
               "serve", "serve.hosts", "serve.lease", "serve.worker",
               "serve.curator", "serve.frontend", "parallel",
               "parallel.mesh", "parallel.launch",
-              "interp.torch_engine.sharded"):
+              "interp.torch_engine.sharded", "analysis",
+              "analysis.report", "analysis.program_lint",
+              "analysis.fault_lint", "analysis.capacity",
+              "analysis.probes", "analysis.jaxpr_lint",
+              "analysis.determinism", "analysis.plan_lint",
+              "interp.ref.superstep", "interp.torch_engine.traced_ops",
+              "obs.query", "obs.bisect", "obs.profiler"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -102,7 +114,10 @@ def test_import_leaves_jax_and_reference_out():
                                  "net.rpc", "serve", "serve.worker",
                                  "serve.curator", "serve.frontend",
                                  "parallel", "parallel.launch",
-                                 "interp.torch_engine.sharded"])
+                                 "interp.torch_engine.sharded",
+                                 "analysis", "analysis.plan_lint",
+                                 "interp.ref.superstep", "obs.query",
+                                 "obs.bisect", "obs.profiler"])
 def test_plane_packages_import_alone(mod):
     """Each run-mode plane's package, imported first and alone in a fresh
     interpreter (the plane modules copied from the reference keep their
@@ -271,29 +286,36 @@ def test_sweep_refuses_what_the_port_lacks(tmp_path):
     pack = _sweep_pack()
     jd = str(tmp_path / "j")
     bucket = plan_buckets(pack.configs)[0]
-    for lint in ("warn", "error"):
-        for call in (lambda: SweepService(pack, jd, lint=lint, device="cpu"),
-                     lambda: build_bucket_engine(bucket, lint=lint,
-                                                 device="cpu"),
-                     lambda: solo_result(pack.configs[0], lint=lint,
-                                         device="cpu")):
-            with pytest.raises(NotImplementedError, match="item 10"):
-                call()
+    # the lint knob takes the reference's modes and refuses any other
+    for call in (lambda lint: SweepService(pack, jd, lint=lint,
+                                           device="cpu"),
+                 lambda lint: build_bucket_engine(bucket, lint=lint,
+                                                  device="cpu"),
+                 lambda lint: solo_result(pack.configs[0], lint=lint,
+                                          device="cpu")):
+        with pytest.raises(ValueError, match="lint"):
+            call("loud")
+    assert SweepService(pack, jd, lint="error", device="cpu").lint \
+        == "error"
+    assert build_bucket_engine(bucket, lint="error",
+                               device="cpu").lint_report.ok
+    assert solo_result(pack.configs[0], lint="error",
+                       device="cpu")["run_id"] == "g"
     from timewarp_tpu_torch.serve.curator import ServeCurator
     from timewarp_tpu_torch.serve.frontend import ServeFrontend
     from timewarp_tpu_torch.serve.worker import OpenBucketRunner
     from timewarp_tpu_torch.sweep.journal import SweepJournal
     sd = str(tmp_path / "s")
-    for lint in ("warn", "error"):
-        for call in (
-                lambda: OpenBucketRunner("sb0", None, {}, capacity=2,
-                                         window=1, lint=lint,
-                                         device="cpu"),
-                lambda: ServeCurator(sd, "h0", lint=lint, device="cpu"),
-                lambda: ServeFrontend(SweepJournal(sd, host="h0"), "h0",
-                                      ("127.0.0.1", 1), lint=lint)):
-            with pytest.raises(NotImplementedError, match="item 10"):
-                call()
+    for call in (
+            lambda lint: OpenBucketRunner("sb0", None, {}, capacity=2,
+                                          window=1, lint=lint,
+                                          device="cpu"),
+            lambda lint: ServeCurator(sd, "h0", lint=lint, device="cpu"),
+            lambda lint: ServeFrontend(SweepJournal(sd, host="h0"), "h0",
+                                       ("127.0.0.1", 1), lint=lint)):
+        with pytest.raises(ValueError, match="lint"):
+            call("loud")
+        assert call("error").lint == "error"
     # multi-host sweeps run on the serving layer's leases (no refusal)
     svc = SweepService(pack, str(tmp_path / "h"), host="h0", device="cpu")
     assert svc.host == "h0" and svc.leases is not None

@@ -34,6 +34,11 @@ from timewarp_tpu.interp.jax_engine.pallas_insert import PallasInsertStage
 from timewarp_tpu_torch.core.scenario import Scenario
 from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 I32MAX = 2**31 - 1
 
 

@@ -54,6 +54,12 @@ from timewarp_tpu_torch.models import praos as tp
 from timewarp_tpu_torch.models import token_ring as tr
 from timewarp_tpu_torch.net import delays as td
 from timewarp_tpu_torch.obs.metrics import MetricsRegistry
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 N = 40
 BUDGET = 48     # whole chunks: one driver length to compile

@@ -33,6 +33,12 @@ from timewarp_tpu_torch.obs import ledger as PL
 from timewarp_tpu_torch.obs import regress as PG
 from timewarp_tpu_torch.obs import watch as PW
 from timewarp_tpu_torch.pack import predict as PP
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 CPU = "cpu"
 _RING = {"nodes": 20, "n_tokens": 3, "think_us": 2000, "end_us": 70000,

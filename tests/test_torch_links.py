@@ -26,6 +26,11 @@ from timewarp_tpu_torch.net.links import LINK_GRAMMAR, parse_link
 
 from test_zgrammar import BAD_LINKS, GOOD_LINKS
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 N_DRAWS = 1 << 16
 
 # the float specs: (share of draws that may differ, their largest

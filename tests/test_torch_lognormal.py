@@ -25,6 +25,11 @@ from timewarp_tpu_torch.net import delays as td
 
 from test_torch_engine import _gossip_pair, _run_both
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def _quantized_lognormal(mod):
     return mod.Quantize(mod.LogNormalDelay(20_000, 0.6, floor_us=8_000),

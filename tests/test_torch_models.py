@@ -38,6 +38,11 @@ from timewarp_tpu_torch.models.socket_state import socket_state as tsocket
 from timewarp_tpu_torch.models.praos import praos as tpraos
 from timewarp_tpu_torch.models.token_ring import token_ring as tring
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 I32MIN, I32MAX = -2**31, 2**31 - 1
 
 

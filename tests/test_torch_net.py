@@ -36,6 +36,12 @@ import threading
 import types
 
 import pytest
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.filterwarnings("ignore::RuntimeWarning")
 

@@ -26,6 +26,11 @@ from timewarp_tpu_torch.core import rng as trng
 from timewarp_tpu_torch.ops import numeric as tnum
 from timewarp_tpu_torch.trace.hashing import mix32
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 EXTREME_U32 = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1],
                        np.uint32)
 EXTREME_I32 = np.array([0, 1, -1, 2**31 - 1, -2**31, -2**31 + 1], np.int32)

@@ -57,6 +57,11 @@ from timewarp_tpu_torch.models.token_ring import token_ring_links as \
 from timewarp_tpu_torch.net import delays as td
 from timewarp_tpu_torch.net.links import parse_link as tparse
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def _wlink(m):
     """tools/parity_tpu.py's windowed link: 3 ms floor."""

@@ -40,6 +40,11 @@ from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
 from timewarp_tpu_torch.interp.torch_engine.fused_sparse import lower_link
 from timewarp_tpu_torch.net import delays as td
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 I32MAX = 2**31 - 1
 M, P, W = 8, 2, 8_000
 

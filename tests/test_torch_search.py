@@ -59,6 +59,11 @@ from timewarp_tpu_torch.search import objectives as PO
 from timewarp_tpu_torch.sweep import bucket as PB
 from timewarp_tpu_torch.sweep import spec as PSp
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 # the packages export a function ``mutate`` that shadows the module's name
 RMu = importlib.import_module("timewarp_tpu.search.mutate")
 PMu = importlib.import_module("timewarp_tpu_torch.search.mutate")

@@ -40,6 +40,11 @@ from timewarp_tpu_torch.sweep.journal import SweepJournal, status_fields
 from timewarp_tpu_torch.sweep.spec import (RunConfig, SweepPack,
                                            resolve_window, solo_result)
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 CPU = "cpu"
 RING = {"nodes": 64, "n_tokens": 4, "think_us": 2000,
         "end_us": 1 << 40, "mailbox_cap": 8}
@@ -550,6 +555,9 @@ def test_serve_admission_refusals(tmp_path):
     assert msgs[1:] == ref_msgs[1:]
     assert msgs[0].split(";")[0] == ref_msgs[0].split(";")[0]
     assert _records(str(tmp_path / "p")) == _records(str(tmp_path / "r"))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the admission pre-flight takes the reference's lint modes
+    assert ServeFrontend(SweepJournal(str(tmp_path / "l"), host="a"), "a",
+                         ("127.0.0.1", 1), lint="warn").lint == "warn"
+    with pytest.raises(ValueError, match="lint"):
         ServeFrontend(SweepJournal(str(tmp_path / "l"), host="a"), "a",
-                      ("127.0.0.1", 1), lint="warn")
+                      ("127.0.0.1", 1), lint="loud")

@@ -47,6 +47,12 @@ from timewarp_tpu_torch.sweep.journal import SweepJournal
 from timewarp_tpu_torch.sweep.spec import (RunConfig, resolve_window,
                                            solo_result)
 from timewarp_tpu_torch.trace.events import assert_traces_equal
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 CPU = "cpu"
 RING = {"nodes": 64, "n_tokens": 4, "think_us": 2000,

@@ -48,6 +48,11 @@ from timewarp_tpu.net import delays as jd
 from timewarp_tpu.trace.events import assert_states_equal, assert_traces_equal
 from timewarp_tpu_torch.parallel.launch import RankFailed, spawn
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 RANKS = 4
 JLINK = jd.Quantize(jd.UniformDelay(3_000, 9_000), 1_000)
 W = 3_000
@@ -206,6 +211,16 @@ def test_refusals(ranks, name, match):
 def test_lazy_path_never_runs_sharded(ranks):
     got = case(ranks, "refusals")
     assert got["lazy"] is False and got["adaptive"] is False
+
+
+def test_sharded_engines_lint_knob(ranks):
+    """tests/test_analysis.py's construction-lint knob on every sharded
+    engine: clean under "error" with the report kept, "warn" by default,
+    nothing under "off", and a TW104 defect refused under "error"."""
+    got = case(ranks, "lint")
+    for name in ("edge", "general", "fused", "fleet"):
+        assert got[name][:4] == (True, "warn", True, None), (name, got)
+        assert "TW104" in got[name][4], (name, got)
 
 
 def test_meshcomm_roll_matches_global_roll(ranks):

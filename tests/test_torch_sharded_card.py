@@ -12,6 +12,11 @@ import torch
 
 from timewarp_tpu_torch.parallel.launch import spawn
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 @pytest.mark.cuda
 def test_k1_per_shard_equals_plain_on_the_card():

@@ -51,6 +51,11 @@ from timewarp_tpu_torch.speculate import (SpeculationPolicy,
                                           assert_spec_equiv, canonical_rows)
 from timewarp_tpu_torch.utils.checkpoint import save_state
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 N = 96
 BUDGET = 3000
 CHUNK = 16

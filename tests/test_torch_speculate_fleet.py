@@ -47,6 +47,11 @@ from timewarp_tpu_torch.speculate import assert_spec_equiv, canonical_rows
 # the solo file's shape and integer gap link, one definition for both files
 from test_torch_speculate import BUDGET, CHUNK, N, JGap, TGap, _gap, _sc
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def _shrink(F):
     """A degradation window that undercuts the 4 ms support to 1 ms inside

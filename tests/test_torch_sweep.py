@@ -33,6 +33,11 @@ from timewarp_tpu_torch.sweep import (SweepConfigError, SweepJournal,
                                       solo_result)
 from timewarp_tpu_torch.sweep.service import SweepKilled, _is_oom
 
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
+
 _RING = {"nodes": 20, "n_tokens": 3, "think_us": 2000, "end_us": 70000,
          "mailbox_cap": 8}
 _GOSSIP = {"nodes": 24, "fanout": 3, "burst": True, "end_us": 90000,

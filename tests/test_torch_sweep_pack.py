@@ -28,6 +28,12 @@ import pytest
 
 from timewarp_tpu_torch.sweep import SweepPack, SweepService, solo_result
 from timewarp_tpu_torch.sweep.journal import SweepJournal, util_rollup
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 HETERO = os.path.join(os.path.dirname(__file__), "..", "examples", "packs",
                       "hetero.json")

@@ -58,6 +58,12 @@ from timewarp_tpu_torch.net import delays as td
 from timewarp_tpu_torch.net.links import parse_link as tlink
 from timewarp_tpu_torch.obs.metrics import (MetricsRegistry,
                                             validate_metrics_file)
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 J = SimpleNamespace(jax=True, engine=JaxEngine, edge=JEdge, fused=JFused,
                     spec=JSpec, F=jf, g=jg, r=jr, d=jd, link=jlink)

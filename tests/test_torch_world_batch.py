@@ -39,6 +39,12 @@ from timewarp_tpu_torch.interp.torch_engine.state_io import state_to_numpy
 from timewarp_tpu_torch.models import gossip as tg
 from timewarp_tpu_torch.models import token_ring as tr
 from timewarp_tpu_torch.net import delays as td
+import torch
+
+# one intra-op thread per test process: the test session's workers
+# share the host's cores (a process of the default width each
+# oversubscribes them several times over)
+torch.set_num_threads(1)
 
 
 def _ring(mod, n=48):

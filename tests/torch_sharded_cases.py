@@ -339,6 +339,58 @@ def case_refusals(dev):
     return out
 
 
+def _tw104_ring(n=4):
+    """A ring whose step returns an int32 wake: a TW104 lint error."""
+    def step(state, inbox, now, i, bits):
+        L = now.shape[0]
+        out = Outbox(valid=torch.zeros((1, L), dtype=torch.bool),
+                     dst=torch.zeros((1, L), dtype=torch.int32),
+                     payload=torch.zeros((1, 1, L), dtype=torch.int32))
+        return state, out, torch.zeros_like(now, dtype=torch.int32)
+
+    def init_batched(nn, device):
+        return ({"x": torch.zeros(nn, dtype=torch.int32, device=device)},
+                torch.zeros(nn, dtype=torch.int64, device=device))
+    sd = ((np.arange(n) + 1) % n).astype(np.int32)[:, None]
+    return Scenario(name="tw104-ring", n_nodes=n, step=step,
+                    init_batched=init_batched, payload_width=1,
+                    mailbox_cap=4, commutative_inbox=True, static_dst=sd)
+
+
+def case_lint(dev):
+    """Every sharded engine's construction lint knob: ``(error-mode
+    report ok, default mode, default report kept, off report, the codes
+    a defective scenario raises under "error")``."""
+    from timewarp_tpu_torch.analysis import LintError
+    nodes, worlds = make_mesh(), make_mesh(axis="worlds")
+    builds = {
+        "edge": lambda sc, **kw: ShardedEdgeEngine(
+            sc, FixedDelay(500), nodes, device=dev, **kw),
+        "general": lambda sc, **kw: ShardedEngine(
+            sc, FixedDelay(500), nodes, device=dev, **kw),
+        "fused": lambda sc, **kw: ShardedFusedSparseEngine(
+            sc, FixedDelay(500), nodes, window="auto", device=dev, **kw),
+        "fleet": lambda sc, **kw: ShardedBatchedEngine(
+            sc, FixedDelay(500), worlds, batch=BatchSpec(seeds=(0, 1, 2, 3)),
+            device=dev, **kw),
+    }
+    out = {}
+    for name, build in builds.items():
+        clean = token_ring(64, with_observer=False) if name != "fused" \
+            else gossip(64, burst=True)
+        strict = build(clean, lint="error")
+        default = build(clean)
+        try:
+            build(_tw104_ring(), lint="error")
+            codes = None
+        except LintError as e:
+            codes = sorted(set(e.report.codes()))
+        out[name] = (strict.lint_report.ok, default.lint,
+                     default.lint_report is not None,
+                     build(clean, lint="off").lint_report, codes)
+    return out
+
+
 def case_roll(dev):
     n = 64
     x = torch.arange(n, dtype=torch.int32) * 3 + 1

@@ -37,10 +37,11 @@ Event semantics (normative statement in docs/faults.md):
   ``offset_us``; returned wake times are shifted back. Engine
   internals (entropy keys, digests, fault windows) stay on true time.
 
-All times are int64 µs and validated eagerly. The reference's
-scenario-dependent checks (node ranges, overlapping crash windows, …)
-are its TW5xx lint rules, not ported yet: an event naming an
-out-of-range node lowers to an inert row here, as there.
+All times are int64 µs and validated eagerly. The scenario-dependent
+checks (node ranges, overlapping crash windows, …) are the TW5xx lint
+rules (analysis/fault_lint.py), which the engines run under their
+``lint`` knob: an event naming an out-of-range node lowers to an inert
+row here, as in the reference, and TW501 names it.
 """
 
 from __future__ import annotations

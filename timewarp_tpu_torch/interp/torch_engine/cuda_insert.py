@@ -8,7 +8,8 @@ the general engine's counterpart of ``PallasInsertStage``.
 Each wrapper takes its plain version for tensors on the CPU only. For a
 CUDA tensor it launches the hand-written CUDA kernel (``csrc/``, built
 with ``nvcc`` at first use — utils/build.py) or raises: there is no
-fallback. Every launch adds one to :data:`LAUNCHES`. K2 and K1 (and
+fallback. A fake tensor (the sanitizer's trace, analysis/) gets the
+kernel's opaque ``tw.*`` graph node (traced_ops.py) and runs nothing. Every launch adds one to :data:`LAUNCHES`. K2 and K1 (and
 their plain versions) also take a fleet: a leading world axis B on
 every operand, all B worlds in one launch, each world's result equal to
 its own solo call.
@@ -31,6 +32,7 @@ from ...core.rng import msg_bits
 from ...net.delays import LinkModel
 from ...ops.numeric import I32MAX, MASK32
 from ...utils import build
+from . import traced_ops
 
 __all__ = ["LAUNCHES", "reset_launches", "fire_compact",
            "fire_compact_plain", "mailbox_insert", "mailbox_insert_plain",
@@ -196,6 +198,8 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     world, with every payload word staged in shared memory (8 KB a CTA
     per word), so a refused launch — a payload too wide for a CTA's
     shared memory among them — raises."""
+    if traced_ops.is_fake(pdst):
+        return traced_ops.fire_compact(pdst, woff_n, payload, S)
     if not _on_card(pdst, "fire_compact"):
         return fire_compact_plain(pdst, woff_n, payload, S)
     solo = pdst.dim() == 2
@@ -314,6 +318,9 @@ def mailbox_insert(start, cnt, counts, drel, src, pay,
     launch; outputs freshly allocated). The buckets must be contiguous in
     node order, as :func:`bucket_bounds` gives them, and an ordered
     inbox's ``counts`` lie in ``[0, K]``."""
+    if traced_ops.is_fake(mb_rel):
+        return traced_ops.mailbox_insert(start, cnt, counts, drel, src, pay,
+                                         mb_rel, mb_src, mb_payload)
     if not _on_card(mb_rel, "mailbox_insert"):
         return mailbox_insert_plain(start, cnt, counts, drel, src, pay,
                                     mb_rel, mb_src, mb_payload)
@@ -539,6 +546,10 @@ def sample_insert(start, cnt, sd, woff, smrank, pay, t, mb_rel, mb_src,
     :func:`bucket_bounds` gives them.
     ``sd`` is read only by the plain version: the kernel finds each
     node's entries through ``start``/``cnt``."""
+    if traced_ops.is_fake(mb_rel):
+        return traced_ops.sample_insert(start, cnt, sd, woff, smrank, pay,
+                                        t, mb_rel, mb_src, mb_payload, M,
+                                        W, inbox_src)
     if not _on_card(mb_rel, "sample_insert"):
         return sample_insert_plain(start, cnt, sd, woff, smrank, pay, t,
                                    mb_rel, mb_src, mb_payload, link=link,

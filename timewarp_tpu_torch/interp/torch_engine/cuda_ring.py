@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...ops.numeric import I32MAX
+from . import traced_ops
 from .cuda_insert import LAUNCHES, _I, _P, _check_launch, _kernel, _on_card
 
 __all__ = ["fused_ring", "fused_ring_plain"]
@@ -116,8 +117,13 @@ def fused_ring(planes: torch.Tensor, t: int, alive: bool, think: int,
     writes) and ``acc`` (int64 ``[2]``, to which the counts are added) let
     a driver reuse its buffers; fresh ones are allocated otherwise.
     Returns ``(out, acc)``."""
-    if not _on_card(planes, "fused_ring"):
-        res, counts = fused_ring_plain(planes, t, alive, think, drel)
+    fake = traced_ops.is_fake(planes)
+    if fake or not _on_card(planes, "fused_ring"):
+        if fake:
+            res, counts = traced_ops.fused_ring(planes, int(t), bool(alive),
+                                                int(think), int(drel))
+        else:
+            res, counts = fused_ring_plain(planes, t, alive, think, drel)
         if out is not None:
             res = out.copy_(res)
         if acc is not None:

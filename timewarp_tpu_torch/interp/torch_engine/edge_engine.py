@@ -58,7 +58,9 @@ from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...obs.flight import TAG_DEFER, TAG_PURGE, TAG_RESTART
 from ...trace.hashing import FIRED, RECV, SENT, mix32
-from .common import LocalComm, init_states_wake, run_stats
+from . import traced_ops
+from .common import (LocalComm, init_states_wake,
+                     run_stats)
 from .engine import _sort_rows, resolve_device
 from .planes import PlaneRows, PlanesMixin
 
@@ -188,14 +190,20 @@ class EdgeEngine(PlanesMixin):
     #: classic supersteps: the controller's pinned window
     window = 1
     _faulted = False
+    #: the TW5xx report of ``faults`` (None: no schedule or lint "off")
+    fault_lint_report = None
 
     def __init__(self, scenario: Scenario, link: LinkModel, *,
                  seed: int = 0, cap: int = 2, faults=None,
                  telemetry: str = "off", controller=None,
                  verify: str = "off", record: str = "off",
-                 record_cap: Optional[int] = None, device=None) -> None:
+                 record_cap: Optional[int] = None, lint: str = "warn",
+                 device=None) -> None:
+        from ...analysis import check_scenario
         name = type(self).__name__
         self._bind_planes(telemetry, verify, record, record_cap)
+        self.lint = lint
+        self.lint_report = check_scenario(scenario, lint, who=name)
         if scenario.static_dst is None:
             raise ValueError(
                 f"scenario {scenario.name!r} declares no static_dst; "
@@ -248,6 +256,9 @@ class EdgeEngine(PlanesMixin):
             raise ValueError(
                 f"the edge engine runs one world; faults must be a "
                 f"FaultSchedule, got {faults!r}")
+        from ...analysis import check_faults
+        self.fault_lint_report = check_faults(
+            faults, self.scenario, self.lint, who=type(self).__name__)
         self._has_skew = faults.has_skew
         self._has_reset = faults.has_reset
         self._n_restarts = faults.n_restarts
@@ -329,6 +340,17 @@ class EdgeEngine(PlanesMixin):
             time=torch.where(iv, base + rel.long(), NEVER),
             payload=torch.where(iv[:, None, :], ipay, 0))
 
+    @staticmethod
+    def _quiesced(t) -> bool:
+        """The run loop's host read of the popped minimum: no event left.
+        A fake trace (the sanitizer's, analysis/determinism.py) reads no
+        value: its superstep body is traced as a live one."""
+        return not traced_ops.is_fake(t) and int(t) >= NEVER
+
+    def _lint_body(self, st: EdgeState):
+        """One traced superstep from ``st`` (analysis/determinism.py)."""
+        return self._superstep(st, True)
+
     def _superstep(self, st: EdgeState, with_trace: bool
                    ) -> Optional[Tuple[EdgeState, Optional[torch.Tensor]]]:
         """One superstep: ``(new_state, trace_row)`` — the row an int64
@@ -349,7 +371,7 @@ class EdgeEngine(PlanesMixin):
         ft = self._ft
         if ft is None:
             t = self.comm.all_min(node_next.min())
-            if int(t) >= NEVER:    # the loop's one host sync per superstep
+            if self._quiesced(t):  # the loop's one host sync per superstep
                 return None
         else:
             # crash suppression: events inside a down window slide to its
@@ -362,8 +384,8 @@ class EdgeEngine(PlanesMixin):
                                 ((node_next > pre) & (pre < NEVER))[None],
                                 node_ids, node_ids, pre, node_next)
             t = node_next.min()
-            if int(torch.stack([t, t_raw])[0 if with_trace else 1]) \
-                    >= NEVER:
+            if self._quiesced(torch.stack([t, t_raw])[0 if with_trace
+                                                      else 1]):
                 return None
         fire = node_next == t
 

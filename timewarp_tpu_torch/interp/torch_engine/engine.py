@@ -90,7 +90,8 @@ from ...ops.numeric import I32MAX, thi, tlo, u32sum
 from ...trace.events import SuperstepTrace
 from ...trace.hashing import FIRED, RECV, SENT, mix32
 from .batched import BatchSpec, map_state, rebind_link
-from .common import LocalComm, init_states_wake, run_stats, stats_merge
+from .common import (LocalComm, init_states_wake,
+                     run_stats, stats_merge)
 from .cuda_insert import InsertStage, flight_times, link_sample
 from .planes import PlaneRows, PlanesMixin
 
@@ -280,13 +281,21 @@ class TorchEngine(PlanesMixin):
     chunk length) and ``speculate`` (``"off"``, ``"auto"``,
     ``"fixed:W"``; ``run_speculative``). Speculating, ``window`` names the
     conservative floor (``spec_floor``) and ``self.window`` becomes the
-    speculative bound: W for ``fixed:W``, ``I32MAX - 1`` for ``auto``."""
+    speculative bound: W for ``fixed:W``, ``I32MAX - 1`` for ``auto``.
+
+    ``lint`` (``"warn"``, ``"error"``, ``"off"``) runs the scenario
+    sanitizer at construction (analysis/; ``lint_report``) and, with
+    ``faults``, the TW5xx schedule lint (``fault_lint_report``):
+    ``"error"`` refuses a scenario with an error finding, ``"warn"`` logs
+    the findings, ``"off"`` looks at nothing."""
 
     last_run_stats = None
     #: the fleet's BatchSpec (None solo) and fault state; subclasses that
     #: take neither keep these
     batch = None
     faults = None
+    #: the TW5xx report of ``faults`` (None: no schedule or lint "off")
+    fault_lint_report = None
     _faulted = False
     _has_skew = _has_reset = False
     _n_restarts = 0
@@ -307,13 +316,13 @@ class TorchEngine(PlanesMixin):
                  telemetry: str = "off", controller=None,
                  verify: str = "off", record: str = "off",
                  record_cap: Optional[int] = None, speculate: str = "off",
-                 device=None) -> None:
+                 lint: str = "warn", device=None) -> None:
         if speculate not in (None, "off"):
             from ...speculate.plane import parse_speculate
             self.speculate, self._spec_w = parse_speculate(
                 speculate, type(self).__name__)
         self._hold(scenario, link, seed, device, record_events, telemetry,
-                   verify, record, record_cap)
+                   verify, record, record_cap, lint)
         spec = self.speculate != "off"
         if spec:
             # the causality plane is a per-superstep plane row
@@ -393,12 +402,16 @@ class TorchEngine(PlanesMixin):
 
     def _hold(self, sc: Scenario, link: LinkModel, seed: int, device,
               record_events: int, telemetry="off", verify="off",
-              record="off", record_cap=None) -> None:
+              record="off", record_cap=None, lint="warn") -> None:
         """What every engine of this package checks and holds, before its
-        own regime guards: the planes' modes, the device, the event ring's
-        capacity, the seed words and the node axis."""
+        own regime guards: the planes' modes, the scenario's lint, the
+        device, the event ring's capacity, the seed words and the node
+        axis."""
+        from ...analysis import check_scenario
         name = type(self).__name__
         self._bind_planes(telemetry, verify, record, record_cap)
+        self.lint = lint
+        self.lint_report = check_scenario(sc, lint, who=name)
         self.device = resolve_device(device, name)
         if sc.n_nodes * sc.max_out >= 2**31:
             raise ValueError(
@@ -517,6 +530,9 @@ class TorchEngine(PlanesMixin):
                 "FaultSchedule((NodeCrash(...), ...)) or "
                 "faults.parse_faults()")
         self.faults = faults
+        from ...analysis import check_faults
+        self.fault_lint_report = check_faults(
+            faults, self.scenario, self.lint, who=type(self).__name__)
         self._has_skew = faults.has_skew
         self._has_reset = faults.has_reset
         self._n_restarts = faults.n_restarts
@@ -1205,6 +1221,15 @@ class TorchEngine(PlanesMixin):
                 torch.full_like(t, NEVER) if strag is None else strag],
                 dim=1)
         return PlaneRows(telem, integ, rec, spec)
+
+    def _lint_body(self, state: EngineState):
+        """One superstep of every world with the trace on, from a solo or
+        fleet state: ``_pop`` and ``_superstep``, without the run loop's
+        host read of the popped minimum (analysis/determinism.py traces
+        this body, the reference's ``_step_all``)."""
+        st = self._start(state)
+        node_next, t, _ = self._pop(st)
+        return self._superstep(st, node_next, t, True)
 
     # -- run loops ---------------------------------------------------------
 

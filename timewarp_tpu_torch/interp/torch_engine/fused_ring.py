@@ -63,7 +63,7 @@ class FusedRingEngine:
 
     def __init__(self, scenario: Scenario, link, *, cap: int = 2,
                  device=None, telemetry: str = "off",
-                 verify: str = "off") -> None:
+                 verify: str = "off", lint: str = "warn") -> None:
         if telemetry != "off":
             raise ValueError(
                 "FusedRingEngine runs the whole superstep as one kernel — "
@@ -75,6 +75,10 @@ class FusedRingEngine:
                 "FusedRingEngine has no chunked driver to verify; run "
                 f"EdgeEngine (bit-exact to this engine) with "
                 f"verify={verify!r} instead")
+        from ...analysis import check_scenario
+        self.lint = lint
+        self.lint_report = check_scenario(scenario, lint,
+                                          who=type(self).__name__)
         if not isinstance(link, FixedDelay):
             raise ValueError("FusedRingEngine supports FixedDelay links "
                              "(the delay is a kernel scalar)")
@@ -103,7 +107,8 @@ class FusedRingEngine:
             raise ValueError("delay must fit int32")
         self.scenario, self.link = scenario, link
         self.n = scenario.n_nodes
-        self._edge = EdgeEngine(scenario, link, cap=2, device=device)
+        self._edge = EdgeEngine(scenario, link, cap=2, lint="off",
+                                device=device)
         self.device = self._edge.device
 
     # -- state conversion --------------------------------------------------
@@ -182,6 +187,13 @@ class FusedRingEngine:
         """One superstep, or None once quiesced."""
         final, taken = self._run(fs, 1)
         return final if taken else None
+
+    def _lint_body(self, fs: FusedRingState):
+        """One superstep's device work from ``fs`` — the pop-min and K4
+        at the epoch's first instant — without the run loop's host read
+        of the minimum and the epoch (analysis/determinism.py)."""
+        self._pop_min(fs.planes)
+        return fused_ring(fs.planes, 0, True, self.think, self.drel)
 
     def _run(self, fs: FusedRingState, max_steps: int):
         """Up to ``max_steps`` supersteps from ``fs``: ``(state, taken)``.

@@ -117,7 +117,8 @@ class FusedSparseEngine(TorchEngine):
                  max_batch: int = 1 << 16, telemetry: str = "off",
                  controller=None, verify: str = "off",
                  record: str = "off", record_cap=None,
-                 speculate: str = "off", device=None) -> None:
+                 speculate: str = "off", lint: str = "warn",
+                 device=None) -> None:
         sc = scenario
         if speculate not in (None, "off"):
             raise ValueError(
@@ -129,7 +130,7 @@ class FusedSparseEngine(TorchEngine):
                 "(docs/speculation.md)")
         # TorchEngine's holdings, not its K2/K1 stage: _route replaces it
         self._hold(sc, link, seed, device, record_events, telemetry,
-                   verify, record, record_cap)
+                   verify, record, record_cap, lint)
         if link.can_drop:
             raise ValueError(
                 "FusedSparseEngine requires a drop-free link (message "

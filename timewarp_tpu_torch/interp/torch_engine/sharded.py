@@ -94,13 +94,14 @@ class ShardedEdgeEngine(ShardedDriver, EdgeEngine):
     def __init__(self, scenario: Scenario, link: LinkModel, mesh: Mesh, *,
                  axis="nodes", seed: int = 0, cap: int = 2,
                  telemetry: str = "off", verify: str = "off",
-                 record: str = "off", device=None) -> None:
+                 record: str = "off", lint: str = "warn",
+                 device=None) -> None:
         who = type(self).__name__
         _refuse_record(record, who)
         _refuse_verify(verify, who)
         self.mesh, self.axis = mesh, axis
         super().__init__(scenario, link, seed=seed, cap=cap,
-                         telemetry=telemetry, device=device)
+                         telemetry=telemetry, lint=lint, device=device)
         bad = [e for e, s in enumerate(self.topo.shift) if s is None]
         if bad:
             raise ValueError(
@@ -124,7 +125,7 @@ class ShardedEngine(ShardedDriver, TorchEngine):
                  bucket_cap: Optional[int] = None, window=1,
                  route_cap: Optional[int] = None, telemetry: str = "off",
                  verify: str = "off", record: str = "off",
-                 device=None) -> None:
+                 lint: str = "warn", device=None) -> None:
         who = type(self).__name__
         _refuse_record(record, who)
         _refuse_verify(verify, who)
@@ -138,7 +139,7 @@ class ShardedEngine(ShardedDriver, TorchEngine):
             int(bucket_cap), full)
         super().__init__(scenario, link, seed=seed, window=window,
                          route_cap=route_cap, telemetry=telemetry,
-                         device=device)
+                         lint=lint, device=device)
 
     def _exchange_width(self) -> int:
         return self.comm.n_shards * self.bucket_cap
@@ -193,7 +194,8 @@ class ShardedFusedSparseEngine(ShardedEngine):
                  axis="nodes", seed: int = 0,
                  bucket_cap: Optional[int] = None, window=1,
                  telemetry: str = "off", verify: str = "off",
-                 record: str = "off", device=None) -> None:
+                 record: str = "off", lint: str = "warn",
+                 device=None) -> None:
         _refuse_record(record, type(self).__name__)
         if not scenario.commutative_inbox:
             raise ValueError(
@@ -203,7 +205,7 @@ class ShardedFusedSparseEngine(ShardedEngine):
         super().__init__(scenario, link, mesh, axis=axis, seed=seed,
                          bucket_cap=bucket_cap, window=window,
                          route_cap=None, telemetry=telemetry,
-                         verify=verify, device=device)
+                         verify=verify, lint=lint, device=device)
 
     def _exchange_width(self) -> int:
         #: K1′'s batch width: D · bucket_cap in whole 1024-entry tiles
@@ -247,7 +249,7 @@ class ShardedBatchedEngine(ShardedDriver, TorchEngine):
                  telemetry: str = "off", controller=None,
                  verify: str = "off", record: str = "off",
                  record_cap=None, speculate: str = "off",
-                 device=None) -> None:
+                 lint: str = "warn", device=None) -> None:
         if batch is None:
             raise ValueError(
                 "ShardedBatchedEngine shards the world axis; it needs "
@@ -267,7 +269,7 @@ class ShardedBatchedEngine(ShardedDriver, TorchEngine):
                          telemetry=telemetry, controller=controller,
                          verify=verify, record=record,
                          record_cap=record_cap, speculate=speculate,
-                         device=device)
+                         lint=lint, device=device)
         self.shard_comm = MeshComm(mesh, axis, batch.B, self.device)
         self._slice_identity()
 

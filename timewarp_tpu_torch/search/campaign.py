@@ -113,8 +113,9 @@ class ChaosSearch:
     enables the counterfactual-forking refinement phase. Every engine
     the campaign builds runs on ``device`` (the card unless the caller
     passes ``device="cpu"``; without a card and without ``device=``
-    the constructor raises). ``lint`` is ``"off"`` only in the port
-    (``sweep.spec.check_lint``)."""
+    the constructor raises). ``lint`` is the engines' construction-lint
+    knob (``sweep.spec.check_lint``; ``"off"`` by default, as the
+    reference's)."""
     base: RunConfig
     objective: Objective
     domain: Optional[ScheduleDomain] = None

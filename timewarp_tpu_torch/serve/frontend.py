@@ -1,7 +1,7 @@
 """The streaming RunConfig frontend on the ``net/`` real-IO fabric
-(the port's copy of ``timewarp_tpu/serve/frontend.py``; ``lint`` is
-``"off"`` only, as in the port's sweep, until the pre-flight analysis
-is ported).
+(the port's copy of ``timewarp_tpu/serve/frontend.py``; ``lint="warn"``
+or ``"error"`` pre-flights each admission with analysis/plan_lint.py,
+as the reference's does).
 
 A serving process listening on ``HOST:PORT`` runs this: an
 :class:`~timewarp_tpu_torch.net.rpc.Rpc` server (``Rpc.serve``/``Method``)
@@ -163,9 +163,9 @@ class ServeFrontend:
         self.listen = listen
         self.slots = int(slots)
         self.poll_us = int(poll_us)
-        #: admission-time pre-flight verification (the reference's
-        #: plan_lint.py) waits for the port's analysis package: "off"
-        #: is the only mode (check_lint above refuses the others)
+        #: admission-time pre-flight verification (analysis/plan_lint.py):
+        #: "error" refuses a doomed config with its findings, "warn"
+        #: logs them, "off" (the default) skips
         self.lint = lint
         #: key sha -> [bucket_id, ...] (newest last) — open buckets
         self._by_key: Dict[str, List[str]] = {}
@@ -247,6 +247,23 @@ class ServeFrontend:
             raise ServeRejected(
                 f"run_id {cfg.run_id!r} is already admitted with a "
                 "different config — run_ids are unique per service")
+        if self.lint != "off":
+            # pre-flight verification at admission (plan_lint.py): every
+            # refusal the curator would hit mid-bucket — window undercuts,
+            # doomed speculation, the scenario sanitizer, fault-aware
+            # capacity proofs — refused HERE, with the pinned findings in
+            # the reply and nothing journaled
+            from ..analysis import lint_run_config
+            rep = lint_run_config(cfg)
+            if self.lint == "error" and not rep.ok:
+                raise ServeRejected(
+                    f"config {cfg.run_id!r} failed pre-flight lint "
+                    "(docs/serving.md 'Pre-flight verification'):\n"
+                    + "\n".join(f.render() for f in rep.errors))
+            for f in rep.errors:
+                _log.warning("admission lint: %s", f.render())
+            for f in rep.warnings:
+                _log.info("admission lint: %s", f.render())
         try:
             key = bucket_key_sha(cfg)
         except SweepConfigError as e:

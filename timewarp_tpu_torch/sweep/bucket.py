@@ -46,8 +46,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .spec import (RunConfig, build_scenario, link_signature,
-                   link_sweep_params, resolve_window)
+from .spec import (RunConfig, link_signature, link_sweep_params,
+                   linted_scenario, resolve_window)
 
 __all__ = ["Bucket", "plan_buckets", "bucket_identity",
            "build_bucket_engine", "tile_world_state"]
@@ -195,7 +195,7 @@ def bucket_identity(bucket: Bucket):
     return spec, links, fleet
 
 
-def build_bucket_engine(bucket: Bucket, *, lint: str = "off",
+def build_bucket_engine(bucket: Bucket, *, lint: str = "warn",
                         telemetry: str = "off", controller=None,
                         verify: str = "off", record: str = "off",
                         record_cap=None, device=None):
@@ -213,7 +213,7 @@ def build_bucket_engine(bucket: Bucket, *, lint: str = "off",
 
     check_lint(lint, "build_bucket_engine")
     cfgs = bucket.configs
-    sc = build_scenario(cfgs[0].family, cfgs[0].params)
+    sc = linted_scenario(cfgs[0].family, cfgs[0].params, lint)
     spec, links, fleet = bucket_identity(bucket)
     if bucket.controller and telemetry == "off":
         # an auto controller reads last_run_telemetry between chunks
@@ -230,7 +230,7 @@ def build_bucket_engine(bucket: Bucket, *, lint: str = "off",
                       faults=fleet, telemetry=telemetry,
                       controller=controller, verify=verify,
                       record=record, record_cap=record_cap,
-                      speculate=bucket.speculate, device=device)
+                      speculate=bucket.speculate, lint=lint, device=device)
     eng.metrics_label = f"bucket:{bucket.bucket_id}"
     return eng
 

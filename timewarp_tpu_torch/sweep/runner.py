@@ -74,7 +74,7 @@ class StaleAttempt(RuntimeError):
 
 class BucketRunner:
     def __init__(self, bucket: Bucket, journal: SweepJournal,
-                 done: Dict[str, dict], *, lint: str = "off",
+                 done: Dict[str, dict], *, lint: str = "warn",
                  chunk: int = 64, inject=None,
                  telemetry: str = "off", metrics=None,
                  prior_decisions=(), verify: str = "off",

@@ -46,10 +46,10 @@ from their last checkpoint, and the per-world digest chains continue
 to the same value an uninterrupted run produces (the sweep survival
 law, docs/sweeps.md).
 
-The port's difference, refused loudly rather than run silently
-without: ``lint`` is ``"off"`` only (no pre-flight analysis yet,
-ROADMAP queue 1 item 10). ``host=`` runs the reference's multi-host
-mode on the port's leases (serve/lease.py). The bucket engines run on
+``lint`` (default ``"warn"``) lints the whole pack before any bucket
+engine is built (analysis/plan_lint.py) and every bucket engine at
+construction; ``"error"`` refuses a doomed pack with its findings.
+``host=`` runs the reference's multi-host mode on the port's leases (serve/lease.py). The bucket engines run on
 ``device`` — the card unless ``device="cpu"`` is passed — and on the
 card :meth:`SweepService.run` builds the kernels before the
 supervision loop starts, so a first-use ``nvcc`` never counts against
@@ -242,7 +242,7 @@ class SweepService:
                  backoff_us: int = 50_000,
                  bucket_timeout_us: Optional[int] = None,
                  grace_us: int = 500_000, max_bucket: int = 64,
-                 lint: str = "off", inject=None,
+                 lint: str = "warn", inject=None,
                  telemetry: str = "off",
                  trace_out: Optional[str] = None,
                  verify: str = "off",
@@ -321,10 +321,23 @@ class SweepService:
         if pack_artifact is not None:
             from ..pack.predict import load_artifact
             self.pack_artifact = load_artifact(pack_artifact)
-        # fleet-scale pre-flight verification (analysis/plan_lint.py)
-        # lints the whole pack before any bucket engine is built; the
-        # port has no analysis package yet, so only "off" runs
+        # fleet-scale pre-flight verification (analysis/plan_lint.py):
+        # the whole pack is linted BEFORE any bucket engine is built —
+        # every refusal the runtime would raise mid-bucket (TW6xx window/
+        # speculation mirrors), the per-world scenario sanitizer and the
+        # fault-aware capacity proofs. "error" refuses the pack with the
+        # findings (LintError), "warn" logs them, "off" skips; the
+        # per-engine construction lint keeps the same knob
         self.lint = check_lint(lint, type(self).__name__)
+        if lint != "off":
+            from ..analysis import LintError, lint_pack
+            rep = lint_pack(pack, max_bucket=max_bucket)
+            if lint == "error" and not rep.ok:
+                raise LintError(rep, who="sweep pack")
+            for f in rep.errors:
+                _log.warning("pack lint: %s", f.render())
+            for f in rep.warnings:
+                _log.info("pack lint: %s", f.render())
         self.inject = (InjectPlan(inject) if isinstance(inject, str)
                        else inject)
         if getattr(self.inject, "flip", None) \

@@ -32,9 +32,10 @@ resume boundaries (docs/sweeps.md).
 
 On the port the engines are :class:`~timewarp_tpu_torch.interp.
 torch_engine.engine.TorchEngine`, on the card unless ``device="cpu"``
-is passed. The port has no pre-flight analysis yet (ROADMAP queue 1
-item 10), so ``lint="off"`` is its one mode and :func:`check_lint`
-refuses the others loudly.
+is passed. ``lint`` is the reference's knob (``"warn"``, ``"error"``,
+``"off"``; :func:`check_lint`): the engines lint their scenario at
+construction, the sweep service the whole pack before any build
+(analysis/plan_lint.py).
 """
 
 from __future__ import annotations
@@ -44,11 +45,12 @@ import hashlib
 import json
 import struct
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "RunConfig", "SweepPack", "SweepConfigError",
-    "build_scenario", "link_signature", "link_sweep_params",
+    "build_scenario", "linted_scenario", "link_signature", "link_sweep_params",
     "resolve_window", "solo_engine", "solo_result",
     "chain_digest", "DIGEST_ZERO", "world_result", "check_lint",
 ]
@@ -72,16 +74,13 @@ class SweepConfigError(ValueError):
 
 
 def check_lint(lint: str, who: str) -> str:
-    """The port's ``lint`` knob: ``"off"`` only. The reference lints the
-    pack and every engine (``analysis/``); the port has no analysis
-    package yet, so ``"warn"`` and ``"error"`` raise rather than run
-    unlinted under a name that promises a lint."""
-    if lint != "off":
-        raise NotImplementedError(
-            f"{who}: lint={lint!r} needs the pre-flight analysis "
-            "(analysis/plan_lint.py, the engines' lint), which the "
-            "torch port does not have yet (ROADMAP queue 1 item 10); "
-            "pass lint='off'")
+    """Validate a service's ``lint`` knob (analysis ``LINT_MODES``:
+    ``"error"``, ``"warn"``, ``"off"``) and return it; anything else
+    raises ``ValueError`` naming ``who``."""
+    from ..analysis import LINT_MODES
+    if lint not in LINT_MODES:
+        raise ValueError(
+            f"{who}: lint must be one of {LINT_MODES}, got {lint!r}")
     return lint
 
 
@@ -95,6 +94,16 @@ PACK_GRAMMAR = (
     '"window": int_us|"auto"?, "budget": int?, "faults": FAULT_SPEC?, '
     '"controller": "off"|"auto"?, '
     '"speculate": "off"|"auto"|"fixed:W"?} (docs/sweeps.md)')
+
+
+@lru_cache(maxsize=256)
+def _parse_faults(text: str):
+    """A ``--faults`` spec's schedule, parsed once a process: schedules
+    are immutable, and validating a partition of 10^5 nodes takes
+    seconds, which the pack lint, bucket planning, the bucket's identity
+    and each solo twin would otherwise pay again per world."""
+    from ..faults.schedule import parse_faults
+    return parse_faults(text)
 
 
 @dataclass(frozen=True)
@@ -264,9 +273,8 @@ class RunConfig:
         """The config's fault schedule (or None)."""
         if self.faults is None:
             return None
-        from ..faults.schedule import parse_faults
         try:
-            return parse_faults(self.faults)
+            return _parse_faults(self.faults)
         except SystemExit as e:
             raise SweepConfigError(
                 f"config {self.run_id!r}: {e}") from None
@@ -390,6 +398,22 @@ def build_scenario(family: str, params):
     raise SweepConfigError(f"unknown scenario family {family!r}")
 
 
+def linted_scenario(family: str, params, lint: str):
+    """:func:`build_scenario`, carrying its shape's construction-lint
+    report from the pack lint's per-(family, params) cache
+    (analysis/plan_lint.py ``shape_report``) unless ``lint`` is
+    ``"off"``: the bucket engines, solo twins and resumed or split
+    runners of one shape then trace its step once, not once each."""
+    sc = build_scenario(family, params)
+    if lint != "off":
+        from ..analysis.plan_lint import shape_report
+        try:
+            sc._lint_cache = shape_report(family, params)
+        except TypeError:   # unhashable params: the engine lints its own
+            pass
+    return sc
+
+
 # -- link identity ---------------------------------------------------------
 
 #: per-link-class fields BatchSpec.link_params may sweep per world:
@@ -467,7 +491,7 @@ def resolve_window(cfg: RunConfig) -> int:
 
 # -- the solo (law right-hand-side) run ------------------------------------
 
-def solo_engine(cfg: RunConfig, *, lint: str = "off",
+def solo_engine(cfg: RunConfig, *, lint: str = "warn",
                 decisions=None, device=None):
     """The standalone engine for one config — what the sweep's
     streamed result must be bit-identical to — on ``device`` (the
@@ -478,7 +502,7 @@ def solo_engine(cfg: RunConfig, *, lint: str = "off",
     sequence the bucket decided."""
     from ..interp.torch_engine.engine import TorchEngine
     check_lint(lint, "solo_engine")
-    sc = build_scenario(cfg.family, cfg.params)
+    sc = linted_scenario(cfg.family, cfg.params, lint)
     controller = None
     if cfg.controller == "auto":
         if decisions is None:
@@ -506,7 +530,7 @@ def solo_engine(cfg: RunConfig, *, lint: str = "off",
     return TorchEngine(sc, cfg.parse_link(), seed=cfg.seed,
                        window=resolve_window(cfg),
                        faults=cfg.parse_faults(), controller=controller,
-                       speculate=cfg.speculate, device=device)
+                       speculate=cfg.speculate, lint=lint, device=device)
 
 
 #: the digest chain seed (hex of 32 zero bytes)
@@ -571,7 +595,7 @@ def result_leaves(state) -> Dict[str, Any]:
     return dict(zip(names, host))
 
 
-def solo_result(cfg: RunConfig, *, lint: str = "off",
+def solo_result(cfg: RunConfig, *, lint: str = "warn",
                 decisions=None, with_trace: bool = False, device=None):
     """Run ``cfg`` standalone and produce the exact record the sweep
     journal would stream for it — the right-hand side of the sweep
