@@ -3651,7 +3651,8 @@ def _search_leg(device, launches, jd, **kw):
     from timewarp_tpu_torch.search import ChaosSearch
     search = ChaosSearch(journal_dir=jd, device=device, **kw)
     with BucketRecorder(SEARCH_BUILDERS) as rec:
-        torch.cuda.synchronize()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
         ci.reset_launches()
         try:
             result, wall = _timed(search.run)
@@ -3680,14 +3681,12 @@ def phase_search_gossip(device):
     minimized repro re-failing solo on the card); the result equal to the
     reference's (:data:`SEARCH_REF`); K2 = K1 = its fleet supersteps in
     every bucket ``run`` call; then the same campaign through the port on
-    the CPU: equal generation history, ``repro.json`` bytes and journal
-    records (without ``ts``). Returns the launches and the card's journal
-    dir (kept for phase 48's ledger)."""
+    the CPU (its CPU leg ``search_cpu``): equal generation history,
+    ``repro.json`` bytes and journal records (without ``ts``). Returns the
+    launches and the card's journal dir (kept for phase 48's ledger)."""
     import os
-    import shutil
     import tempfile
 
-    import torch
     kw = dict(base=search_base(), objective="eventually-delivered",
               population=8, generations=6, seed=2, fork_k=2)
     launches = {"fire_compact": 0, "mailbox_insert": 0}
@@ -3700,29 +3699,50 @@ def phase_search_gossip(device):
         f"result {got} = the reference's": got == SEARCH_REF})
     _once_per_superstep("search_gossip", rec.calls)
     _rejudge("search_gossip", device, res.repro)
-    cpu_jd = tempfile.mkdtemp(prefix="search-cpu-", dir=_scratch())
-    os.rmdir(cpu_jd)
-    cpu, cpu_wall, _ = _search_leg(torch.device("cpu"),
-                                   {"fire_compact": 0, "mailbox_insert": 0},
-                                   cpu_jd, **kw)
-    repro = [open(os.path.join(d, "repro.json"), "rb").read()
-             for d in (jd, cpu_jd)]
-    _require_all("search_gossip card vs CPU", {
-        "generation history equal": res.generations == cpu.generations,
-        "repro.json bytes equal": repro[0] == repro[1],
-        "journal records equal":
-            _journal_records(jd) == _journal_records(cpu_jd)})
-    shutil.rmtree(cpu_jd, ignore_errors=True)
     evals = (res.evaluations + res.fork["fork_worlds"]
              + res.fork["confirmations"] + 1)
     say(f"search_gossip: n=64 budget=300 result={got} wall_s={wall} "
         f"world_evaluations={evals} world_evaluations_per_s={evals / wall} "
-        f"(bench.py's count) cpu_wall_s={cpu_wall} run_calls="
-        f"{len(rec.calls)} fleet_supersteps="
+        f"(bench.py's count) run_calls={len(rec.calls)} fleet_supersteps="
         f"{sum(c['iters'] for c in rec.calls)} launches={launches}; = the "
-        "reference's result, = the CPU campaign (history, repro.json, "
-        "journal)")
+        "reference's result")
+    card = dict(generations=res.generations,
+                repro=open(os.path.join(jd, "repro.json"), "rb").read(),
+                records=_journal_records(jd))
+
+    def check(card, cpu):
+        _require_all("search_gossip card vs CPU", {
+            "generation history equal":
+                card["generations"] == cpu["generations"],
+            "repro.json bytes equal": card["repro"] == cpu["repro"],
+            "journal records equal": card["records"] == cpu["records"]})
+        say(f"search_gossip card vs CPU: cpu_wall_s={cpu['wall']}; equal "
+            "history, repro.json and journal")
+    against_cpu("search_cpu", card, check)
     return launches, jd
+
+
+@cpu_leg("search_cpu")
+def leg_search_cpu(dev):
+    """Phase 46's CPU campaign: ``bench.py`` ``search_gossip`` through the
+    port on ``dev`` (the CPU, in the CPU legs' process): its generation
+    history, ``repro.json`` bytes, journal records and wall."""
+    import os
+    import tempfile
+
+    import torch
+    kw = dict(base=search_base(), objective="eventually-delivered",
+              population=8, generations=6, seed=2, fork_k=2)
+    jd = tempfile.mkdtemp(prefix="search-cpu-", dir=_scratch())
+    os.rmdir(jd)
+    res, wall, _ = _search_leg(torch.device(dev),
+                               {"fire_compact": 0, "mailbox_insert": 0},
+                               jd, **kw)
+    out = dict(generations=res.generations,
+               repro=open(os.path.join(jd, "repro.json"), "rb").read(),
+               records=_journal_records(jd), wall=wall)
+    shutil.rmtree(jd, ignore_errors=True)
+    return out
 
 
 def _fork_world(cfg, fin, b, pre, suffix, host):
@@ -5254,6 +5274,585 @@ def phase_profile_session(device, n=SLICE_N, steps=16):
     return launches
 
 
+# -- the command line: python -m timewarp_tpu_torch and its subcommands ----
+
+#: phase 60's argv: phase 4's gossip wave as the CLI expresses it (the
+#: gossip builder's default 5 ms think time; a quantized lognormal whose
+#: 8 ms grid is the window, as phase 4's 8 ms floor is)
+CLI_WAVE = ["gossip", "--nodes", str(SLICE_N), "--burst", "--fanout", "8",
+            "--mailbox-cap", "16", "--end-us", "5000000", "--window",
+            "auto", "--link", "quantize:8000:lognormal:20000:0.6",
+            "--insert-cap", str(SLICE_S), "--steps", "1048576"]
+#: phase 61's fused-sparse Praos at 2^20 (K3): phase 9's sizes as the CLI
+#: expresses them (the builder's default slot length)
+CLI_PRAOS = ["praos", "--engine", "fused-sparse", "--nodes", str(PRAOS_N),
+             "--burst", "--fanout", "8", "--mailbox-cap", "16",
+             "--slots", "1073741824", "--leader-prob", str(4.0 / PRAOS_N),
+             "--window", "auto", "--link",
+             "quantize:8000:lognormal:20000:0.6", "--max-batch",
+             str(PRAOS_S), "--steps", "32"]
+#: phase 61's chaos fleet: 8 worlds of 100 000 nodes of steady gossip
+#: under world 0's schedule of :func:`chaos_fleet` (the CLI replicates one
+#: schedule to every world)
+CLI_CHAOS_FAULTS = ("crash:3:20ms:60ms:reset; crash:50005:30ms:70ms; "
+                    "partition:0-49999|50000-99999:25ms:70ms; "
+                    "degrade:all:all:80ms:120ms:2.0:0")
+CLI_CHAOS = ["gossip", "--nodes", str(CHAOS_N), "--steady", "--fanout", "1",
+             "--mailbox-cap", "8", "--end-us", "300000", "--batch",
+             str(CHAOS_B), "--window", "auto", "--link",
+             "quantize:1000:uniform:500:4500", "--faults", CLI_CHAOS_FAULTS]
+#: phase 63's steady gossip at 2^20 (phase 21's shape, the builder's
+#: default think time), a few supersteps
+CLI_STEADY = ["gossip", "--nodes", str(STEADY_N), "--steady", "--fanout",
+              "1", "--mailbox-cap", "8", "--end-us", "1125899906842624",
+              "--link", "quantize:1000:uniform:500:4500", "--steps", "16",
+              "--lint", "off"]
+
+
+class _ThreadStdout:
+    """``sys.stdout`` for :func:`_cli`: a thread's writes go to its capture
+    buffer while it has one, every other write to the real stream, so that
+    two threads can each run the CLI at once."""
+
+    def __init__(self, real):
+        self.real, self.bufs = real, {}
+
+    def _out(self):
+        import threading
+        return self.bufs.get(threading.get_ident(), self.real)
+
+    def write(self, s):
+        return self._out().write(s)
+
+    def flush(self):
+        self._out().flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def _cli(argv):
+    """``timewarp_tpu_torch.cli.main(argv)`` in this process (any thread):
+    ``(exit code, the JSON lines it printed)``."""
+    import io
+    import threading
+
+    from timewarp_tpu_torch.cli import main as cli_main
+    if not isinstance(sys.stdout, _ThreadStdout):
+        sys.stdout = _ThreadStdout(sys.stdout)
+    me, buf = threading.get_ident(), io.StringIO()
+    sys.stdout.bufs[me] = buf
+    try:
+        rc = cli_main(list(argv))
+    except SystemExit as e:
+        rc = e.code
+    finally:
+        del sys.stdout.bufs[me]
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    return rc, lines
+
+
+def _summary_equal(what, got, want) -> None:
+    """A CLI summary against a library run's fields (``device`` and the
+    keys the library side does not name aside)."""
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise AssertionError(f"{what}: the CLI's summary differs from the "
+                             f"library run's: {bad}")
+
+
+def _library_summary(eng, fin, tr):
+    """The run CLI's summary fields of a library run."""
+    if isinstance(tr, list):
+        return {"supersteps": [len(t) for t in tr],
+                "delivered": [t.total_delivered() for t in tr],
+                "overflow": fin.overflow.tolist(),
+                "route_drop": fin.route_drop.tolist(),
+                "fault_dropped": fin.fault_dropped.tolist(),
+                "steps": fin.steps.tolist(),
+                "virtual_time_us": fin.time.tolist()}
+    return {"supersteps": len(tr), "delivered": tr.total_delivered(),
+            "overflow": int(fin.overflow), "steps": int(fin.steps),
+            "virtual_time_us": int(fin.time)}
+
+
+def _trace_rows(tr):
+    return [[str(v) for v in tr.row(i)] for i in range(len(tr))]
+
+
+def phase_cli_start(device):
+    """Phase 60, started: ``python -m timewarp_tpu_torch`` with
+    :data:`CLI_WAVE` and no ``--device`` as a subprocess (``--timings``,
+    ``--trace-csv``), beside this process's phases 61-64; then the library
+    run of the same configuration, K2 = K1 = its supersteps. Returns what
+    :func:`phase_cli_finish` needs and the library run's launches."""
+    import os
+    import tempfile
+
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.net.links import parse_link
+    d = tempfile.mkdtemp(prefix="cli-", dir=_scratch())
+    csv_path = os.path.join(d, "trace.csv")
+    log = open(os.path.join(d, "stderr.log"), "w")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "timewarp_tpu_torch", *CLI_WAVE,
+         "--trace-csv", csv_path, "--timings"], cwd=here,
+        stdout=subprocess.PIPE, stderr=log, text=True)
+    sc = gossip(SLICE_N, fanout=8, end_us=5_000_000, burst=True,
+                mailbox_cap=16)
+    eng = TorchEngine(sc, parse_link("quantize:8000:lognormal:20000:0.6"),
+                      window="auto", insert_cap=SLICE_S, device=device)
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    (fin, tr), wall = _timed(lambda: eng.run(1 << 20))
+    launches = dict(ci.LAUNCHES)
+    _require_all("phase 60's library run", {
+        "K2 = K1 = its supersteps": launches["fire_compact"]
+        == launches["mailbox_insert"] == len(tr)})
+    say(f"cli wave (library run): n={SLICE_N} supersteps={len(tr)} "
+        f"delivered={tr.total_delivered()} wall_s={wall} launches="
+        f"{launches}")
+    return (proc, log, t0, d, csv_path, _library_summary(eng, fin, tr),
+            _trace_rows(tr)), launches
+
+
+def phase_cli_finish(started):
+    """Phase 60, collected: the subprocess exited 0, its summary names
+    ``cuda`` and equals the library run's (supersteps, delivered, the
+    counters, ``virtual_time_us``), its ``--trace-csv`` rows equal the
+    library run's trace; its own wall (launch to its last lap) and split
+    (interpreter start = main's entry less the launch, then set-up,
+    construction lint, build, run, output)."""
+    import csv
+
+    proc, log, t0, d, csv_path, want, rows = started
+    out, _ = proc.communicate(timeout=600)
+    log.close()
+    with open(log.name) as f:
+        err = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m timewarp_tpu_torch exited "
+                             f"{proc.returncode}: {err[-4000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    laps = next(json.loads(x)["timings"] for x in err.splitlines()
+                if x.startswith('{"timings"'))
+    with open(csv_path) as f:
+        got_rows = list(csv.reader(f))[1:]
+    _require_all("python -m timewarp_tpu_torch", {
+        "ran on cuda with no --device": summary["device"] == "cuda",
+        "trace CSV = the library run's trace": got_rows == rows})
+    _summary_equal("python -m timewarp_tpu_torch", summary, want)
+    shutil.rmtree(d, ignore_errors=True)
+    split = {"interpreter_start_s": laps["entry_epoch_s"] - t0,
+             **{k: v for k, v in laps.items() if k != "entry_epoch_s"}}
+    # the process's own wall: from its launch to its last lap (it is
+    # collected after phase 64, long after it ended)
+    wall = sum(split.values())
+    say(f"python -m timewarp_tpu_torch {' '.join(CLI_WAVE)}: wall_s={wall} "
+        f"split={split}; summary={summary} = the library run's, trace "
+        "CSV equal")
+
+
+def phase_cli_runs(device):
+    """Phase 61: ``cli.main`` in this process on the card. Fused-sparse
+    Praos at 2^20 (:data:`CLI_PRAOS`, K3 once a superstep) = the library
+    run's 32 supersteps; the 8-world chaos fleet (:data:`CLI_CHAOS`,
+    ``--batch 8 --faults``) over 64 supersteps = the library run's worlds
+    (K2 = K1 = the fleet supersteps); 32 supersteps ``--save``d then 32
+    ``--resume``d = the 64 straight, every leaf of the checkpoints equal.
+    Returns the CLI runs' launches."""
+    import os
+    import tempfile
+
+    import torch
+    from timewarp_tpu_torch.faults.schedule import parse_faults
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.fused_sparse import \
+        FusedSparseEngine
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.models.praos import praos
+    from timewarp_tpu_torch.net.links import parse_link
+    launches = {"fire_compact": 0, "mailbox_insert": 0, "sample_insert": 0}
+
+    def cli(what, argv):
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        (rc, lines), wall = _timed(lambda: _cli(argv))
+        got = dict(ci.LAUNCHES)
+        for k in launches:
+            launches[k] += got[k]
+        if rc != 0:
+            raise AssertionError(f"{what}: exit {rc}")
+        say(f"cli {what}: wall_s={wall} launches={got}")
+        return lines[-1], got
+
+    sc = praos(PRAOS_N, n_slots=1 << 30, leader_prob=4.0 / PRAOS_N, fanout=8,
+               burst=True, mailbox_cap=16)
+    link = parse_link("quantize:8000:lognormal:20000:0.6")
+    fin, tr = FusedSparseEngine(sc, link, window="auto", max_batch=PRAOS_S,
+                                device=device).run(32)
+    got, n = cli("praos fused-sparse", CLI_PRAOS)
+    _summary_equal("cli praos fused-sparse", got, _library_summary(
+        None, fin, tr))
+    _require_all("cli praos fused-sparse", {
+        "on cuda": got["device"] == "cuda",
+        "K3 once a superstep": n["sample_insert"] == got["supersteps"]})
+
+    d = tempfile.mkdtemp(prefix="cli-", dir=_scratch())
+    ck = {k: os.path.join(d, f"{k}.npz") for k in ("half", "resumed",
+                                                   "straight")}
+    sc = gossip(CHAOS_N, fanout=1, end_us=300_000, steady=True,
+                mailbox_cap=8)
+    eng = TorchEngine(sc, parse_link("quantize:1000:uniform:500:4500"),
+                      window="auto", batch=BatchSpec.of(CHAOS_B),
+                      faults=parse_faults(CLI_CHAOS_FAULTS), device=device)
+    fin, tr = eng.run(64)
+    straight, n = cli("chaos fleet", CLI_CHAOS + ["--steps", "64", "--save",
+                                                  ck["straight"]])
+    _summary_equal("cli chaos fleet", straight, _library_summary(
+        eng, fin, tr))
+    _require_all("cli chaos fleet", {
+        "K2 = K1 = the fleet supersteps": n["fire_compact"]
+        == n["mailbox_insert"] == eng.last_run_stats["fleet_supersteps"]})
+    half, _ = cli("chaos --save", CLI_CHAOS + ["--steps", "32", "--save",
+                                               ck["half"]])
+    resumed, _ = cli("chaos --resume", CLI_CHAOS + [
+        "--steps", "32", "--resume", ck["half"], "--save", ck["resumed"]])
+    a, b = (dict(np.load(ck[k])) for k in ("resumed", "straight"))
+    _require_all("cli --save/--resume", {
+        "the same leaves": sorted(a) == sorted(b),
+        **{f"leaf {k} equal": np.array_equal(a[k], b[k]) for k in b},
+        "steps compose": resumed["steps"] == straight["steps"],
+        "delivered compose": [x + y for x, y in zip(
+            half["delivered"], resumed["delivered"])]
+        == straight["delivered"]})
+    shutil.rmtree(d, ignore_errors=True)
+    say(f"cli runs: praos {got['supersteps']} supersteps = the library "
+        f"run's; chaos fleet {straight['supersteps']} = the library run's "
+        f"worlds; 32 + 32 resumed = 64 straight, {len(b)} leaves equal; "
+        f"launches={launches}")
+    return launches
+
+
+def _cli_pack():
+    """Phase 62's pack: two 2048-node token rings, budget 48."""
+    ring = {"nodes": 2048, "n_tokens": 64, "think_us": 2000,
+            "bootstrap_us": 1000, "end_us": 1 << 40, "mailbox_cap": 8}
+    return [{"id": f"w{i}", "scenario": "token-ring", "params": ring,
+             "link": "uniform:1000:5000", "seed": s, "budget": 48}
+            for i, s in enumerate((0, 3))]
+
+
+@cpu_leg("cli_sweep")
+def leg_cli_sweep(dev):
+    """Phase 62's sweep through the CLI on ``dev``: ``sweep run --verify``
+    with a flip at chunk call 2 and a kill at call 3, ``sweep status``,
+    ``sweep resume --verify`` (whose auto-bisect names the flip's chunk);
+    the lines and the journal's records (wall-clock fields and heartbeats
+    aside)."""
+    import os
+    import tempfile
+
+    import torch
+    dflag = ["--device", "cpu"] if torch.device(dev).type == "cpu" else []
+    d = tempfile.mkdtemp(prefix="cli-sweep-", dir=_scratch())
+    pack, jd = os.path.join(d, "pack.json"), os.path.join(d, "j")
+    with open(pack, "w") as f:
+        json.dump(_cli_pack(), f)
+    common = ["--journal", jd, "--chunk", "8", "--lint", "off", "--verify"]
+    run = _cli(["sweep", "run", pack, *common, "--inject",
+                "flip:2:2:time;die:3", *dflag])
+    status = _cli(["sweep", "status", "--journal", jd])
+    resume = _cli(["sweep", "resume", *common, *dflag])
+    from timewarp_tpu_torch.sweep import SweepJournal
+    records = [{k: v for k, v in e.items() if k not in ("ts", "seq", "wall_s")}
+               for e in SweepJournal(jd).records()
+               if e.get("ev") != "host_heartbeat"]
+    return dict(run=run, status=status, resume=resume, records=records,
+                dir=d, jd=jd)
+
+
+def _strip_wall(x):
+    if isinstance(x, dict):
+        return {k: _strip_wall(v) for k, v in x.items()
+                if k not in ("wall_s", "wall_seconds", "ts", "compiles")}
+    if isinstance(x, list):
+        return [_strip_wall(v) for v in x]
+    return x
+
+
+def phase_cli_services(device):
+    """Phase 62: the service subcommands on the card. ``sweep run`` (flip
+    at chunk call 2, kill at 3: exit 1, killed) -> ``sweep status`` ->
+    ``sweep resume --verify`` (exit 1: the flipped world's auto-bisect
+    names chunk 1, supersteps 8..16); K1 once a superstep of every bucket
+    run call, K2 as often on the adaptive regime's; the lines and journal
+    = the CPU leg's. ``search run`` with
+    ``bench.py`` ``search_gossip``'s campaign = phase 46's result
+    (:data:`SEARCH_REF`), ``search repro`` reproduces; ``ledger add`` of
+    the sweep's journal and ``pack fit`` over it; ``serve`` (a thread)
+    and one ``submit --verify --drain`` over loopback. Returns the
+    launches of the sweep, the search and the served bucket."""
+    import os
+    import socket
+    import tempfile
+    import threading
+
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        try:
+            return _timed(fn)
+        finally:
+            for k in launches:
+                launches[k] += ci.LAUNCHES[k]
+
+    with BucketRecorder() as rec:
+        card, wall = counted(lambda: leg_cli_sweep(device))
+    rc_run, out_run = card["run"]
+    rc_res, out_res = card["resume"]
+    mism = out_res[-1].get("verify_mismatches", [])
+    rec.check("cli sweep")
+    _require_all("cli sweep", {
+        "run: exit 1, killed": rc_run == 1
+        and out_run[-1].get("sweep") == "killed",
+        "status: exit 0": card["status"][0] == 0,
+        "resume: exit 1 on the flip": rc_res == 1,
+        "the flipped world's auto-bisect names chunk 1, supersteps 8..16":
+            len(mism) >= 1 and all(
+                m["first_divergence"]["chunk"] == 1
+                and m["first_divergence"]["supersteps"] == [8, 16]
+                for m in mism)})
+    say(f"cli sweep: wall_s={wall} run={out_run[-1]} status="
+        f"{card['status'][1][-1]} first_divergence="
+        f"{[m['first_divergence'] for m in mism]}")
+
+    def check(card, cpu):
+        _require_all("cli sweep card vs CPU", {
+            f"{k} equal": _strip_wall(card[k]) == _strip_wall(cpu[k])
+            for k in ("run", "status", "resume", "records")})
+        say(f"cli sweep card vs CPU: lines, auto-bisects and "
+            f"{len(card['records'])} journal records equal")
+        shutil.rmtree(cpu["dir"], ignore_errors=True)
+    against_cpu("cli_sweep", card, check)
+
+    d = tempfile.mkdtemp(prefix="cli-svc-", dir=_scratch())
+    base = search_base()
+    search = ["search", "run", "gossip", "--params",
+              json.dumps(dict(base.params)), "--link", base.link,
+              "--seed", "0", "--window", "auto", "--budget",
+              str(base.budget), "--objective", "eventually-delivered",
+              "--population", "8", "--generations", "6", "--search-seed",
+              "2", "--fork", "2", "--journal", os.path.join(d, "s")]
+    (rc, lines), swall = counted(lambda: _cli(search))
+    got = {k: v for k, v in lines[-1].items() if k != "repro_path"}
+    rc_repro, repro = _cli(["search", "repro",
+                            os.path.join(d, "s", "repro.json")])
+    _require_all("cli search", {
+        "exit 0 (found)": rc == 0,
+        f"result {got} = phase 46's": got == SEARCH_REF,
+        "repro reproduces": rc_repro == 0 and repro[-1]["reproduced"]})
+    led = os.path.join(d, "led")
+    rc_add, _ = _cli(["ledger", "add", card["jd"], "--ledger", led])
+    rc_fit, fit = _cli(["pack", "fit", "--ledger", led])
+    _require_all("cli pack fit", {
+        "ledger add: exit 0": rc_add == 0,
+        "fit: exit 0, a row per world": rc_fit == 0
+        and fit[-1]["rows"] == 2})
+    say(f"cli search: wall_s={swall} {got}; pack fit: {fit[-1]}")
+    shutil.rmtree(card["dir"], ignore_errors=True)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = os.path.join(d, "cfgs.json")
+    with open(cfg, "w") as f:
+        json.dump(_cli_pack()[:1], f)
+    from timewarp_tpu_torch.cli import main as cli_main
+    from timewarp_tpu_torch.sweep import SweepJournal
+    box = {}
+    # the serve thread prints to this process's stdout (only one thread
+    # may capture it); its exit code and journal are checked
+    serve = threading.Thread(target=lambda: box.setdefault("rc", cli_main([
+        "serve", "--journal", os.path.join(d, "sj"), "--hosts", "alpha",
+        "--listen", f"127.0.0.1:{port}", "--slots", "2", "--chunk", "16",
+        "--poll-s", "0.05", "--max-seconds", "300"])), daemon=True)
+    t0 = time.perf_counter()
+    with BucketRecorder() as srec:
+        serve.start()
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            with socket.socket() as s:
+                if s.connect_ex(("127.0.0.1", port)) == 0:
+                    break
+            time.sleep(0.05)
+        rc_sub, sub = counted(lambda: _cli([
+            "submit", cfg, "--connect", f"127.0.0.1:{port}", "--verify",
+            "--drain"]))[0]
+        serve.join(timeout=120)
+    final = [x for x in sub if "streamed" in x]
+    evs = [e.get("ev") for e in SweepJournal(os.path.join(d, "sj")).records()]
+    srec.check("cli serve")
+    _require_all("cli serve + submit", {
+        "serve: exit 0, drained": not serve.is_alive()
+        and box.get("rc") == 0,
+        "one admit, one world_done journaled": evs.count("admit")
+        == evs.count("world_done") == 1,
+        "submit --verify: exit 0, the streamed result = its solo run":
+            rc_sub == 0 and final and final[-1]["verified"] == 1})
+    say(f"cli serve + submit: wall_s={time.perf_counter() - t0} "
+        f"submit={final[-1]}; launches={launches}")
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def phase_cli_sharded_start(device):
+    """Phase 63, started: ``--engine sharded --devices 2`` (two gloo ranks
+    sharing the card, spawned by the CLI; :data:`CLI_STEADY`) in a thread
+    beside phases 61 and 62 (the ranks' launches are theirs, not this
+    process's counts)."""
+    import threading
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        box["out"] = _cli(CLI_STEADY + ["--engine", "sharded",
+                                        "--devices", "2"])
+        box["wall"] = time.perf_counter() - t0
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, box
+
+
+def phase_cli_sharded(device, started):
+    """Phase 63: steady gossip at 2^20 for 16 supersteps through the CLI
+    on one device (K1 once a superstep); then the sharded run started
+    beside phases 61 and 62: rank 0's summary = the one device's."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    (rc1, one), wall1 = _timed(lambda: _cli(CLI_STEADY))
+    n = dict(ci.LAUNCHES)
+    th, box = started
+    th.join(timeout=900)
+    if "out" not in box:
+        raise AssertionError("the sharded CLI run did not finish")
+    (rc2, two), wall2 = box["out"], box["wall"]
+    a = {k: v for k, v in one[-1].items() if k not in ("device", "engine")}
+    b = {k: v for k, v in two[-1].items() if k not in ("device", "engine")}
+    _require_all("cli sharded", {
+        "both exit 0": rc1 == rc2 == 0,
+        "the sharded summary = one device's": a == b,
+        "ranks on the card": two[-1]["device"].startswith("cuda"),
+        "one device: K1 once a superstep": n["mailbox_insert"]
+        == one[-1]["supersteps"]})
+    say(f"cli sharded --devices 2: wall_s={wall2} (one device "
+        f"{wall1}); summary={b} = one device's")
+    return n
+
+
+def phase_cross_world(device):
+    """Phase 64: the cross-world law on the card. The port's
+    ``token_ring_net`` (64 nodes and the observer, fixed hops, 22 s) and
+    ``gossip_net`` (16 nodes, a seeded (dst, t)-keyed link) under the
+    port's DES give the event streams of their batched twins on
+    ``TorchEngine`` on the card (``record_events``), µs for µs; K1 once a
+    superstep, K2 as often on the adaptive path (the gossip's; the ring's
+    window-1 single-send supersteps take the eager one)."""
+    import torch
+    from timewarp_tpu_torch.interp.ref.des import run_emulation
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.models.gossip import gossip
+    from timewarp_tpu_torch.models.gossip_net import (gossip_net,
+                                                      gossip_net_ports)
+    from timewarp_tpu_torch.models.token_ring import token_ring
+    from timewarp_tpu_torch.models.token_ring_net import (OBSERVER_PORT,
+                                                          token_ring_net)
+    from timewarp_tpu_torch.net.backend import EmulatedBackend, endpoint_id
+    from timewarp_tpu_torch.net.delays import (FixedDelay, FnDelay,
+                                               SeededHashUniform)
+    N, B, D, O, THINK, DUR = 64, 1_000_000, 2_000, 1_000, 3_000_000, 22_000_000
+    obs = endpoint_id(f"127.0.0.1:{OBSERVER_PORT}")
+
+    def fixed(o, d, observer):
+        def fn(src, dst, t, key):
+            hit = ((dst & 0xFFFFFFFF) == obs) if observer is None \
+                else (dst == observer)
+            dl = torch.where(hit, torch.full_like(dst, o, dtype=torch.int64),
+                             torch.full_like(dst, d, dtype=torch.int64))
+            return dl, torch.zeros_like(dl, dtype=torch.bool)
+        return FnDelay(fn)
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+
+    def engine_events(sc, link, steps):
+        eng = TorchEngine(sc, link, record_events=1 << 14, device=device)
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        st, tr = eng.run(steps)
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += ci.LAUNCHES[k]
+        _require_all("cross world engine", {
+            "K1 = its supersteps, K2 as many on the adaptive path (else 0)":
+                ci.LAUNCHES["mailbox_insert"] == len(tr)
+                and ci.LAUNCHES["fire_compact"] == len(tr) * eng.adaptive,
+            "no overflow": int(st.overflow) == 0})
+        events, dropped = eng.events(st)
+        _require_all("cross world events", {"none dropped": dropped == 0})
+        return [e for e in events if e[0] == "recv"], len(tr)
+
+    receipts = []
+    notes, errors = run_emulation(token_ring_net(
+        EmulatedBackend(fixed(O, D, None), seed=0), N, duration_us=DUR,
+        passing_delay_us=THINK, bootstrap_us=B, prewarm=True,
+        bootstrap_at=True, receipts=receipts))
+    recvs, ring_steps = engine_events(
+        token_ring(N, think_us=THINK + O + D, bootstrap_us=B, end_us=DUR),
+        fixed(O, D, N), 800)
+    ring = ([(t, i + 1, p) for (_, t, i, s, p) in recvs
+             if i != N and t < DUR],
+            [(t, p) for (_, t, i, s, p) in recvs if i == N and t < DUR])
+    rnd = SeededHashUniform(3_000, 9_000, 7)
+    got = []
+    run_emulation(gossip_net(
+        EmulatedBackend(rnd, connect_delays=FixedDelay(500), seed=0,
+                        endpoint_ids=gossip_net_ports(16)),
+        16, fanout=4, think_us=700, bootstrap_us=100_000,
+        duration_us=900_000, prewarm=True, receipts=got))
+    grecvs, gossip_steps = engine_events(
+        gossip(16, fanout=4, think_us=700, burst=True,
+               bootstrap_us=100_000, end_us=900_000, mailbox_cap=16),
+        rnd, 4000)
+    _require_all("cross world on the card", {
+        "token ring: no errors, >= 6 notes": errors == [] and len(notes) >= 6,
+        "token ring receipts and notes = the engine's": ring
+        == (receipts, notes),
+        "gossip deliveries = the engine's": sorted(
+            (t, i) for t, i in got if t < 900_000) == sorted(
+            (t, i) for (_, t, i, s, p) in grecvs if t < 900_000),
+        "the wave spread": len(grecvs) >= 16})
+    say(f"cross world on the card: token ring {len(receipts)} receipts and "
+        f"{len(notes)} notes in {ring_steps} supersteps, gossip "
+        f"{len(grecvs)} deliveries in {gossip_steps} supersteps = the net "
+        f"twins' under the DES; launches={launches}")
+    return launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5420,6 +6019,18 @@ def run_phases(torch, build, t_start) -> int:
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += (bisect_launches[k] + explain_launches[k]
                         + profile_launches[k])
+
+    started, wave_launches = timed(60, phase_cli_start, device)
+    sharded = timed("63 (started)", phase_cli_sharded_start, device)
+    cli_launches = timed(61, phase_cli_runs, device)
+    svc_launches = timed(62, phase_cli_services, device)
+    shard_launches = timed(63, phase_cli_sharded, device, sharded)
+    world_launches = timed(64, phase_cross_world, device)
+    timed("60 (collected)", phase_cli_finish, started)
+    launches["sample_insert"] += cli_launches["sample_insert"]
+    for k in ("fire_compact", "mailbox_insert"):
+        launches[k] += (wave_launches[k] + cli_launches[k] + svc_launches[k]
+                        + shard_launches[k] + world_launches[k])
 
     LEGS.drain(wait=True)
     say(f"chip_smoke wall_s={time.perf_counter() - t_start}")

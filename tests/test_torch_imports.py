@@ -20,7 +20,11 @@ raising on a machine without CUDA unless the caller passes
 refuses any other, ``SweepService(host=...)`` runs on the serving
 layer's leases and ``fit_from_ledger`` reads the port's run ledger. The
 analysis package, the oracle and the query, bisect and profiler tools
-import alone too.
+import alone too, and so do the command line (``cli`` and the services'
+``sweep.cli``, ``search.cli``, ``serve.cli``, ``pack.cli``), the net
+twins (``models/*_net.py``), ``bench_net`` and ``utils.logconfig``;
+every module of the reference has its counterpart in the port but the
+JAX-only ones (``utils/jaxconfig.py``, ``interp/jax_engine/``).
 
 Tolerance: exact (membership and source checks).
 """
@@ -42,10 +46,11 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "timewarp_tpu_torch"
 
 
 def _modules():
+    # ``__main__`` runs the command line when imported (python -m)
     return sorted(
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
         .removesuffix(".__init__")
-        for p in PKG.rglob("*.py"))
+        for p in PKG.rglob("*.py") if p.name != "__main__.py")
 
 
 def _is_reference(name: str) -> bool:
@@ -91,7 +96,14 @@ def test_import_leaves_jax_and_reference_out():
               "analysis.probes", "analysis.jaxpr_lint",
               "analysis.determinism", "analysis.plan_lint",
               "interp.ref.superstep", "interp.torch_engine.traced_ops",
-              "obs.query", "obs.bisect", "obs.profiler"):
+              "obs.query", "obs.bisect", "obs.profiler", "cli",
+              "sweep.cli", "search.cli", "serve.cli", "pack.cli",
+              "utils.logconfig", "bench_net", "bench_net.commons",
+              "bench_net.log_reader", "bench_net.receiver",
+              "bench_net.sender", "bench_net.launch",
+              "models.ping_pong_net", "models.token_ring_net",
+              "models.gossip_net", "models.praos_net",
+              "models.socket_state_net"):
         assert f"timewarp_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -117,7 +129,9 @@ def test_import_leaves_jax_and_reference_out():
                                  "interp.torch_engine.sharded",
                                  "analysis", "analysis.plan_lint",
                                  "interp.ref.superstep", "obs.query",
-                                 "obs.bisect", "obs.profiler"])
+                                 "obs.bisect", "obs.profiler", "cli",
+                                 "sweep.cli", "search.cli", "serve.cli",
+                                 "bench_net.launch", "models.praos_net"])
 def test_plane_packages_import_alone(mod):
     """Each run-mode plane's package, imported first and alone in a fresh
     interpreter (the plane modules copied from the reference keep their
@@ -132,6 +146,18 @@ def test_plane_packages_import_alone(mod):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("0 "), out.stdout
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Module for module under the same layout: every module of the
+    reference but its JAX-only ones (flags, and the JAX engines, whose
+    counterparts are ``interp/torch_engine/``)."""
+    ref = PKG.parent / "timewarp_tpu"
+    missing = [str(p.relative_to(ref)) for p in ref.rglob("*.py")
+               if not (PKG / p.relative_to(ref)).exists()
+               and p.relative_to(ref).parts[:2] != ("interp", "jax_engine")
+               and p.relative_to(ref) != pathlib.Path("utils/jaxconfig.py")]
+    assert missing == []
 
 
 def test_spawned_rank_holds_neither():

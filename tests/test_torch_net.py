@@ -7,10 +7,8 @@ backend, transfer, dialog, rpc) held against the reference's.
   is compiled with every ``timewarp_tpu.`` import pointing at
   ``timewarp_tpu_torch.``, and each of its tests is one parametrised
   case here. The ping-pong and token-ring programs those tests import
-  (``models/ping_pong_net.py``, ``models/token_ring_net.py``) are not
-  in the port yet; their reference source is compiled the same way,
-  with the token ring's observer link (three ``jnp`` lines) written in
-  torch ops.
+  are the port's own twins (``timewarp_tpu_torch/models/ping_pong_net.py``
+  and ``token_ring_net.py``).
 - **Bytes.** The same values ``encode`` and ``frame`` to the same bytes
   in both packages, and a message registered in each packs the same.
 - **Link draws.** ``EmulatedBackend``'s per-chunk draw (on the host, in
@@ -47,25 +45,10 @@ pytestmark = pytest.mark.filterwarnings("ignore::RuntimeWarning")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 REFERENCE_TESTS = ("test_transfer.py", "test_dialog.py", "test_rpc.py")
-#: the package the reference's net models compile into for the port
-MODELS = "_torch_net_models"
-
-#: token_ring_delays' observer link in jnp, and its torch equivalent
-_JNP_OBSERVER = (
-    """        d = jnp.where(jnp.asarray(dst, jnp.uint32) == jnp.uint32(obs_id),
-                      jnp.int64(1), d)
-        return d, jnp.zeros(jnp.shape(d), bool)
-""",
-    """        d = torch.where((dst & 0xFFFFFFFF) == obs_id,
-                        torch.ones_like(d), d)
-        return d, torch.zeros(d.shape, dtype=torch.bool)
-""")
 
 
 def _to_port(text: str) -> str:
     text = re.sub(r"\bfrom \.\.(\w)", r"from timewarp_tpu_torch.\1", text)
-    text = re.sub(r"\btimewarp_tpu\.models\.(\w+_net)\b",
-                  MODELS + r".\1", text)
     return re.sub(r"\btimewarp_tpu\.", "timewarp_tpu_torch.", text)
 
 
@@ -77,31 +60,10 @@ def _compile_module(name: str, text: str, path: pathlib.Path):
     return mod
 
 
-def _port_models():
-    """The reference's ping-pong and token-ring net programs, compiled
-    against the port's modules."""
-    if MODELS in sys.modules:
-        return sys.modules[MODELS]
-    pkg = types.ModuleType(MODELS)
-    pkg.__path__ = []
-    sys.modules[MODELS] = pkg
-    for name in ("ping_pong_net", "token_ring_net"):
-        path = ROOT / "timewarp_tpu" / "models" / f"{name}.py"
-        text = _to_port(path.read_text())
-        if name == "token_ring_net":
-            assert _JNP_OBSERVER[0] in text
-            text = text.replace(_JNP_OBSERVER[0], _JNP_OBSERVER[1])
-            text = text.replace("import jax.numpy as jnp", "import torch")
-        assert "jnp" not in text and "jax" not in text
-        setattr(pkg, name, _compile_module(f"{MODELS}.{name}", text, path))
-    return pkg
-
-
 def _port_test_module(fname: str):
     """A reference test module compiled against the port."""
     name = f"_torch_net_{fname[:-3]}"
     if name not in sys.modules:
-        _port_models()
         path = ROOT / "tests" / fname
         _compile_module(name, _to_port(path.read_text()), path)
     return sys.modules[name]
@@ -224,11 +186,8 @@ def _des(ns, prog):
 
 
 def _ns(root):
-    models = (importlib.import_module("timewarp_tpu.models.ping_pong_net"),
-              importlib.import_module("timewarp_tpu.models.token_ring_net")) \
-        if root == "timewarp_tpu" else (
-            _port_models().ping_pong_net, _port_models().token_ring_net)
     mod = lambda m: importlib.import_module(f"{root}.{m}")  # noqa: E731
+    models = (mod("models.ping_pong_net"), mod("models.token_ring_net"))
     return types.SimpleNamespace(
         des=mod("interp.ref.des"), backend=mod("net.backend"),
         links=mod("net.links"), delays=mod("net.delays"),

@@ -349,7 +349,12 @@ class EdgeEngine(PlanesMixin):
 
     def _lint_body(self, st: EdgeState):
         """One traced superstep from ``st`` (analysis/determinism.py)."""
-        return self._superstep(st, True)
+        if self.record == "full":
+            self._rec_extra = []      # the run loop's per-superstep captures
+        try:
+            return self._superstep(st, True)
+        finally:
+            self._rec_extra = None
 
     def _superstep(self, st: EdgeState, with_trace: bool
                    ) -> Optional[Tuple[EdgeState, Optional[torch.Tensor]]]:

@@ -1229,7 +1229,12 @@ class TorchEngine(PlanesMixin):
         this body, the reference's ``_step_all``)."""
         st = self._start(state)
         node_next, t, _ = self._pop(st)
-        return self._superstep(st, node_next, t, True)
+        if self.record == "full":
+            self._rec_extra = []      # the run loop's per-superstep captures
+        try:
+            return self._superstep(st, node_next, t, True)
+        finally:
+            self._rec_extra = None
 
     # -- run loops ---------------------------------------------------------
 

@@ -54,6 +54,9 @@ class SuperstepTrace:
         cols = list(zip(*rows)) if rows else [[]] * 8
         return SuperstepTrace.from_columns(cols)
 
+    def total_delivered(self) -> int:
+        return int(self.recv_count.sum())
+
     def row(self, i: int) -> tuple:
         return tuple(int(getattr(self, f)[i]) for f in _FIELDS)
 
