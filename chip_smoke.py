@@ -13,7 +13,9 @@ first use). Phases, each of which fails the script on any mismatch:
    2^18): a sparse outbox, one dense enough to drop, and window 1; then
    n = 1000 and 5000, 2^20 nodes, S just below the fired count, a long
    sentinel tail, payload 7 (its staging above 48 KB of shared memory),
-   and two calls in a row;
+   the wide build (payloads past the 27 words the narrow build stages)
+   at 32 words and at the widest K2 takes (1022) on 2^12 nodes, M 2, S
+   2^13, and two calls in a row;
 3. the mailbox-insertion kernel (K1) against its plain version: the
    slice shape (K 16, P 1, no src, commutative) on a batch that
    overfills some mailboxes, and the ordered mode with src (K 8, P 2);
@@ -30,8 +32,9 @@ first use). Phases, each of which fails the script on any mismatch:
    ``run`` on both devices — equal traces and final states;
 6. each kernel's time (CUDA events, cold L2, its launches queued before
    the start event fires), its plain version's time and its bound (bytes
-   over 3.35 TB/s), K1 also in the ordered mode with src; the timing
-   floor, one empty launch;
+   over 3.35 TB/s), K1 also in the ordered mode with src, K2's wide
+   build at phase 2's two wide shapes; the timing floor, one empty
+   launch;
 7. where the main path's time goes: wall time per superstep against the
    device's kernel time under ``torch.profiler`` (the idle share);
 
@@ -314,16 +317,29 @@ both ranks' kernel time over a profiled run's wall):
     bucket_cap = 2^20) and K2-K4 not at all; K1′ on each rank's busiest
     superstep of the 64 against its plain version, bit-equal, and
     its time and bound there (bytes over 3.35 TB/s), one rank at a time;
+    then ``ShardedFusedSparseEngine.run_verified`` for 32 supersteps in
+    chunks of 8 under ``verify="digest"`` and ``"shadow"``, each with a
+    flip on rank 1: = ``TorchEngine.run_verified`` with the same flip
+    (trace, every leaf, the integrity record and its digest chain), K1′
+    once per superstep the ranks ran;
 53. the dense ring at 2^20 (phase 16's) on ``ShardedEdgeEngine``, 64
     supersteps = ``EdgeEngine``'s trace and every leaf;
 54. the chaos fleet (phase 27's 8 worlds and schedules) on
     ``ShardedBatchedEngine``, 4 worlds a rank, to quiescence: every leaf
     of the gathered state = phase 27's final state, K2 and K1 once per
-    fleet superstep on each rank;
+    fleet superstep on each rank; then ``run_verified`` (digest, 128
+    fleet supersteps in chunks of 32, a flip on a world of rank 1) and
+    ``run_stream`` (world b's budget 64 + 8b) = the one-device fleet's
+    (traces, every leaf, integrity record; each world's ``on_quiesce``
+    once, at its one-device superstep, with all 8 worlds);
 55. the card's ranks against two CPU ranks at 2^12: ``ShardedEngine`` and
     ``ShardedFusedSparseEngine`` on a gossip wave, ``ShardedEdgeEngine``
     on a uniform ring, ``ShardedBatchedEngine`` on a 4-world faulted
-    fleet; equal traces and every leaf;
+    fleet; equal traces and every leaf; then the checkpoint leg: phase
+    60's wave at 2^17 through the command line's rank path
+    (``--engine sharded --save``, 48 supersteps) = the one-device run's
+    summary and file, leaf for leaf, and a one-device ``--resume`` of it
+    runs to the uninterrupted run's end;
 
 then the analysis slice (``analysis/``, the oracle, ``obs/query.py``,
 ``obs/bisect.py``, ``obs/profiler.py``):
@@ -371,8 +387,8 @@ script its total (``chip_smoke wall_s=``). Then one ``{"kernels": [...]}`` line 
 over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43, 46-51, 54 and
 57-59, K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51, 54 and 57-59;
 K1′,
-``mailbox_insert_per_shard``, phase 52's ranks' K1 launches, its times
-from phase 52; every other time from phases 6, 13 and 19), the
+``mailbox_insert_per_shard``, phase 52's ranks' K1 launches (its verified
+legs' included), its times from phase 52; every other time from phases 6, 13 and 19), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
 """
@@ -392,6 +408,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 SPIN_CYCLES = 2_000_000       # _time_ms's device-side wait, ~1 ms at 1980 MHz
 SLICE_N, SLICE_M, SLICE_P, SLICE_W, SLICE_S = 1 << 17, 8, 1, 8_000, 1 << 18
 SLICE_K = 16
+# K2's wide build (payloads past the 27 words the narrow build stages on
+# an H100) at a small shape: 2^12 nodes, 2 outbox slots, S = 2^13, at 32
+# words and at the widest payload K2 takes
+WIDE_N, WIDE_M, WIDE_S, WIDE_P = 1 << 12, 2, 1 << 13, (32, 1022)
 K2_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:656"
 K1_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:465"
 K3_REPLACES = "timewarp_tpu/interp/jax_engine/pallas_insert.py:259"
@@ -563,6 +583,15 @@ def phase_compact(device, n=SLICE_N, S=SLICE_S):
         if SS is None:
             SS = int((pdst >= 0).sum()) - 1000
         check(tag, pdst, woff, pay, SS, drops)
+    if WIDE_P[-1] != ci.COMPACT_MAX_P:
+        raise AssertionError(f"WIDE_P ends at {WIDE_P[-1]}, K2 takes up to "
+                             f"{ci.COMPACT_MAX_P}")
+    for P in WIDE_P:
+        # past the payload the narrow build stages: the wide build
+        pdst, woff, pay = compact_inputs(device, WIDE_N, WIDE_M, P, 0.6, P)
+        check(f"payload {P}, the wide build (narrow up to "
+              f"{ci.compact_narrow_max(device.index or 0)})", pdst, woff,
+              pay, WIDE_S, False)
     a, b = (compact_inputs(device, n, SLICE_M, SLICE_P, f, sd)
             for f, sd in ((0.3, 25), (0.1, 26)))
     first = ci.fire_compact(a[0], a[1], a[2], S)
@@ -1015,28 +1044,39 @@ def time_k1(device, ordered, with_src, seed=4):
                 bound_ms=k1_bytes_ / HBM_BYTES_PER_S * 1e3, bytes=k1_bytes_)
 
 
+def time_k2(device, n, M, P, S, frac, seed):
+    """K2's time, its plain version's and its bound (the outbox planes
+    read once, the fired lanes' payload words, the batch written) on
+    inputs of :func:`compact_inputs`."""
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    pdst, woff, pay = compact_inputs(device, n, M, P, frac, seed)
+    fired = int((pdst >= 0).sum())
+    nbytes = (pdst.numel() + woff.numel()) * 4 + fired * P * 4 \
+        + (3 + P) * S * 4
+    return dict(ms=_time_ms(lambda: ci.fire_compact(pdst, woff, pay, S)),
+                plain_ms=_time_ms(lambda: ci.fire_compact_plain(
+                    pdst, woff, pay, S), queued=False),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+
+
 def phase_times(device):
     import torch
-    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
-    pdst, woff, pay = compact_inputs(device, SLICE_N, SLICE_M, SLICE_P, 0.2,
-                                     1)
-    fired = int((pdst >= 0).sum())
-    k2_bytes = (pdst.numel() + woff.numel()) * 4 + fired * SLICE_P * 4 \
-        + (3 + SLICE_P) * SLICE_S * 4
-    k2 = dict(ms=_time_ms(lambda: ci.fire_compact(pdst, woff, pay, SLICE_S)),
-              plain_ms=_time_ms(lambda: ci.fire_compact_plain(
-                  pdst, woff, pay, SLICE_S), queued=False),
-              bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3, bytes=k2_bytes)
+    k2 = time_k2(device, SLICE_N, SLICE_M, SLICE_P, SLICE_S, 0.2, 1)
+    k2_wide = {P: time_k2(device, WIDE_N, WIDE_M, P, WIDE_S, 0.6, P)
+               for P in WIDE_P}
     k1, k1_ordered = (time_k1(device, ordered, ordered)
                       for ordered in (False, True))
     say(f"timing floor: one empty launch between the events, ms="
         f"{_time_ms(lambda: torch.cuda._sleep(0))}")
-    for name, r in (("fire_compact", k2), ("mailbox_insert", k1),
-                    ("mailbox_insert ordered, src", k1_ordered)):
+    for name, r in (("fire_compact", k2), *(
+            (f"fire_compact wide build P={P} n={WIDE_N} M={WIDE_M} "
+             f"S={WIDE_S}", r) for P, r in k2_wide.items()),
+            ("mailbox_insert", k1),
+            ("mailbox_insert ordered, src", k1_ordered)):
         say(f"time {name}: kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
             f"bound_ms={r['bound_ms']} (bytes {r['bytes']} over 3.35 TB/s; "
-            "no single PyTorch call computes this function: library_ms "
-            "null)")
+            f"{nvidia_smi()}; no single PyTorch call computes this "
+            "function: library_ms null)")
     return k2, k1
 
 
@@ -4524,6 +4564,19 @@ def phase_serve_wire(device, want, n=SERVE_N, steps=SERVE_STEPS):
 SHARD_D = 2              # gloo ranks sharing the card
 SHARD_STEPS = 64         # supersteps of phases 52 and 53
 K1P_REPLACES = "timewarp_tpu/interp/jax_engine/sharded.py:347"
+#: phase 52's verified legs: 32 supersteps in chunks of 8, each mode with
+#: a flip whose element lies on rank 1
+SHARD_VERIFY = (("digest", "flip:2:2:mb_rel"), ("shadow", "flip:3:2:wake"))
+SHARD_VERIFY_STEPS, SHARD_VERIFY_CHUNK = 32, 8
+#: phase 54's verified and streamed legs: the chaos fleet for 128 fleet
+#: supersteps in chunks of 32 (a flip on a world of rank 1), then
+#: run_stream under per-world budgets (world b: 64 + 8b)
+FLEET_VERIFY_FLIP, FLEET_VERIFY_STEPS, FLEET_CHUNK = "flip:2:2:mb_rel", 128, 32
+FLEET_STREAM_BUDGETS = tuple(64 + 8 * b for b in range(CHAOS_B))
+#: the checkpoint leg: phase 60's wave at 2^17 as the CLI expresses it,
+#: without K2's batch cap (a knob of the general engine alone), saved by
+#: the ranks after CK_STEPS supersteps
+CK_STEPS = 48
 
 
 def _comm_timers(comm):
@@ -4699,6 +4752,60 @@ def rank_node_sharded(device, steps=SHARD_STEPS, n=STEADY_N):
                               S2=args[3].numel())
         del eng, st
         torch.cuda.empty_cache()
+    out.update(rank_node_verified(device, sc, link, mesh))
+    return out
+
+
+def _count_runs(eng):
+    """Wrap ``eng.run`` to sum the fleet supersteps (loop iterations) of
+    every call: a chunked driver's chunks, shadow re-runs and rolled-back
+    chunks included — what each kernel's launch count must equal."""
+    box = [0]
+    run = eng.run
+
+    def counted(*a, **kw):
+        got = run(*a, **kw)
+        box[0] += eng.last_run_stats["fleet_supersteps"]
+        return got
+    eng.run = counted
+    return box
+
+
+def rank_node_verified(device, sc, link, mesh):
+    """Phase 52's verified legs in one rank: ``ShardedFusedSparseEngine``
+    (K1′) through ``run_verified`` for :data:`SHARD_VERIFY_STEPS` in chunks
+    of :data:`SHARD_VERIFY_CHUNK` under each mode of :data:`SHARD_VERIFY`
+    with its flip; K1 counted over the call, against the supersteps its
+    ``run`` calls ran."""
+    import torch
+    import torch.distributed as dist
+    from timewarp_tpu_torch.integrity import FlipInjector
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.sharded import \
+        ShardedFusedSparseEngine
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        state_to_numpy
+    out = {}
+    for mode, spec in SHARD_VERIFY:
+        eng = ShardedFusedSparseEngine(sc, link, mesh, verify=mode,
+                                       device=device)
+        ran, flip = _count_runs(eng), FlipInjector(spec)
+        dist.barrier()
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        t0 = time.perf_counter()
+        fin, tr = eng.run_verified(SHARD_VERIFY_STEPS,
+                                   chunk=SHARD_VERIFY_CHUNK, inject=flip)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ci.LAUNCHES)
+        g = state_to_numpy(eng.gather_state(fin), sc)
+        out[f"verify_{mode}"] = dict(
+            trace=tr, rec=eng.last_run_integrity, ran=ran[0],
+            flip=(flip.fired, flip.desc), launches=launches, wall=wall,
+            state=g if dist.get_rank() == 0 else None)
+        del eng, fin, g
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4743,7 +4850,74 @@ def rank_fleet_sharded(device, n=CHAOS_N):
         lambda r: eng.run_quiet(48))
     rec["local_worlds"] = int(fin.wake.shape[0])
     g = state_to_numpy(eng.gather_state(fin), sc)
-    return dict(rec, state=g if dist.get_rank() == 0 else None)
+    out = dict(rec, state=g if dist.get_rank() == 0 else None)
+    out.update(rank_fleet_drivers(device, eng, spec, fleet))
+    return out
+
+
+def rank_fleet_drivers(device, eng, spec, fleet):
+    """Phase 54's verified and streamed legs in one rank: the chaos fleet
+    through ``run_verified`` (digest, :data:`FLEET_VERIFY_FLIP`) for
+    :data:`FLEET_VERIFY_STEPS` fleet supersteps in chunks of
+    :data:`FLEET_CHUNK`, then ``eng`` through ``run_stream`` under
+    :data:`FLEET_STREAM_BUDGETS` (each ``on_quiesce``: world, its steps,
+    the worlds in the state it got); K2 and K1 counted over each call."""
+    import torch
+    import torch.distributed as dist
+    from timewarp_tpu_torch.integrity import FlipInjector
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    from timewarp_tpu_torch.interp.torch_engine.sharded import \
+        ShardedBatchedEngine
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        state_to_numpy
+    from timewarp_tpu_torch.parallel import make_mesh
+    sc, link = eng.scenario, eng.link
+    ver = ShardedBatchedEngine(sc, link, make_mesh(axis="worlds"),
+                               batch=spec, faults=fleet, window="auto",
+                               verify="digest", device=device)
+    out = {}
+    for name, e, call in (
+            ("verified", ver, lambda: ver.run_verified(
+                FLEET_VERIFY_STEPS, chunk=FLEET_CHUNK, inject=flip)),
+            ("stream", eng, lambda: eng.run_stream(
+                np.array(FLEET_STREAM_BUDGETS), chunk=FLEET_CHUNK,
+                on_quiesce=lambda b, st: seen.append(
+                    (b, int(st.steps[b]), int(st.wake.shape[0])))))):
+        flip, seen = FlipInjector(FLEET_VERIFY_FLIP), []
+        ran = _count_runs(e)
+        dist.barrier()
+        torch.cuda.synchronize()
+        ci.reset_launches()
+        t0 = time.perf_counter()
+        fin, tr = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ci.LAUNCHES)
+        g = state_to_numpy(e.gather_state(fin), sc)
+        out[name] = dict(
+            trace=tr, ran=ran[0], launches=launches, wall=wall, seen=seen,
+            rec=e.last_run_integrity if name == "verified" else None,
+            flip=(flip.fired, flip.desc) if name == "verified" else None,
+            state=g if dist.get_rank() == 0 else None)
+        del e.run                       # the engine's own run again
+    return out
+
+
+def rank_checkpoint(device, path):
+    """The checkpoint leg in one rank: :data:`CLI_CK` through the command
+    line's rank path (``cli.execute`` over the mesh, as ``cli.rank_main``
+    runs it) for :data:`CK_STEPS` supersteps with ``--save path``: rank 0
+    writes the gathered state. Returns the summary and the wall."""
+    import torch.distributed as dist
+    from timewarp_tpu_torch import cli
+    from timewarp_tpu_torch.parallel import make_mesh
+    args = cli.run_parser().parse_args(
+        CLI_CK + ["--engine", "sharded", "--devices", str(SHARD_D),
+                  "--steps", str(CK_STEPS), "--save", path])
+    t0 = time.perf_counter()
+    summary = cli.execute(args, device, None, mesh=make_mesh(SHARD_D),
+                          rank=dist.get_rank())
+    return dict(summary=summary, wall=time.perf_counter() - t0)
 
 
 def small_sharded_cases(device, n=1 << 12):
@@ -4805,18 +4979,21 @@ def leg_ranks(dev, n=1 << 12):
                  device=dev, args=(n,), threads=1)[0]
 
 
-def ranks_on_card(device, steps=SHARD_STEPS, sizes=None):
+def ranks_on_card(device, steps=SHARD_STEPS, sizes=None, ck_path=None):
     """Phases 52-55 (the card's half of 55) in one gloo rank sharing the
-    card: each phase between barriers, its wall measured on rank 0.
-    ``sizes`` (the node counts of 52, 53, 54 and 55) defaults to the
-    configurations' own."""
+    card, and the checkpoint leg (``ck_path``): each between barriers,
+    its wall measured on rank 0. ``sizes`` (the node counts of 52, 53, 54
+    and 55) defaults to the configurations' own."""
     import torch.distributed as dist
     n52, n53, n54, n55 = sizes or (STEADY_N, RING_N, CHAOS_N, 1 << 12)
     out, walls = {}, {}
     for phase, fn in ((52, lambda: rank_node_sharded(device, steps, n52)),
                       (53, lambda: rank_edge_sharded(device, steps, n53)),
                       (54, lambda: rank_fleet_sharded(device, n54)),
-                      (55, lambda: small_sharded_cases(device, n55))):
+                      (55, lambda: small_sharded_cases(device, n55)),
+                      ("ck", lambda: rank_checkpoint(device, ck_path))):
+        if phase == "ck" and ck_path is None:
+            continue
         dist.barrier()
         t0 = time.perf_counter()
         out[phase] = fn()
@@ -4840,9 +5017,12 @@ def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
     (gloo, sharing the card) started by ``parallel.launch.spawn``; each
     sharded run held equal to its one-device run over the same supersteps
     (every leaf of the gathered state, every counter, the trace's digest
-    chain), the card ranks to CPU ranks at 2^12. ``sizes`` as
+    chain), the card ranks to CPU ranks at 2^12; the verified, streamed
+    and checkpointed legs against theirs. ``sizes`` as
     :func:`ranks_on_card`'s. Returns ``(K1′ record, K1′ launches, K2/K1
     launches of phase 54)``."""
+    import os
+
     import torch
     from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeEngine
     from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
@@ -4856,16 +5036,19 @@ def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
     solo_st, solo_tr = TorchEngine(sc, link, device=device).run(steps)
     solo52 = state_to_numpy(solo_st, sc)
     del solo_st
+    twins52 = solo_verified(device, sc, link)
     ring_st, ring_tr = EdgeEngine(*dense_ring(n53), device=device).run(
         steps)
     solo53 = edge_state_to_numpy(ring_st)
     del ring_st
     want54 = state_to_numpy(chaos_fin, chaos_fleet(n54)[0])
+    twins54 = solo_fleet_drivers(device, n54)
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    ck_path = os.path.join(_scratch(), "sharded_ck.npz")
     t0 = time.perf_counter()
     res = spawn("chip_smoke:ranks_on_card", SHARD_D, backend="gloo",
-                device=device.type, args=(steps, sizes))
+                device=device.type, args=(steps, sizes, ck_path))
     spawn_wall = time.perf_counter() - t0
     walls = res[0]["walls"]
     say(f"sharded ranks: {SHARD_D} gloo ranks on cuda:0 spawn_and_run_s="
@@ -4898,6 +5081,7 @@ def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
         f"ShardedEngine = TorchEngine (traces, every leaf, delivered={fs}, "
         f"overflow={int(solo52['overflow'])}); K1' launched "
         f"{k1p_launches} times in all (once per superstep on each rank)")
+    k1p_launches += check_node_verified(r52, twins52)
     say(f"phase 52 wall_s={walls[52]}")
 
     # 53: the sharded ring = EdgeEngine
@@ -4928,6 +5112,8 @@ def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
         f"{SHARD_D} ranks of {CHAOS_B // SHARD_D} worlds: every leaf = phase "
         f"27's fleet; fleet supersteps per rank {[rr['steps'] for rr in r54]}"
         f", K2/K1 once per fleet superstep on each rank")
+    for k, v in check_fleet_drivers(r54, twins54).items():
+        fleet_launches[k] += v
     say(f"phase 54 wall_s={walls[54]}")
 
     # 55: the card's ranks = CPU ranks at 2^12
@@ -4948,7 +5134,185 @@ def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
             f"{c['steps']} supersteps, card wall_s={c['wall']} CPU wall_s="
             f"{g['wall']})")
     say(f"phase 55 wall_s={walls[55] + cpu_wall}")
+    check_sharded_checkpoint(res[0]["ck"], ck_path)
+    say(f"phase 55 (checkpoint) wall_s={walls['ck']}")
     return k1p, k1p_launches, fleet_launches
+
+
+def solo_verified(device, sc, link):
+    """Phase 52's verified legs on one device: ``TorchEngine`` through
+    ``run_verified`` under each mode of :data:`SHARD_VERIFY`, the same
+    flip: ``{mode: (state, trace, integrity record, flip)}``."""
+    from timewarp_tpu_torch.integrity import FlipInjector
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        state_to_numpy
+    out = {}
+    for mode, spec in SHARD_VERIFY:
+        eng = TorchEngine(sc, link, verify=mode, device=device)
+        flip = FlipInjector(spec)
+        (fin, tr), wall = _timed(lambda: eng.run_verified(
+            SHARD_VERIFY_STEPS, chunk=SHARD_VERIFY_CHUNK, inject=flip))
+        out[mode] = (state_to_numpy(fin, sc), tr, eng.last_run_integrity,
+                     (flip.fired, flip.desc))
+        say(f"phase 52: verify={mode} on one device (TorchEngine."
+            f"run_verified): wall_s={wall}")
+    return out
+
+
+def check_node_verified(r52, twins):
+    """Phase 52's verified legs against their one-device runs: on every
+    rank the trace and the integrity record (digest chain, checks,
+    rollbacks, violations) and the flip, rank 0's gathered state leaf for
+    leaf; the flip found (a rollback); K1′ once per superstep the ranks'
+    ``run`` calls ran, nothing else launched. Returns K1′'s launches."""
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    total = 0
+    for mode, _ in SHARD_VERIFY:
+        want_st, want_tr, want_rec, want_flip = twins[mode]
+        _np_states_equal(f"phase 52 verify={mode}: sharded vs one device",
+                         want_st, r52[0][f"verify_{mode}"]["state"])
+        for r, rr in enumerate(r52):
+            got = rr[f"verify_{mode}"]
+            assert_traces_equal(want_tr, got["trace"], "one device",
+                                f"sharded verify={mode} rank {r}")
+            ln = got["launches"]
+            _require_all(f"phase 52 verify={mode} rank {r}", {
+                "the integrity record = one device's": got["rec"]
+                == want_rec,
+                "the same flip": got["flip"] == want_flip,
+                "the flip found and rolled back": want_rec["rollbacks"] >= 1,
+                "K1' once per superstep run": ln["mailbox_insert"]
+                == got["ran"],
+                "no K2/K3/K4": ln["fire_compact"] == ln["sample_insert"]
+                == ln["fused_ring"] == 0})
+            total += ln["mailbox_insert"]
+        g = r52[0][f"verify_{mode}"]
+        say(f"phase 52: verify={mode} steady gossip over {SHARD_D} ranks, "
+            f"{SHARD_VERIFY_STEPS} supersteps in chunks of "
+            f"{SHARD_VERIFY_CHUNK}, {g['flip'][1]}: = TorchEngine's "
+            f"run_verified (trace, every leaf, integrity record: "
+            f"rollbacks={want_rec['rollbacks']} checks={want_rec['checks']}"
+            f" chain={want_rec['digest_chain'][0][:16]}); supersteps run "
+            f"{g['ran']} a rank, K1' as many; wall_s={g['wall']} "
+            f"({nvidia_smi()})")
+    return total
+
+
+def solo_fleet_drivers(device, n):
+    """Phase 54's legs on one device: the chaos fleet through
+    ``run_verified`` and ``run_stream`` as :func:`rank_fleet_drivers`
+    runs them: ``{"verified": (state, traces, record, flip), "stream":
+    (state, traces, on_quiesce calls)}``."""
+    from timewarp_tpu_torch.integrity import FlipInjector
+    from timewarp_tpu_torch.interp.torch_engine.engine import TorchEngine
+    from timewarp_tpu_torch.interp.torch_engine.state_io import \
+        state_to_numpy
+    sc, link, spec, fleet, _ = chaos_fleet(n)
+    ver = TorchEngine(sc, link, batch=spec, faults=fleet, window="auto",
+                      verify="digest", device=device)
+    flip = FlipInjector(FLEET_VERIFY_FLIP)
+    (fin, tr), wall = _timed(lambda: ver.run_verified(
+        FLEET_VERIFY_STEPS, chunk=FLEET_CHUNK, inject=flip))
+    out = {"verified": (state_to_numpy(fin, sc), tr,
+                        ver.last_run_integrity, (flip.fired, flip.desc))}
+    del ver, fin
+    seen = []
+    eng = TorchEngine(sc, link, batch=spec, faults=fleet, window="auto",
+                      device=device)
+    (fin, tr), wall2 = _timed(lambda: eng.run_stream(
+        np.array(FLEET_STREAM_BUDGETS), chunk=FLEET_CHUNK,
+        on_quiesce=lambda b, st: seen.append(
+            (b, int(st.steps[b]), int(st.wake.shape[0])))))
+    out["stream"] = (state_to_numpy(fin, sc), tr, seen)
+    say(f"phase 54: the chaos fleet on one device: run_verified wall_s="
+        f"{wall}, run_stream wall_s={wall2}")
+    return out
+
+
+def check_fleet_drivers(r54, twins):
+    """Phase 54's legs against their one-device runs: every world's trace
+    on every rank, rank 0's gathered state leaf for leaf, the integrity
+    record and the flip (found), each world's ``on_quiesce`` once at its
+    one-device superstep with the whole fleet; K2 and K1 once per fleet
+    superstep the ranks' ``run`` calls ran. Returns their launches."""
+    from timewarp_tpu_torch.trace.events import assert_traces_equal
+    launches = {"fire_compact": 0, "mailbox_insert": 0}
+    for leg in ("verified", "stream"):
+        want_st, want_tr = twins[leg][:2]
+        _np_states_equal(f"phase 54 {leg}: sharded vs one device", want_st,
+                         r54[0][leg]["state"])
+        for r, rr in enumerate(r54):
+            got = rr[leg]
+            for b, (x, y) in enumerate(zip(want_tr, got["trace"])):
+                assert_traces_equal(x, y, "one device",
+                                    f"sharded {leg} rank {r} w{b}")
+            ln = got["launches"]
+            checks = {
+                "K2 and K1 once per fleet superstep run":
+                    ln["fire_compact"] == ln["mailbox_insert"] == got["ran"],
+                "no K3/K4": ln["sample_insert"] == ln["fused_ring"] == 0}
+            if leg == "verified":
+                checks.update({
+                    "the integrity record = one device's":
+                        got["rec"] == twins[leg][2],
+                    "the same flip": got["flip"] == twins[leg][3],
+                    "the flip found and rolled back":
+                        got["rec"]["rollbacks"] >= 1})
+            else:
+                checks.update({
+                    "each world's on_quiesce once, at its one-device "
+                    "superstep, with every world": got["seen"]
+                    == twins[leg][2] and sorted(b for b, _, _ in got["seen"])
+                    == list(range(CHAOS_B))})
+            _require_all(f"phase 54 {leg} rank {r}", checks)
+            for k in launches:
+                launches[k] += ln[k]
+        g = r54[0][leg]
+        say(f"phase 54: the chaos fleet's {leg} driver over {SHARD_D} ranks "
+            f"= one device's (traces, every leaf"
+            + (f", integrity record, {g['flip'][1]}, rollbacks="
+               f"{g['rec']['rollbacks']}" if leg == "verified" else
+               f", on_quiesce {g['seen']}")
+            + f"); fleet supersteps run {g['ran']} a rank, K2 = K1 as many; "
+            f"wall_s={g['wall']} ({nvidia_smi()})")
+    return launches
+
+
+def check_sharded_checkpoint(got, path):
+    """The checkpoint leg: the ranks' ``--save`` (:data:`CLI_CK`, after
+    :data:`CK_STEPS` supersteps) is the one-device run's file, leaf for
+    leaf, with the same meta, and resumes on one device to the
+    uninterrupted run."""
+    import os
+    one = path.replace(".npz", "_one.npz")
+    t0 = time.perf_counter()
+    rc1, s1 = _cli(CLI_CK + ["--steps", str(CK_STEPS), "--save", one])
+    rc2, s2 = _cli(CLI_CK + ["--steps", "1048576", "--resume", path])
+    rc3, s3 = _cli(CLI_CK + ["--steps", "1048576"])
+    wall = time.perf_counter() - t0
+    a, b = np.load(path), np.load(one)
+    same = sorted(a.files) == sorted(b.files) and all(
+        np.array_equal(a[k], b[k]) for k in a.files)
+    sh = got["summary"]
+    strip = ("device", "engine")
+    _require_all("checkpoint", {
+        "the one-device runs exit 0": rc1 == rc2 == rc3 == 0,
+        "the ranks' summary = one device's": {
+            k: v for k, v in sh.items() if k not in strip}
+        == {k: v for k, v in s1[-1].items() if k not in strip},
+        "the ranks' file = one device's (every leaf, tree, meta)": same,
+        "resumed to the uninterrupted run": (s2[-1]["steps"],
+                                             s2[-1]["virtual_time_us"])
+        == (s3[-1]["steps"], s3[-1]["virtual_time_us"])
+        and sh["delivered"] + s2[-1]["delivered"] == s3[-1]["delivered"]})
+    say(f"checkpoint: {SHARD_D} ranks --save after {CK_STEPS} supersteps of "
+        f"the 2^17 wave = one device's file ({os.path.getsize(path)} bytes)"
+        f"; one-device --resume to the end ({s2[-1]['supersteps']} "
+        f"supersteps) = the uninterrupted run ({s3[-1]['supersteps']}); "
+        f"ranks wall_s={got['wall']}, one-device runs wall_s={wall}")
+    for f in (path, one):
+        os.remove(f)
 
 
 # -- the analysis slice: lint, bisect, explain, profile ---------------------
@@ -5301,6 +5665,9 @@ CLI_CHAOS = ["gossip", "--nodes", str(CHAOS_N), "--steady", "--fanout", "1",
              "--mailbox-cap", "8", "--end-us", "300000", "--batch",
              str(CHAOS_B), "--window", "auto", "--link",
              "quantize:1000:uniform:500:4500", "--faults", CLI_CHAOS_FAULTS]
+CLI_CK = [x for i, x in enumerate(CLI_WAVE) if x != "--insert-cap"
+          and CLI_WAVE[i - 1] != "--insert-cap" and x != "--steps"
+          and CLI_WAVE[i - 1] != "--steps"]
 #: phase 63's steady gossip at 2^20 (phase 21's shape, the builder's
 #: default think time), a few supersteps
 CLI_STEADY = ["gossip", "--nodes", str(STEADY_N), "--steady", "--fanout",

@@ -135,8 +135,6 @@ def test_cli_sharded_refusals():
     common = ["gossip", "--nodes", "64", "--engine", "sharded", *CPU]
     with pytest.raises(SystemExit, match="--devices N is required"):
         main(common)
-    with pytest.raises(SystemExit, match="sharded state"):
-        main([*common, "--devices", "2", "--save", "x.npz"])
     with pytest.raises(SystemExit, match="--devices must be >= 1"):
         main([*common, "--devices", "0"])
 
@@ -235,6 +233,37 @@ def test_cli_sharded_batched_matches_general_batched(capsys):
     assert sh["engine"] == "sharded-batched"
     for k in ("delivered", "supersteps", "virtual_time_us", "overflow"):
         assert sh[k] == loc[k]
+
+
+def test_cli_sharded_checkpoint_moves_both_ways(capsys, tmp_path):
+    """Two ranks under ``--verify digest`` with a flip: the run and its
+    integrity record (the flip found and rolled back) are the one-device
+    run's, and so is its checkpoint file (leaves, tree, meta), which
+    resumes through the reference's ``load_state`` to the uninterrupted
+    run; the one-device checkpoint resumes on the ranks to the
+    reference's resumed run."""
+    common = ["gossip", "--nodes", "64", "--link", "uniform:1000:5000",
+              "--end-us", "300000", "--seed", "3"]
+    verify = ["--verify", "digest", "--inject-flip", "flip:2:2:mb_rel",
+              "--verify-chunk", "16"]
+    general = [*common, "--engine", "general"]
+    ranks = [*common, "--engine", "sharded", "--devices", "2"]
+    sh, one = str(tmp_path / "sh.npz"), str(tmp_path / "one.npz")
+    r1 = port_cli(capsys, *ranks, *verify, "--steps", "60", "--save", sh)
+    w1 = port_cli(capsys, *general, *verify, "--steps", "60", "--save", one)
+    assert r1["integrity"]["flip_fired"] and r1["integrity"]["rollbacks"]
+    assert _strip(dict(r1, engine="general")) == _strip(w1)
+    a, b = np.load(sh), np.load(one)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    r2 = ref_cli(capsys, *general, "--steps", "90", "--resume", sh)
+    full = port_cli(capsys, *general, "--steps", "150")
+    assert (r2["steps"], r2["virtual_time_us"]) \
+        == (full["steps"], full["virtual_time_us"])
+    assert r1["delivered"] + r2["delivered"] == full["delivered"]
+    got = port_cli(capsys, *ranks, "--steps", "90", "--resume", one)
+    assert _strip(dict(got, engine="general")) == _strip(r2)
 
 
 def test_cli_batched_checkpoint_seed_fleet_pinned(capsys, tmp_path):

@@ -67,7 +67,8 @@ def _outbox(rng, n, M, P, frac, W):
     (1024, 8, 1, 8_000, 1024, 0.3),     # drops: the write order decides
     (1024, 4, 2, 1, 2048, 0.8),         # window 1 (no woff column), drops
     (8192, 2, 1, 5_000, 4096, 0.4),     # 8-row blocks, drops
-], ids=["w8000-nodrop", "w8000-drop", "w1-drop", "rw8-drop"])
+    (1024, 2, 32, 8_000, 1024, 0.6),    # a payload past the narrow build
+], ids=["w8000-nodrop", "w8000-drop", "w1-drop", "rw8-drop", "P32-drop"])
 def test_fire_compact_plain_equals_pallas(n, M, P, W, cap, frac):
     jsc, tsc = _scenarios(n, 8, M, P, False, False)
     jstage = _jax_stage(jsc, n, W, cap)
@@ -248,13 +249,41 @@ def test_fire_compact_kernel_two_calls(cuda_device):
 
 @pytest.mark.cuda
 def test_fire_compact_kernel_refuses_too_wide_payload(cuda_device):
-    """K2 stages every payload word in shared memory: a payload wider
-    than a CTA's shared memory holds is refused at launch, loudly."""
+    """A payload wider than the widest the reference takes is refused
+    before any launch, naming P and the limit."""
     rng = np.random.default_rng(10)
+    P = ci.COMPACT_MAX_P + 1
     pdst, woff, pay = (torch.from_numpy(a).to(cuda_device)
-                       for a in _outbox(rng, 4096, 2, 40, 0.3, 8_000))
-    with pytest.raises(RuntimeError, match="fire_compact kernel launch"):
-        ci.fire_compact(pdst, woff, pay, 1 << 13)
+                       for a in _outbox(rng, 1024, 1, P, 0.3, 8_000))
+    before = ci.LAUNCHES["fire_compact"]
+    with pytest.raises(ValueError, match=f"P={P} .* up to "
+                       f"{ci.COMPACT_MAX_P}"):
+        ci.fire_compact(pdst, woff, pay, 1024)
+    assert ci.LAUNCHES["fire_compact"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B", [(27, 1), (28, 1), (32, 1), (32, 3),
+                                 (ci.COMPACT_MAX_P, 1)],
+                         ids=["P27-narrow", "P28-wide", "P32-wide",
+                              "P32-wide-fleet", "Pmax-wide"])
+def test_fire_compact_kernel_wide_payload(cuda_device, P, B):
+    """Past the payload the narrow build stages (27 words on an H100) the
+    wide build runs, bit-equal to the plain version, solo and over a
+    fleet (N = 2^12, M = 2, S = 2^13)."""
+    narrow = ci.compact_narrow_max(torch.cuda.current_device())
+    assert (P > narrow) == (P >= 28)
+    rng = np.random.default_rng(P + B)
+    n, M, S = 1 << 12, 2, 1 << 13
+    pdst, woff, pay = (torch.from_numpy(a).to(cuda_device) for a in
+                       _fleet_outbox(rng, B, n, M, P, (0.6, 0.9, 0.2)[:B],
+                                     8_000))
+    if B == 1:
+        pdst, woff, pay = pdst[0], woff[0], pay[0]
+    got = ci.fire_compact(pdst, woff, pay, S)
+    want = ci.fire_compact_plain(pdst, woff, pay, S)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
 
 
 def test_compact_scratch_words():

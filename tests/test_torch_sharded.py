@@ -4,7 +4,14 @@ tests/test_sharded.py, test_fused_sparse.py (sharded leg),
 test_windowed.py (sharded), test_world_batch.py (sharded fleet),
 test_zfault_parity.py (sharded chaos fleet), test_zztelemetry.py
 (sharded planes), test_zzzdispatch.py (sharded controller) and
-test_zzzzzflight.py (sharded recorder).
+test_zzzzzflight.py (sharded recorder), and the integrity plane and the
+streamed driver over the ranks: every sharded engine's ``run_verified``
+in every verify mode (a flip on a rank other than 0 under digest and
+shadow) against the reference's one-device ``run_verified`` (traces,
+leaves, ``digest_chain`` and ``last_run_integrity``), the sharded digest
+against the gathered state's, ``run_quiet``'s guard over the ranks, the
+world-sharded ``run_stream`` against the reference's, and a checkpoint of
+the ranks read by the reference's ``load_state`` and resumed on them.
 
 One module-scoped fixture spawns the four ranks once
 (``parallel.launch.spawn``, the ``spawn`` start method: this process
@@ -35,6 +42,7 @@ from timewarp_tpu.dispatch import DispatchController as JController
 from timewarp_tpu.faults import FaultFleet as JFleet
 from timewarp_tpu.faults import FaultSchedule as JSchedule
 from timewarp_tpu.faults import NodeCrash as JCrash
+from timewarp_tpu.integrity import FlipInjector as JFlip
 from timewarp_tpu.interp.jax_engine.batched import BatchSpec as JSpec
 from timewarp_tpu.interp.jax_engine.edge_engine import EdgeEngine as JEdge
 from timewarp_tpu.interp.jax_engine.edge_engine import EdgeState as JEdgeState
@@ -47,6 +55,8 @@ from timewarp_tpu.models.token_ring import token_ring_links as jring_links
 from timewarp_tpu.net import delays as jd
 from timewarp_tpu.trace.events import assert_states_equal, assert_traces_equal
 from timewarp_tpu_torch.parallel.launch import RankFailed, spawn
+from torch_sharded_cases import (STREAM_BUDGETS, VERIFY_BUDGET, VERIFY_CHUNK,
+                                 VERIFY_FLIPS, VERIFY_MODES)
 
 # one intra-op thread per test process: the test session's workers
 # share the host's cores (a process of the default width each
@@ -196,7 +206,6 @@ def test_state_lives_per_rank(ranks):
     ("record_general", "unsupported on the node-sharded"),
     ("record_fused", "unsupported on the node-sharded"),
     ("record_edge", "unsupported on the node-sharded"),
-    ("verify_general", "not ported to the node-sharded"),
     ("fused_ordered", "commutative_inbox"),
     ("no_batch", "needs a BatchSpec"),
     ("indivisible_fleet", "not divisible"),
@@ -464,6 +473,154 @@ def test_sharded_speculation_masked_rollback(ranks):
     assert sh["speculation"]["rollbacks"] >= 1
     assert {v["world"] for v in sh["speculation"]["violations"]} <= {0, 2}
     assert sh["speculation"]["rerun_worlds"] >= 1
+
+
+# -- the integrity plane and the streamed driver over the ranks ---------------
+
+def _jverify_gossip(**kw):
+    return JaxEngine(jgossip(64, fanout=3, burst=True, end_us=150_000,
+                             mailbox_cap=16), JLINK, window="auto",
+                     lint="off", **kw)
+
+
+@pytest.fixture(scope="module")
+def verify_reference():
+    """The reference's one-device ``run_verified`` of each sharded
+    engine's configuration in each mode, with the same flip: final
+    state, traces, integrity record and the flip's description. A verify
+    mode is host state in the reference (every mode but off traces one
+    program), so each configuration builds one engine; ShardedEngine and
+    ShardedFusedSparseEngine share the general one's."""
+    engines = {
+        "general": _jverify_gossip(verify="digest"),
+        "edge": JEdge(jring(16, n_tokens=4, think_us=2000, bootstrap_us=1000,
+                            end_us=120_000, with_observer=False,
+                            mailbox_cap=8), jd.FixedDelay(500), lint="off",
+                      verify="digest"),
+        "fleet": _jverify_gossip(verify="digest",
+                                 batch=JSpec(seeds=(0, 1, 2, 3))),
+    }
+    out = {}
+    for name, eng in engines.items():
+        for mode, spec in zip(VERIFY_MODES, VERIFY_FLIPS[name]):
+            eng.verify = mode
+            flip = None if spec is None else JFlip(spec)
+            fin, tr = eng.run_verified(VERIFY_BUDGET, chunk=VERIFY_CHUNK,
+                                       inject=flip)
+            out[name, mode] = (fin, tr, eng.last_run_integrity,
+                               None if flip is None else flip.desc)
+    return out
+
+
+@pytest.mark.parametrize("mode", VERIFY_MODES)
+@pytest.mark.parametrize("engine", list(VERIFY_FLIPS))
+def test_sharded_verified_equals_reference(ranks, verify_reference, engine,
+                                           mode):
+    """``run_verified`` on 4 ranks = the reference's one-device run of the
+    same configuration, seed, chunk and flip: the trace, every leaf, the
+    integrity record (its ``digest_chain``, checks, rollbacks and
+    violations) on every rank; under digest and shadow the flip (on a
+    rank other than 0) is detected, and the recovered run is the clean
+    guard run."""
+    jfin, jtr, jrec, jdesc = verify_reference[
+        "general" if engine == "fused" else engine, mode]
+    got = case(ranks, "verified")[f"{engine}-{mode}"]
+    for b, (x, y) in enumerate(zip(*(t if isinstance(t, list) else [t]
+                                     for t in (jtr, got["trace"])))):
+        assert_traces_equal(x, y, "reference", f"sharded {engine} w{b}")
+    (_edge if engine == "edge" else _gen)(jfin, got["state"])
+    assert got["rec"] == jrec
+    for r in range(1, RANKS):
+        assert ranks[r]["verified"][f"{engine}-{mode}"]["rec"] == jrec
+    if mode == "guard":
+        assert got["flip"] is None and jrec["rollbacks"] == 0
+        return
+    fired, desc = got["flip"]
+    assert fired and desc == jdesc
+    assert got["rec"]["rollbacks"] >= 1 and got["rec"]["violations"]
+    shape = got["state"][desc.split("[")[0]].shape
+    idx = int(desc.split("[")[1].split("]")[0])
+    owner = idx // (int(np.prod(shape[1:])) * (shape[0] // RANKS)) \
+        if engine == "fleet" else (idx % shape[-1]) // (shape[-1] // RANKS)
+    assert owner != 0, desc
+    clean = case(ranks, "verified")[f"{engine}-guard"]
+    for b, (x, y) in enumerate(zip(*(t if isinstance(t, list) else [t]
+                                     for t in (clean["trace"],
+                                               got["trace"])))):
+        assert_traces_equal(x, y, "clean", f"recovered w{b}")
+
+
+@pytest.mark.parametrize("engine", list(VERIFY_FLIPS))
+def test_sharded_digest_equals_gathered(ranks, engine):
+    """The digest of a rank's shard (the per-rank sums under global
+    indices, one all_sum; a fleet's gathered per world) = ``tree_digest``
+    / ``fleet_digest`` of the gathered state, on every rank and mode."""
+    for r in range(RANKS):
+        for mode in VERIFY_MODES:
+            sharded, gathered = ranks[r]["verified"][
+                f"{engine}-{mode}"]["digests"]
+            assert sharded == gathered, (r, mode)
+
+
+@pytest.mark.parametrize("engine", list(VERIFY_FLIPS))
+def test_sharded_quiet_guard_judges_the_global_state(ranks, engine):
+    """A negative wake (a fleet's steps) on rank 2 alone: ``run_quiet``'s
+    final-state guard raises on every rank, naming the field."""
+    field = "steps" if engine == "fleet" else "wake"
+    for r in range(RANKS):
+        msg = ranks[r]["verified"][f"{engine}-quiet"]
+        assert msg is not None and f"{field}: -5" in msg, (r, msg)
+
+
+def test_sharded_run_stream_equals_reference(ranks):
+    """The world-sharded ``run_stream`` under per-world budgets = the
+    reference's: the same traces and final state, each world's
+    ``on_quiesce`` once, at the same superstep, with the gathered fleet
+    (every callback's state holds all 4 worlds)."""
+    got = case(ranks, "stream")
+    eng = _jverify_gossip(batch=JSpec(seeds=(0, 1, 2, 3)))
+    seen = []
+    jf, jtr = eng.run_stream(np.array(STREAM_BUDGETS), chunk=VERIFY_CHUNK,
+                             on_quiesce=lambda b, st: seen.append(
+                                 (b, int(st.steps[b]), 4)))
+    assert got["seen"] == seen
+    assert sorted(b for b, _, _ in seen) == [0, 1, 2, 3]
+    assert got["chunks"] and set(got["chunks"]) == {4}
+    for b in range(4):
+        assert_traces_equal(jtr[b], got["traces"][b], "reference", f"w{b}")
+    _gen(jf, got["state"], "sharded run_stream")
+    assert got["supersteps"] == sum(len(t) for t in jtr)
+    for r in range(1, RANKS):
+        assert ranks[r]["stream"]["seen"] == seen
+
+
+def test_sharded_checkpoint_resumes_across_packages(ranks, verify_reference):
+    """The gathered state of 4 ranks, written by rank 0, is read by the
+    reference's ``load_state`` as the ranks' 24-superstep state; loaded on
+    every rank and cut to its shard it resumes to the uninterrupted run,
+    which is the reference's 48 supersteps (the clean guard run of
+    ``verify_reference``), node- and world-sharded."""
+    import shutil
+    from timewarp_tpu.utils.checkpoint import load_state as jload
+    got = case(ranks, "checkpoint")
+    try:
+        for name in ("general", "fleet"):
+            g = got[name]
+            jfull, jtr = verify_reference[name, "guard"][:2]
+            jst, _ = jload(g["path"], jfull)
+            _gen(jst, g["mid"], f"{name} checkpoint")
+            _gen(jfull, g["resumed"], f"{name} resumed")
+            _gen(jfull, g["full"], f"{name} uninterrupted")
+            for z, w in zip(*(t if isinstance(t, list) else [t]
+                              for t in (jtr, g["full_trace"]))):
+                assert_traces_equal(z, w, "reference", f"{name} full")
+            for x, w in zip(*(t if isinstance(t, list) else [t]
+                              for t in (g["trace"], g["full_trace"]))):
+                for f in ("times", "recv_hash", "sent_hash"):
+                    np.testing.assert_array_equal(
+                        getattr(x, f), getattr(w, f)[-len(x):])
+    finally:
+        shutil.rmtree(got["dir"], ignore_errors=True)
 
 
 # -- the launcher ----------------------------------------------------------------

@@ -13,7 +13,9 @@ holds against the reference's one-device runs in its own process.
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
+import tempfile
 import time
 import traceback
 
@@ -33,11 +35,14 @@ from timewarp_tpu_torch.interp.torch_engine.sharded import (
     ShardedFusedSparseEngine)
 from timewarp_tpu_torch.interp.torch_engine.state_io import (
     edge_state_to_numpy, state_to_numpy)
+from timewarp_tpu_torch.integrity import FlipInjector, IntegrityViolation
+from timewarp_tpu_torch.integrity.digest import fleet_digest, tree_digest
 from timewarp_tpu_torch.models.gossip import gossip
 from timewarp_tpu_torch.models.token_ring import token_ring, token_ring_links
 from timewarp_tpu_torch.net.delays import (FixedDelay, FnDelay, LinkModel,
                                            Quantize, UniformDelay, WithDrop)
 from timewarp_tpu_torch.parallel import MeshComm, check_backend, make_mesh
+from timewarp_tpu_torch.utils.checkpoint import load_state, save_state
 
 #: the reference tests' windowed link and window (tests/test_windowed.py)
 W = 3_000
@@ -201,6 +206,35 @@ def dispatch_wave():
                                      floor_us=8_000), 1_000)
 
 
+def verify_gossip():
+    """tests/test_torch_integrity.py's gossip at 64 nodes (16 a rank)."""
+    return gossip(64, fanout=3, burst=True, end_us=150_000,
+                  mailbox_cap=16), Quantize(UniformDelay(3000, 9000), 1000)
+
+
+def verify_ring():
+    """tests/test_torch_integrity.py's 16-node ring (4 nodes a rank)."""
+    return token_ring(16, n_tokens=4, think_us=2000, bootstrap_us=1000,
+                      end_us=120_000, with_observer=False,
+                      mailbox_cap=8), FixedDelay(500)
+
+
+#: the verified runs: budget and chunk (tests/test_torch_integrity.py's),
+#: the modes, and each engine's flip per mode (None: a clean run), each
+#: landing on a rank other than 0 (the test checks where)
+VERIFY_BUDGET, VERIFY_CHUNK = 48, 8
+VERIFY_MODES = ("guard", "digest", "shadow")
+VERIFY_FLIPS = {
+    "general": (None, "flip:2:2:mb_rel", "flip:3:2:mb_src"),
+    "fused": (None, "flip:2:2:mb_rel", "flip:3:2:mb_src"),
+    "edge": (None, "flip:3:2:q_rel", "flip:2:3:wake"),
+    "fleet": (None, "flip:1:2:mb_rel", "flip:4:3:wake"),
+}
+#: run_stream's per-world budgets on the 4-world fleet (world 3 quiesced
+#: before the first chunk)
+STREAM_BUDGETS = (10, 48, 30, 0)
+
+
 # -- result helpers ------------------------------------------------------------
 
 def _edge(eng, st):
@@ -305,9 +339,6 @@ def case_refusals(dev):
             ("record_edge", lambda: ShardedEdgeEngine(
                 token_ring(64, with_observer=False), FixedDelay(500), mesh,
                 record="full", device=dev)),
-            ("verify_general", lambda: ShardedEngine(
-                gossip(64, burst=True), FixedDelay(5_000), mesh,
-                verify="guard", device=dev)),
             ("fused_ordered", lambda: ShardedFusedSparseEngine(
                 shift_scenario(64, [1, 2], commutative=False),
                 FixedDelay(5_000), mesh, window="auto", device=dev)),
@@ -610,6 +641,108 @@ def case_speculation(dev):
             speculation=eng.last_run_speculation,
             chains=[[d.to_json() for d in c]
                     for c in eng.last_run_decisions_world])
+    return out
+
+
+def _verified_engine(name, mode, dev):
+    nodes = make_mesh()
+    if name == "general":
+        return ShardedEngine(*verify_gossip(), nodes, window="auto",
+                             verify=mode, device=dev)
+    if name == "fused":
+        return ShardedFusedSparseEngine(*verify_gossip(), nodes,
+                                        window="auto", verify=mode,
+                                        device=dev)
+    if name == "edge":
+        return ShardedEdgeEngine(*verify_ring(), nodes, verify=mode,
+                                 device=dev)
+    return ShardedBatchedEngine(*verify_gossip(), make_mesh(axis="worlds"),
+                                batch=BatchSpec(seeds=(0, 1, 2, 3)),
+                                window="auto", verify=mode, device=dev)
+
+
+def case_verified(dev):
+    """Every sharded engine's ``run_verified`` in every mode, the digest
+    and shadow runs with a flip (:data:`VERIFY_FLIPS`): trace, gathered
+    state, integrity record, the flip, the sharded digest of the final
+    state beside the gathered state's, and ``run_quiet``'s final-state
+    guard on a state whose wake (a fleet's steps) went negative on rank 2
+    alone (each rank records what it raised)."""
+    out = {}
+    for name, flips in VERIFY_FLIPS.items():
+        for mode, spec in zip(VERIFY_MODES, flips):
+            eng = _verified_engine(name, mode, dev)
+            flip = None if spec is None else FlipInjector(spec)
+            fin, tr = eng.run_verified(VERIFY_BUDGET, chunk=VERIFY_CHUNK,
+                                       inject=flip)
+            g = eng.gather_state(fin)
+            if name == "fleet":
+                digests = (fleet_digest(fin, shards=eng).tolist(),
+                           fleet_digest(g).tolist())
+            else:
+                digests = (int(tree_digest(fin, shards=eng)),
+                           int(tree_digest(g)))
+            out[f"{name}-{mode}"] = dict(
+                trace=tr, rec=eng.last_run_integrity, digests=digests,
+                state=edge_state_to_numpy(g) if name == "edge"
+                else state_to_numpy(g, eng.scenario),
+                flip=None if flip is None else (flip.fired, flip.desc))
+            if mode == "guard":
+                # a fleet's guard reads its per-world scalars, a node-
+                # sharded engine's its wake too
+                field = "steps" if name == "fleet" else "wake"
+                x = getattr(fin, field).clone()
+                if dist.get_rank() == 2:
+                    x.view(-1)[0] = -5
+                try:
+                    eng._quiet_guard(fin._replace(**{field: x}))
+                    out[f"{name}-quiet"] = None
+                except IntegrityViolation as e:
+                    out[f"{name}-quiet"] = str(e)
+    return out
+
+
+def case_stream(dev):
+    """The world-sharded fleet's ``run_stream`` under per-world budgets:
+    each ``on_quiesce`` call (world, its steps, the state's world count)
+    and each ``on_chunk`` call's state world count."""
+    eng = _verified_engine("fleet", "off", dev)
+    seen, chunks = [], []
+    fin, tr = eng.run_stream(
+        np.array(STREAM_BUDGETS), chunk=VERIFY_CHUNK,
+        on_quiesce=lambda b, st: seen.append(
+            (b, int(st.steps[b]), int(st.wake.shape[0]))),
+        on_chunk=lambda st, trs: chunks.append(int(st.wake.shape[0])))
+    return {"traces": tr, "state": _gen(eng, fin), "seen": seen,
+            "chunks": chunks, "supersteps": eng.last_run_stats["supersteps"]}
+
+
+def case_checkpoint(dev):
+    """A checkpoint as the command line takes one on the ranks: the node-
+    and the world-sharded gossip run 24 supersteps, rank 0 writes the
+    gathered state (``save_state``, the one-device layout), every rank
+    loads it into ``global_init_state()``, keeps its shard
+    (``scatter_state``) and runs 24 more, beside the uninterrupted 48.
+    The files stay in a fresh directory for the test to read."""
+    where = [tempfile.mkdtemp(prefix="tw-sharded-ck-")
+             if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(where, src=0)
+    out = {"dir": where[0]}
+    for name in ("general", "fleet"):
+        eng = _verified_engine(name, "off", dev)
+        path = os.path.join(where[0], f"{name}.npz")
+        mid = eng.gather_state(eng.run(24)[0])
+        if dist.get_rank() == 0:
+            save_state(path, mid, meta={"scenario": eng.scenario.name},
+                       scenario=eng.scenario)
+        dist.barrier()
+        st, _ = load_state(path, eng.global_init_state(),
+                           scenario=eng.scenario)
+        fin, tr = eng.run(24, state=eng.scatter_state(st))
+        full, ftr = eng.run(48)
+        out[name] = dict(path=path, mid=state_to_numpy(mid, eng.scenario),
+                         resumed=_gen(eng, fin), trace=tr,
+                         full=_gen(eng, full), full_trace=ftr)
     return out
 
 

@@ -36,7 +36,10 @@ Where the port differs from the reference's CLI (each loud):
   ``torch.profiler`` session (obs/profiler.py).
 - ``--devices N`` with a sharded engine starts N gloo ranks
   (parallel/launch.py ``spawn``; on the card they share it); rank 0
-  prints the summary. On the CPU ``--devices`` is required.
+  prints the summary. On the CPU ``--devices`` is required. A sharded
+  ``--save`` writes the gathered state from rank 0, in the one-device
+  layout and meta; ``--resume`` loads a checkpoint of either on every
+  rank and keeps the rank's shard.
 - The telemetry block's ``compiles`` is 0 (the port compiles nothing per
   run).
 """
@@ -342,8 +345,8 @@ def build_engine(args, sc, link, device, mesh=None):
                                     telemetry=telemetry, verify=verify,
                                     **common)
         except ValueError as e:
-            # the sharded engines' refusals (verify on the node-sharded
-            # engines, a speculation misconfiguration) name the
+            # the sharded engines' refusals (a speculation
+            # misconfiguration, an indivisible mesh) name the
             # unsupported knob: a clean exit
             raise SystemExit(str(e)) from None
     raise SystemExit(f"unknown engine {args.engine!r}")
@@ -947,12 +950,6 @@ def check_args(args) -> None:
         raise SystemExit(
             f"--verify-cadence must be >= 1, got {args.verify_cadence}")
     if args.engine in SHARDED_ENGINES:
-        if args.save or args.resume:
-            raise SystemExit(
-                "--save/--resume of a sharded state is not ported: "
-                "each rank holds its shard (gather_state first) — "
-                "checkpoint the 1-device run, bit-identical by the "
-                "sharding law")
         if args.devices is None and args.device == "cpu":
             raise SystemExit(
                 "--devices N is required with --device cpu: the "
@@ -1048,7 +1045,13 @@ def rank_main(device, argv, n):
     from .parallel.mesh import make_mesh
     args = run_parser().parse_args(argv)
     axis = "worlds" if args.engine == "sharded-batched" else "nodes"
-    return execute(args, device, None, mesh=make_mesh(n, axis),
+    flip_inj = None
+    if args.inject_flip:
+        # every rank holds one: the flip lands on the rank that owns its
+        # element, and every rank reports it
+        from .integrity import FlipInjector
+        flip_inj = FlipInjector(args.inject_flip)
+    return execute(args, device, flip_inj, mesh=make_mesh(n, axis),
                    rank=dist.get_rank())
 
 
@@ -1086,9 +1089,13 @@ def execute(args, device, flip_inj, mesh=None, rank=0,
         state = None
         if args.resume:
             from .utils.checkpoint import load_state
-            state, ck_meta = load_state(args.resume, engine.init_state(),
-                                        expect_meta={"scenario": sc.name},
-                                        scenario=sc)
+            # a sharded engine loads the global state on every rank and
+            # keeps its shard: a checkpoint moves freely between one
+            # device, N ranks and the reference
+            state, ck_meta = load_state(
+                args.resume, engine.init_state() if mesh is None
+                else engine.global_init_state(),
+                expect_meta={"scenario": sc.name}, scenario=sc)
             if ck_meta.get("faults") != args.faults:
                 # the restart ledger (and every masked decision so
                 # far) is schedule-specific: resuming under a
@@ -1110,7 +1117,9 @@ def execute(args, device, flip_inj, mesh=None, rank=0,
                 # the RNG stream is part of the state: resuming under a
                 # different seed would silently diverge from both runs
                 args.seed = ck_meta["seed"]
-                engine = build_engine(args, sc, link, device)
+                engine = build_engine(args, sc, link, device, mesh=mesh)
+            if mesh is not None:
+                state = engine.scatter_state(state)
         if args.metrics_out and files:
             # attach BEFORE the run: chunked drivers flush every chunk's
             # `supersteps` lines and the controller's `decision` lines
@@ -1158,7 +1167,11 @@ def execute(args, device, flip_inj, mesh=None, rank=0,
                 import torch
                 torch.cuda.synchronize()
             clock.lap("run_s")
-        if args.save:
+        if mesh is not None and (batched is not None or args.save):
+            # the global state on every rank (a collective: every rank
+            # gathers), rank 0 writing the checkpoint
+            final = engine.gather_state(final)
+        if args.save and files:
             from .utils.checkpoint import save_state
             meta = {"scenario": sc.name, "seed": args.seed}
             if batched is not None:
@@ -1166,8 +1179,6 @@ def execute(args, device, flip_inj, mesh=None, rank=0,
             if args.faults:
                 meta["faults"] = args.faults
             save_state(args.save, final, meta=meta, scenario=sc)
-        if mesh is not None and batched is not None:
-            final = engine.gather_state(final)
         if batched is not None:
             # per-world counters, route_drop / fault_dropped per WORLD
             # (the never-silent contract on the world axis)

@@ -45,8 +45,13 @@
 // unrolled loops over a batch's units (a loop inside each unit measured
 // 0.9 us slower). The staging takes 8 KB of shared memory a CTA per
 // staged word (woff and P payload words), so an H100 (227 KB a CTA)
-// takes P up to 27; a wider payload's launch is refused, and the wrapper
-// raises.
+// stages P up to 27 (tw_fire_compact_narrow_max says how many words the
+// device's shared memory holds).
+// A wider payload takes the second instantiation (kWide): it stages woff
+// alone and reads the payload words from global memory in step 3, a
+// memory latency after the grid sync, the cost measured above. The
+// narrow instantiation (kWide false) is the code above, unchanged. The
+// wrapper picks one from P; nothing retries a refused launch.
 // Every load of a step is issued before the first that waits on it, and
 // no unit index is divided per unit (UnitPos steps through them). Nothing
 // is atomic, so the result is deterministic. The scratch is the caller's,
@@ -128,7 +133,7 @@ __device__ __forceinline__ int warp_total(int v) {
   return v;
 }
 
-template <bool kFleet>
+template <bool kFleet, bool kWide>
 __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
     const int32_t* __restrict__ pdst, const int32_t* __restrict__ woff_n,
     const int32_t* __restrict__ payload, int n, int M, int P, int RW, int S,
@@ -138,6 +143,7 @@ __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
     int32_t* __restrict__ out_pay, int32_t* __restrict__ drops) {
   __shared__ int32_t red[kWarps], red2[kWarps];
   // staged words [1 + P][kBatch][kT]: woff, then the payload words
+  // (kWide: [1][kBatch][kT], woff alone)
   extern __shared__ int32_t s_w[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, b = blockIdx.x;
@@ -184,6 +190,7 @@ __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
       if (wo != nullptr) copy_async(&s_w[i * kT + tid], wo + node);
       src[i] = pl + static_cast<int64_t>(at.slot) * P * n + node;
     }
+    if constexpr (kWide) return;  // the payload is read in step 3
     if (!all) return;
     for (int p = 0; p < P; ++p)
 #pragma unroll
@@ -297,6 +304,8 @@ __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
                     : 0;
       copy_wait();
       int at_pos[kBatch];  // where a lane's message goes, or -1
+      // kWide: a lane's payload word 0 in global memory
+      [[maybe_unused]] const int32_t* psrc[kBatch];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i, at.next(M, RW)) {
         int x = wv[i];  // inclusive scan over the unit's warp counts
@@ -319,15 +328,26 @@ __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
           ow[pos] = wo != nullptr ? s_w[i * kT + tid] : 0;
           osm[pos] = node * M + slot;
           at_pos[i] = pos;
+          if constexpr (kWide)
+            psrc[i] = pl + static_cast<int64_t>(slot) * P * n + node;
         }
         base += unit_total;
       }
-      for (int p = 0; p < P; ++p)
+      if constexpr (kWide) {
+        for (int p = 0; p < P; ++p)
 #pragma unroll
-        for (int i = 0; i < kBatch; ++i)
-          if (at_pos[i] >= 0)
-            op[static_cast<int64_t>(p) * S + at_pos[i]] =
-                s_w[((1 + p) * kBatch + i) * kT + tid];
+          for (int i = 0; i < kBatch; ++i)
+            if (at_pos[i] >= 0)
+              op[static_cast<int64_t>(p) * S + at_pos[i]] =
+                  __ldg(psrc[i] + static_cast<int64_t>(p) * n);
+      } else {
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i)
+            if (at_pos[i] >= 0)
+              op[static_cast<int64_t>(p) * S + at_pos[i]] =
+                  s_w[((1 + p) * kBatch + i) * kT + tid];
+      }
     };
     if (first) {
       scatter(0, kd);
@@ -361,37 +381,42 @@ __global__ void __launch_bounds__(kT, kMinBlocks) fire_compact_kernel(
 }
 
 // Dynamic shared memory of a CTA: the staged words.
-int staged_bytes(int P) { return (1 + P) * kBatch * kT * 4; }
+template <bool kWide>
+int staged_bytes(int P) { return (1 + (kWide ? 0 : P)) * kBatch * kT * 4; }
 
-// The most CTAs of fire_compact_kernel<kFleet> the device holds at once
-// with P payload words staged: queried once per device and P (the cache
-// holds every P whose staging fits a CTA).
-template <bool kFleet>
+// The most CTAs of fire_compact_kernel<kFleet, kWide> the device holds at
+// once with its words staged: queried once per device and P (the narrow
+// cache holds every P whose staging fits a CTA; the wide build stages the
+// same bytes at every P).
+template <bool kFleet, bool kWide>
 cudaError_t resident_ctas(int P, int* out) {
   constexpr int kCachedP = 32;
   static int cache[kMaxDevices][kCachedP] = {};
+  const int key = kWide ? 0 : P;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const bool cached = dev < kMaxDevices && P < kCachedP;
-  if (cached && cache[dev][P] > 0) {
-    *out = cache[dev][P];
+  const bool cached = dev < kMaxDevices && key < kCachedP;
+  if (cached && cache[dev][key] > 0) {
+    *out = cache[dev][key];
     return cudaSuccess;
   }
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fire_compact_kernel<kFleet>, kT, staged_bytes(P));
+      &per_sm, fire_compact_kernel<kFleet, kWide>, kT,
+      staged_bytes<kWide>(P));
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (per_sm * sms < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if (cached) cache[dev][P] = per_sm * sms;
+  if (cached) cache[dev][key] = per_sm * sms;
   *out = per_sm * sms;
   return cudaSuccess;
 }
 
-// One cooperative launch of fire_compact_kernel<kFleet> over B worlds.
-template <bool kFleet>
+// One cooperative launch of fire_compact_kernel<kFleet, kWide> over B
+// worlds.
+template <bool kFleet, bool kWide>
 cudaError_t launch(const int32_t* pdst, const int32_t* woff_n,
                    const int32_t* payload, int n, int M, int P, int S, int B,
                    int32_t* scratch, int32_t* out_dst, int32_t* out_woff,
@@ -400,16 +425,16 @@ cudaError_t launch(const int32_t* pdst, const int32_t* woff_n,
   const int NR = (n + kLanes - 1) / kLanes;
   int RW = NR % 8 == 0 ? 8 : 1;
   int Q = NR * M * kUnitsPerSeg;
-  const int smem = staged_bytes(P);
+  const int smem = staged_bytes<kWide>(P);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {  // above the default cap: opt in, or fail here
-    err = cudaFuncSetAttribute(fire_compact_kernel<kFleet>,
+    err = cudaFuncSetAttribute(fire_compact_kernel<kFleet, kWide>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
   }
   int ctas = 0;
-  err = resident_ctas<kFleet>(P, &ctas);
+  err = resident_ctas<kFleet, kWide>(P, &ctas);
   if (err != cudaSuccess) return err;
   // Gw jobs (contiguous unit ranges) a world, one job a CTA when the
   // card holds B * Gw CTAs; past that (B above the resident CTAs) a
@@ -425,8 +450,23 @@ cudaError_t launch(const int32_t* pdst, const int32_t* woff_n,
                   &Gw, &jobs, &wcnt, &ctatot, &out_dst, &out_woff,
                   &out_smrank, &out_pay, &drops};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&fire_compact_kernel<kFleet>), grid, kT,
-      args, smem, stream);
+      reinterpret_cast<const void*>(&fire_compact_kernel<kFleet, kWide>),
+      grid, kT, args, smem, stream);
+}
+
+template <bool kWide>
+cudaError_t launch_any(const int32_t* pdst, const int32_t* woff_n,
+                       const int32_t* payload, int n, int M, int P, int S,
+                       int B, int32_t* scratch, int32_t* out_dst,
+                       int32_t* out_woff, int32_t* out_smrank,
+                       int32_t* out_pay, int32_t* drops,
+                       cudaStream_t stream) {
+  return B == 1 ? launch<false, kWide>(pdst, woff_n, payload, n, M, P, S, B,
+                                       scratch, out_dst, out_woff,
+                                       out_smrank, out_pay, drops, stream)
+                : launch<true, kWide>(pdst, woff_n, payload, n, M, P, S, B,
+                                      scratch, out_dst, out_woff, out_smrank,
+                                      out_pay, drops, stream);
 }
 
 }  // namespace
@@ -435,25 +475,45 @@ extern "C" const char* tw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The widest payload the narrow build stages on the current device: the
+// words of a CTA's opt-in shared memory, less the kernel's static shared
+// memory, at 8 KB a word, less woff's. Returns the CUDA error (0 = ok).
+extern "C" int tw_fire_compact_narrow_max(int* out) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fire_compact_kernel<true, false>);
+  if (err != cudaSuccess) return err;
+  *out = (optin - static_cast<int>(attr.sharedSizeBytes)) /
+             (kBatch * kT * 4) -
+         1;
+  return cudaSuccess;
+}
+
 // B worlds, each laid out as one solo call, world-major: pdst int32[B,
 // M, n], woff_n int32[B, n] or null (window 1), payload int32[B, M, P,
 // n]; scratch int32[B * units * 9] with units = ceil(n / 1024) * M * 4;
 // outputs dst, woff, smrank int32[B, S], pay int32[B, P, S], drops
 // int32[B]. One cooperative launch for every world; B = 1 takes the solo
-// instantiation, whose world offsets are constants. Returns the launch's
-// CUDA error (0 = launched).
+// instantiation, whose world offsets are constants; `wide` (nonzero)
+// takes the build that stages woff alone. Returns the launch's CUDA error
+// (0 = launched).
 extern "C" int tw_fire_compact(const int32_t* pdst, const int32_t* woff_n,
                                const int32_t* payload, int n, int M, int P,
-                               int S, int B, int32_t* scratch,
+                               int S, int B, int wide, int32_t* scratch,
                                int32_t* out_dst, int32_t* out_woff,
                                int32_t* out_smrank, int32_t* out_pay,
                                int32_t* drops, void* stream) {
   if (B < 1) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  return B == 1 ? launch<false>(pdst, woff_n, payload, n, M, P, S, B,
-                                scratch, out_dst, out_woff, out_smrank,
-                                out_pay, drops, st)
-                : launch<true>(pdst, woff_n, payload, n, M, P, S, B,
-                               scratch, out_dst, out_woff, out_smrank,
-                               out_pay, drops, st);
+  return wide ? launch_any<true>(pdst, woff_n, payload, n, M, P, S, B,
+                                 scratch, out_dst, out_woff, out_smrank,
+                                 out_pay, drops, st)
+              : launch_any<false>(pdst, woff_n, payload, n, M, P, S, B,
+                                  scratch, out_dst, out_woff, out_smrank,
+                                  out_pay, drops, st);
 }

@@ -101,8 +101,8 @@ FIELD_MEANING = {
 }
 
 
-def make_guard_row(t, prev_time, counters, wake, never, rel_planes,
-                   prev_restart, new_restart,
+def make_guard_row(comm, t, prev_time, counters, wake, never,
+                   rel_planes, prev_restart, new_restart,
                    faulted: bool) -> IntegrityRow:
     """One superstep's :class:`IntegrityRow`, every field an int32
     ``[B]`` tensor (one per world), from values the superstep already
@@ -112,7 +112,10 @@ def make_guard_row(t, prev_time, counters, wake, never, rel_planes,
     ``[B, N]``, ``rel_planes`` its epoch-relative int32 mailbox/queue
     planes ``[B, ...]``, the restart ledgers ``[B, C]``. ``faulted``
     disables the two checks that crash deferral legitimately violates
-    (module docstring)."""
+    (module docstring). The per-node fields are summed over ``comm``
+    (the engine's node comm: the identity on one device; a node-sharded
+    engine's ranks then all hold the global row), both in one
+    reduction."""
     import torch
     B = t.shape[0]
     neg = torch.zeros((B,), dtype=torch.int32, device=t.device)
@@ -126,6 +129,7 @@ def make_guard_row(t, prev_time, counters, wake, never, rel_planes,
         for plane in rel_planes:
             mb_neg = mb_neg + (plane < 0).reshape(B, -1).sum(
                 dim=1, dtype=torch.int32)
+        wake_past, mb_neg = comm.all_sum((wake_past, mb_neg))
     return IntegrityRow(
         time_regress=(t < prev_time).to(torch.int32),
         neg_counter=neg,
@@ -183,14 +187,16 @@ def first_guard_violation(integ, valid, t_us,
                                         h["field"]), h["world"]))
 
 
-def final_state_guard(state, who: str) -> None:
+def final_state_guard(state, who: str, comm=None) -> None:
     """The traceless driver's (``run_quiet``) guard: no per-superstep
     rows exist there, so only state-local invariants are checkable —
     every cumulative integer scalar (and every integer leaf of at most
     one axis) must be non-negative, checked in one host read. This keeps
     a ``verify != "off"`` engine from ever running *silently*
     unverified through the quiet path; per-superstep localization and
-    the full invariant set need the traced drivers."""
+    the full invariant set need the traced drivers. On a sharded state
+    ``comm`` (the sharded axis' comm) takes each minimum over the ranks,
+    so that every rank judges the global state alike."""
     import torch
     names, mins = [], []
     for name in state._fields:
@@ -207,7 +213,10 @@ def final_state_guard(state, who: str) -> None:
             mins.append(v.min().to(torch.int64))
     if not mins:
         return
-    lows = torch.stack(mins).cpu().tolist()
+    lows = torch.stack(mins)
+    if comm is not None:
+        lows = comm.all_min(lows)
+    lows = lows.cpu().tolist()
     for name, low in zip(names, lows):
         if low < 0:
             raise IntegrityViolation(

@@ -15,6 +15,16 @@ order. A scenario's ``u32_states`` (uint32 in the reference, int64 words
 in the port) count as one word per element, as in the reference. Cost:
 one elementwise pass over the state, about 40 int64 ops per word.
 
+A sharded state digests to the word its gathered state would, with
+no state gathered (``shards``: the sharded engine, whose ``leaf_axis``
+names each leaf's sharded axis and whose ``shard_comm`` spans the
+ranks). On a node-sharded state each rank sums its own elements' mixed
+words under their global flat indices (a replicated leaf on rank 0
+alone), the per-word sums of every rank add up in one packed
+``all_sum`` masked to 32 bits, and every rank folds the same sums; a
+world-sharded fleet digests its own worlds and gathers the ``[B]``
+vector.
+
 The host side chains digests as the reference does: ``chain' =
 sha256(chain || digest)``, hex in, hex out, so a chunked and resumed run
 lands on the chain one uninterrupted run computes.
@@ -94,45 +104,92 @@ def _leaf_words(x, word: bool, B: int):
     return (f.contiguous().view(torch.uint8).to(torch.int64),)
 
 
-def _digest(state, u32=(), batched: bool = False):
-    """``[B]`` int64 digests (values in ``[0, 2**32)``); B = 1 solo."""
+def _global_index(L: int, x, axis, shards, dev):
+    """The global flat element index of each of a rank's ``L`` words of
+    leaf ``x`` sharded on ``axis`` (its shard the rank's slice of that
+    axis; a leaf widened through its bytes has several words an
+    element, innermost)."""
+    import torch
+    c = shards.shard_comm
+    nl = x.shape[axis]
+    post = (L // x.numel()) * int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+    j = torch.arange(L, dtype=torch.int64, device=dev)
+    block = nl * post
+    return (j // block) * (c.n_shards * block) + c.rank * block + j % block
+
+
+def _word_sums(state, u32, batched: bool, shards=None):
+    """Each non-empty word vector's wrapping sum of its mixed words, an
+    int64 ``[B]`` tensor (values in ``[0, 2**32)``), in the fold order;
+    ``shards`` a node-sharded engine (module docstring): this rank's
+    elements under their global indices."""
     import torch
     from ..trace.hashing import mix32
     words = {f"states.{k}" for k in u32}
     leaves = state_leaves(state)
     B = leaves[0][1].shape[0] if batched else 1
     dev = leaves[0][1].device
-    h = torch.full((B,), _SEED, dtype=torch.int64, device=dev)
+    sums = []
     for i, (name, leaf) in enumerate(leaves):
         x = leaf if batched else leaf.unsqueeze(0)
+        axis = None if shards is None else shards.leaf_axis(name, leaf)
         for j, w in enumerate(_leaf_words(x, name in words, B)):
             L = w.shape[1]
             if L == 0:
                 continue
-            idx = torch.arange(L, dtype=torch.int64, device=dev)
+            if axis is not None:
+                idx = _global_index(L, leaf, axis, shards, dev)
+            else:
+                idx = torch.arange(L, dtype=torch.int64, device=dev)
             # the leaf tag and word index fold on the host (mix32)
             lh = mix32(0xD1D0 + i, j, idx, w).sum(dim=1) & _MASK
-            h = mix32(h, lh)
+            if shards is not None and axis is None \
+                    and shards.shard_comm.rank != 0:
+                lh = torch.zeros_like(lh)     # replicated: rank 0's alone
+            sums.append(lh)
+    return sums
+
+
+def _digest(state, u32=(), batched: bool = False, shards=None):
+    """``[B]`` int64 digests (values in ``[0, 2**32)``); B = 1 solo.
+    ``shards`` is a sharded engine (module docstring) or None."""
+    import torch
+    from ..trace.hashing import mix32
+    if shards is not None and shards.worlds_local is not None:
+        # a world-sharded fleet: this rank's worlds, gathered
+        return shards.shard_comm.all_gather(_digest(state, u32, batched), 0)
+    sums = _word_sums(state, u32, batched, shards)
+    if shards is not None and sums:
+        sums = shards.shard_comm.all_sum(tuple(sums),
+                                         u32=tuple(range(len(sums))))
+    leaves = state_leaves(state)
+    B = leaves[0][1].shape[0] if batched else 1
+    h = torch.full((B,), _SEED, dtype=torch.int64,
+                   device=leaves[0][1].device)
+    for lh in sums:
+        h = mix32(h, lh)
     return h
 
 
-def tree_digest(state, u32=()):
+def tree_digest(state, u32=(), shards=None):
     """One uint32 digest of a whole (solo) state, as an int64 0-d tensor
-    on its device; ``u32`` names the scenario's ``u32_states``."""
-    return _digest(state, u32)[0]
+    on its device; ``u32`` names the scenario's ``u32_states``, ``shards``
+    the sharded engine of a node-sharded state (module docstring)."""
+    return _digest(state, u32, shards=shards)[0]
 
 
-def fleet_digest(state, u32=()):
+def fleet_digest(state, u32=(), shards=None):
     """Per-world digests of a fleet's state (a leading world axis on
-    every leaf): int64 ``[B]``."""
-    return _digest(state, u32, batched=True)
+    every leaf): int64 ``[B]``; ``shards`` the world-sharded engine of a
+    rank's worlds (every world's digest on every rank)."""
+    return _digest(state, u32, batched=True, shards=shards)
 
 
-def host_digests(state, batch=None, u32=()) -> np.ndarray:
+def host_digests(state, batch=None, u32=(), shards=None) -> np.ndarray:
     """The host-side view every verified driver uses: uint32[1] for a
     solo state, uint32[B] for a fleet's (``batch`` is the engine's
-    BatchSpec or None)."""
-    d = _digest(state, u32, batched=batch is not None)
+    BatchSpec or None; ``shards`` the sharded engine or None)."""
+    d = _digest(state, u32, batched=batch is not None, shards=shards)
     return d.cpu().numpy().astype(np.uint32)
 
 

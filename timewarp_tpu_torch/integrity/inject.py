@@ -73,7 +73,8 @@ def parse_flip(part: str) -> FlipSpec:
             f"{INJECT_GRAMMAR}") from None
 
 
-def apply_flip(state, seed: int, plane: Optional[str] = None, u32=()):
+def apply_flip(state, seed: int, plane: Optional[str] = None, u32=(),
+               shards=None):
     """Flip one seeded bit (or invert one seeded bool) in one leaf of
     ``state``; returns ``(corrupted_state, description)``. Pure: the input
     state is untouched (the leaf is copied before the flip), so a
@@ -81,7 +82,12 @@ def apply_flip(state, seed: int, plane: Optional[str] = None, u32=()):
     and ordered as the reference's (``mb_rel``, ``states.cnt``, …;
     digest.py ``state_leaves``); ``u32`` names the scenario's
     ``u32_states``, whose int64 words flip as the reference's uint32
-    leaves do."""
+    leaves do. On a sharded state (``shards``: the sharded engine, whose
+    ``leaf_axis`` names each leaf's sharded axis) the spec picks the leaf,
+    element and bit it picks on the gathered state: the rank that owns
+    the element flips it (every rank, for a replicated leaf), the others
+    return their state as it was, and every rank returns the same
+    description."""
     import torch
     from .digest import state_leaves
     leaves = state_leaves(state)
@@ -102,19 +108,38 @@ def apply_flip(state, seed: int, plane: Optional[str] = None, u32=()):
     else:
         li = eligible[int(rng.integers(len(eligible)))]
     name, leaf = leaves[li]
+    shape = tuple(leaf.shape)
+    gshape, axis = list(shape), None
+    if shards is not None:
+        axis = shards.leaf_axis(name, leaf)
+        if axis is not None:
+            gshape[axis] *= shards.shard_comm.n_shards
+    ei = int(rng.integers(int(np.prod(gshape, dtype=np.int64))))
+    local = ei
+    if axis is not None:
+        at = list(np.unravel_index(ei, gshape))
+        owner, at[axis] = divmod(int(at[axis]), shape[axis])
+        if owner != shards.shard_comm.rank:
+            local = None
+        else:
+            local = int(np.ravel_multi_index(at, shape))
+    if leaf.dtype == torch.bool:
+        desc = f"{name}[{ei}] bool inverted (seed {seed})"
+    else:
+        size = 4 if name in words else leaf.element_size()
+        bit = int(rng.integers(size * 8))
+        desc = f"{name}[{ei}] bit {bit} flipped (seed {seed})"
+    if local is None:
+        return state, desc                 # another rank owns the element
     arr = leaf.cpu().numpy().copy()             # a copy — pure
     if name in words:
         arr = arr.astype(np.uint32)
     flat = arr.reshape(-1)
-    ei = int(rng.integers(flat.size))
     if arr.dtype == bool:
-        flat[ei] = not flat[ei]
-        desc = f"{name}[{ei}] bool inverted (seed {seed})"
+        flat[local] = not flat[local]
     else:
-        view = flat[ei:ei + 1].view(np.uint8)
-        bit = int(rng.integers(view.size * 8))
+        view = flat[local:local + 1].view(np.uint8)
         view[bit // 8] ^= np.uint8(1 << (bit % 8))
-        desc = f"{name}[{ei}] bit {bit} flipped (seed {seed})"
     if name in words:
         arr = arr.astype(np.int64)
     new = torch.from_numpy(arr).to(leaf.device)
@@ -139,10 +164,12 @@ class FlipInjector:
         self.fired = False
         self.desc: Optional[str] = None
 
-    def __call__(self, chunk_idx: int, state):
+    def __call__(self, chunk_idx: int, state, shards=None):
+        """``shards``: a sharded engine's, for its rank's state
+        (:func:`apply_flip`)."""
         if self.fired or chunk_idx != self.spec.chunk - 1:
             return None
         self.fired = True
         new, self.desc = apply_flip(state, self.spec.seed,
-                                    self.spec.plane, self.u32)
+                                    self.spec.plane, self.u32, shards)
         return new

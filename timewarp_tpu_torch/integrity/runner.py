@@ -26,6 +26,12 @@ chunk the engine's ``verify`` mode is enforced —
    deterministic error, which both executions repeat, since no compiler
    stands between the two runs.
 
+On a sharded engine every check is global: the guard rows are summed
+over the ranks, the digests are the gathered state's (digest.py), a flip
+lands on the rank that owns its element (inject.py), and every rank
+takes the same decision from the same numbers, so the ranks roll back
+together and issue their collectives in one order.
+
 On any detection the driver **rolls back deterministically**: restore
 the last verified snapshot (state and trace-row high-water marks),
 discard the tainted rows, and re-run; the recovered run is bit-identical
@@ -74,13 +80,34 @@ class VerifiedRunMixin:
         if hit is not None:
             raise guard_violation_error(hit, type(self).__name__)
 
+    # -- the sharded engines' hooks ------------------------------------------
+
+    def _sharding(self):
+        """The sharded engine whose rank holds this engine's states (its
+        ``leaf_axis`` and ``shard_comm``), or None on one device."""
+        return None
+
+    def _callback_state(self, state):
+        """The state a driver's callback sees: ``state`` on one device,
+        the gathered global state on a sharded engine."""
+        return state
+
+    def _inject(self, inject, chunk_idx: int, state):
+        """Call the corruption hook on this rank's state: a sharded
+        engine's hook is called with ``shards=`` the engine."""
+        sh = self._sharding()
+        if sh is None:
+            return inject(chunk_idx, state)
+        return inject(chunk_idx, state, shards=sh)
+
     # -- digests ---------------------------------------------------------
 
     def _state_digests(self, state) -> np.ndarray:
-        """uint32[1] (solo) / uint32[B] (batched) digest view."""
+        """uint32[1] (solo) / uint32[B] (batched) digest view, of the
+        global state on a sharded engine."""
         from .digest import host_digests
         return host_digests(state, getattr(self, "batch", None),
-                            self.scenario.u32_states)
+                            self.scenario.u32_states, self._sharding())
 
     def _shadow_rerun(self, budget, pre_state):
         """Re-execute one chunk from ``pre_state`` through the traced
@@ -115,14 +142,16 @@ class VerifiedRunMixin:
         batched engines a per-world trace list — exactly like
         ``run``. ``inject`` is the deterministic-corruption test hook
         (integrity/inject.py ``FlipInjector``): called as
-        ``inject(chunk_idx, state)`` between chunks, it may return a
-        corrupted replacement state. ``on_quiesce(b, state)`` fires
+        ``inject(chunk_idx, state)`` between chunks (on a sharded engine
+        with ``shards=`` the engine, on the rank's state), it may return
+        a corrupted replacement state. ``on_quiesce(b, state)`` fires
         exactly once per world (``b=0`` solo), the moment the world
         has quiesced or exhausted its budget at a VERIFIED boundary —
         evaluated on committed states only and before the injection
         hook, so a rolled-back chunk can never fire (or double-fire)
         it: the rollback × streaming contract
-        (tests/test_zzzzzzspec.py). The integrity record lands on
+        (tests/test_zzzzzzspec.py); a sharded engine hands it the
+        gathered state. The integrity record lands on
         ``last_run_integrity`` (and the digest chain on
         ``last_run_stats['digest_chain']``)."""
         from ..interp.torch_engine.common import stats_merge
@@ -144,7 +173,7 @@ class VerifiedRunMixin:
         if np.min(budgets) < 0:
             raise ValueError("step budgets must be >= 0")
         st = state if state is not None else self.init_state()
-        start = np.asarray(_get(st.steps), np.int64)
+        start = self._host_worlds(st.steps).astype(np.int64)
         rows = [[] for _ in range(nworld)]
         chunk_stats, frame_chunks, flight_chunks = [], [], []
         self.last_run_telemetry = None
@@ -242,6 +271,8 @@ class VerifiedRunMixin:
                         "world": bad if batch is not None else None,
                         "expected": want_h, "got": got_h})
                     continue
+            seen = self._callback_state(st) \
+                if newly.any() and on_quiesce is not None else None
             for b in np.nonzero(newly)[0]:
                 # `st` here is the last VERIFIED state (rollback
                 # restores it before the loop re-enters, and the
@@ -251,11 +282,11 @@ class VerifiedRunMixin:
                 # across rollbacks of later chunks
                 emitted[int(b)] = True
                 if on_quiesce is not None:
-                    on_quiesce(int(b), st)
+                    on_quiesce(int(b), seen)
             if not np.any(active):
                 break
             if inject is not None:
-                mut = inject(ci, st)
+                mut = self._inject(inject, ci, st)
                 if mut is not None:
                     st = mut
             due = (ci % cadence == 0)
@@ -393,6 +424,3 @@ class VerifiedRunMixin:
             return st, [SuperstepTrace.from_rows(r) for r in rows]
         return st, SuperstepTrace.from_rows(rows[0])
 
-
-def _get(x):
-    return x.cpu().numpy()

@@ -38,7 +38,7 @@ __all__ = ["LAUNCHES", "reset_launches", "fire_compact",
            "fire_compact_plain", "mailbox_insert", "mailbox_insert_plain",
            "bucket_bounds", "InsertStage", "LANES", "sample_nodrop",
            "link_sample", "flight_times",
-           "compact_scratch_words",
+           "compact_scratch_words", "compact_narrow_max", "COMPACT_MAX_P",
            "LoweredLink", "sample_insert", "sample_insert_plain"]
 
 #: the compaction order's segment width (one CTA per segment on the card)
@@ -184,8 +184,26 @@ def fire_compact_plain(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     return out_dst, out_woff, out_smrank, out_pay, drops
 
 
-_COMPACT_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                 _P)
+_COMPACT_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                 _P, _P)
+
+#: the widest payload K2 takes: the widest the reference's fire-compaction
+#: kernel admits at any shape (its 12 MiB VMEM budget, pallas_insert.py,
+#: at S = 1024 entries, M = 1 and window 1: 4096·(5 + 3P) bytes)
+COMPACT_MAX_P = 1022
+
+
+@functools.cache
+def compact_narrow_max(index: int) -> int:
+    """The widest payload K2's narrow build stages in shared memory on
+    CUDA device ``index`` (27 words on an H100); a wider one takes the
+    wide build, which stages the send offsets alone."""
+    fn = _kernel("fire_compact", "tw_fire_compact_narrow_max", (_P,))
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(ctypes.addressof(out))
+    _check_launch("fire_compact", rc)
+    return out.value
 
 
 def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
@@ -195,9 +213,11 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     :func:`fire_compact_plain` for the function). CPU tensors take the
     plain version; CUDA tensors launch ``csrc/fire_compact.cu``: one
     cooperative launch of a grid that is resident all at once, for every
-    world, with every payload word staged in shared memory (8 KB a CTA
-    per word), so a refused launch — a payload too wide for a CTA's
-    shared memory among them — raises."""
+    world. A payload of up to :func:`compact_narrow_max` words takes the
+    narrow build, every payload word staged in shared memory (8 KB a CTA
+    per word); a wider one, up to :data:`COMPACT_MAX_P`, the wide build,
+    which reads the payload from global memory; a wider one still, or a
+    refused launch, raises."""
     if traced_ops.is_fake(pdst):
         return traced_ops.fire_compact(pdst, woff_n, payload, S)
     if not _on_card(pdst, "fire_compact"):
@@ -209,6 +229,13 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     B, M, n = pdst.shape
     P = payload.shape[2]
     dev = pdst.device
+    if P > COMPACT_MAX_P:
+        raise ValueError(
+            f"fire_compact: payload of P={P} words; K2 takes P up to "
+            f"{COMPACT_MAX_P}, the widest the reference's fire-compaction "
+            "kernel admits at any shape")
+    wide = int(P > compact_narrow_max(dev.index if dev.index is not None
+                                      else torch.cuda.current_device()))
     _require("pdst", pdst, (B, M, n), dev)
     _require("payload", payload, (B, M, P, n), dev)
     if woff_n is not None:
@@ -224,7 +251,7 @@ def fire_compact(pdst: torch.Tensor, woff_n: Optional[torch.Tensor],
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(pdst.data_ptr(), _ptr(woff_n), payload.data_ptr(), n, M, P,
-                S, B, scratch.data_ptr(), out_dst.data_ptr(),
+                S, B, wide, scratch.data_ptr(), out_dst.data_ptr(),
                 out_woff.data_ptr(), out_smrank.data_ptr(),
                 out_pay.data_ptr(), drops.data_ptr(), stream)
     _check_launch("fire_compact", rc)

@@ -613,7 +613,7 @@ class EdgeEngine(PlanesMixin):
             from ...integrity.checks import make_guard_row
             m = new_st
             integ = torch.stack(make_guard_row(
-                one, st.time.view(1),
+                self.comm, one, st.time.view(1),
                 tuple(x.view(1) for x in (
                     m.overflow, m.unrouted, m.misrouted, m.bad_delay,
                     m.fault_dropped, m.delivered, m.steps, m.time)),

@@ -1203,7 +1203,7 @@ class TorchEngine(PlanesMixin):
             from ...integrity.checks import make_guard_row
             n = new_st
             integ = torch.stack(make_guard_row(
-                t, st.time,
+                self.comm, t, st.time,
                 (n.overflow, n.bad_dst, n.bad_delay, n.short_delay,
                  n.route_drop, n.fault_dropped, n.delivered, n.steps,
                  n.time, n.ev_count),
@@ -1419,7 +1419,9 @@ class TorchEngine(PlanesMixin):
         own remaining budget — bit-identical to one uninterrupted run.
         After every chunk ``on_chunk(state, chunk_traces)`` fires;
         ``on_quiesce(b, state)`` fires once per world, the moment it has
-        quiesced or used its budget. Returns ``(final_state,
+        quiesced or used its budget. On the world-sharded engine both get
+        the gathered state (world b at index b), gathered only for a
+        chunk whose callback fires. Returns ``(final_state,
         per_world_traces)`` like :meth:`run`; the whole run's telemetry
         frames and flight log land on ``last_run_telemetry`` and
         ``last_run_flight`` (each chunk flushed to an attached metrics
@@ -1435,16 +1437,19 @@ class TorchEngine(PlanesMixin):
         if budgets.size and int(budgets.min()) < 0:
             raise ValueError("step budgets must be >= 0")
         st = state if state is not None else self.init_state()
-        start = st.steps.cpu().numpy().astype(np.int64)
+        start = self._host_worlds(st.steps).astype(np.int64)
         rows = [[] for _ in range(B)]
         emitted = np.zeros(B, bool)
         chunk_stats, frame_chunks, flight_chunks = [], [], []
         while True:
             _, remaining, active = self.fleet_progress(st, budgets, start)
-            for b in np.nonzero(~active & ~emitted)[0]:
+            newly = np.nonzero(~active & ~emitted)[0]
+            seen = self._callback_state(st) \
+                if newly.size and on_quiesce is not None else None
+            for b in newly:
                 emitted[int(b)] = True
                 if on_quiesce is not None:
-                    on_quiesce(int(b), st)
+                    on_quiesce(int(b), seen)
             if not active.any():
                 break
             vec = np.where(active, np.minimum(remaining, chunk), 0)
@@ -1453,7 +1458,7 @@ class TorchEngine(PlanesMixin):
             frame_chunks.append(self.last_run_telemetry)
             flight_chunks.append(self.last_run_flight)
             if on_chunk is not None:
-                on_chunk(st, traces)
+                on_chunk(self._callback_state(st), traces)
             for b in range(B):
                 rows[b].extend(traces[b].row(i)
                                for i in range(len(traces[b])))

@@ -176,7 +176,10 @@ class PlanesMixin(ControlledRunMixin, VerifiedRunMixin,
 
     def _quiet_guard(self, final) -> None:
         """``run_quiet`` under ``verify != "off"``: no per-superstep rows
-        exist there, so the guard degrades to the final-state check."""
+        exist there, so the guard degrades to the final-state check (of
+        the global state on a sharded engine)."""
         if self.verify != "off":
             from ...integrity.checks import final_state_guard
-            final_state_guard(final, type(self).__name__)
+            sh = self._sharding()
+            final_state_guard(final, type(self).__name__,
+                              None if sh is None else sh.shard_comm)

@@ -29,15 +29,20 @@ A node-sharded run's counters and digests are summed over the ranks each
 superstep (one all-reduce; the pop-min is another and the exchange a
 third), so every rank holds the global scalars; node-axis leaves hold the
 rank's nodes (:meth:`ShardedDriver.gather_state` rebuilds the global
-state). The law is the reference's: a sharded run equals the one-device
-run bit for bit, trace, every leaf and every counter
-(tests/test_torch_sharded.py, against the reference's ``JaxEngine``).
+state, :meth:`ShardedDriver.scatter_state` cuts one to a rank's shard).
+The law is the reference's: a sharded run equals the one-device run bit
+for bit, trace, every leaf and every counter (tests/test_torch_sharded.py,
+against the reference's ``JaxEngine``).
 
-Refused loudly: ``record`` on the node-sharded engines (the reference's
-refusal), and ``verify`` on them, whose per-node guard columns and state
-digests would need gathering (docs: ROADMAP queue 1); on the world-sharded
-engine ``run_verified`` and ``run_stream``, whose drivers digest states or
-hand them to per-world callbacks over the whole fleet.
+Every engine here takes ``verify``, as the reference's do, and runs the
+inherited drivers over the ranks: ``run_verified`` (the guard row's
+per-node fields summed over the ranks, under ``verify="guard"`` one more
+all-reduce a superstep; the state digest the gathered state's, with no
+state gathered; a flip on the rank that owns its element; every rank's
+rollback decision the same), and on the world-sharded engine
+``run_stream``, whose callbacks get the gathered fleet. A checkpoint is
+the gathered state, in the one-device layout (cli.py). Refused loudly:
+``record`` on the node-sharded engines (the reference's refusal).
 """
 
 from __future__ import annotations
@@ -75,15 +80,6 @@ def _refuse_record(record: str, who: str) -> str:
     return record
 
 
-def _refuse_verify(verify: str, who: str) -> None:
-    if verify != "off":
-        raise ValueError(
-            f"{who}: verify={verify!r} is not ported to the node-sharded "
-            "engines yet (the guard's per-node columns and the state "
-            "digests would be gathered over the ranks); run the config on "
-            "1 device — bit-identical by the sharding exactness law")
-
-
 class ShardedEdgeEngine(ShardedDriver, EdgeEngine):
     """Edge engine over a mesh: node axis sharded, ring delivery by
     ``MeshComm.roll``. Same ``run`` / ``run_quiet`` API as the local
@@ -96,12 +92,11 @@ class ShardedEdgeEngine(ShardedDriver, EdgeEngine):
                  telemetry: str = "off", verify: str = "off",
                  record: str = "off", lint: str = "warn",
                  device=None) -> None:
-        who = type(self).__name__
-        _refuse_record(record, who)
-        _refuse_verify(verify, who)
+        _refuse_record(record, type(self).__name__)
         self.mesh, self.axis = mesh, axis
         super().__init__(scenario, link, seed=seed, cap=cap,
-                         telemetry=telemetry, lint=lint, device=device)
+                         telemetry=telemetry, verify=verify, lint=lint,
+                         device=device)
         bad = [e for e, s in enumerate(self.topo.shift) if s is None]
         if bad:
             raise ValueError(
@@ -126,9 +121,7 @@ class ShardedEngine(ShardedDriver, TorchEngine):
                  route_cap: Optional[int] = None, telemetry: str = "off",
                  verify: str = "off", record: str = "off",
                  lint: str = "warn", device=None) -> None:
-        who = type(self).__name__
-        _refuse_record(record, who)
-        _refuse_verify(verify, who)
+        _refuse_record(record, type(self).__name__)
         self.mesh, self.axis = mesh, axis
         full = (scenario.n_nodes // axis_size(mesh, axis)) \
             * scenario.max_out
@@ -139,7 +132,7 @@ class ShardedEngine(ShardedDriver, TorchEngine):
             int(bucket_cap), full)
         super().__init__(scenario, link, seed=seed, window=window,
                          route_cap=route_cap, telemetry=telemetry,
-                         lint=lint, device=device)
+                         verify=verify, lint=lint, device=device)
 
     def _exchange_width(self) -> int:
         return self.comm.n_shards * self.bucket_cap
@@ -234,11 +227,12 @@ class ShardedBatchedEngine(ShardedDriver, TorchEngine):
     rank returns every world's traces, telemetry frames and flight logs
     (and a controller decides the same on every rank). Per-world budget
     vectors are sliced by rank. It keeps faults, a controller, telemetry,
-    the flight recorder and speculation (``run_speculative``'s masked
-    rollback re-runs the violating worlds on their ranks), as the
-    reference does; its state holds this rank's worlds on every leaf's
-    leading axis, and ``on_quiesce(b, state)`` callbacks get that
-    rank-local state.
+    the flight recorder, the verified driver and speculation
+    (``run_speculative``'s masked rollback re-runs the violating worlds
+    on their ranks), as the reference does; its state holds this rank's
+    worlds on every leaf's leading axis, while ``run_stream``'s and
+    ``run_verified``'s callbacks get the gathered fleet, world b at index
+    b.
 
     World b of the gathered state equals the solo run with world b's
     seed, link and schedule (the batch law, tests/test_torch_sharded.py)."""
@@ -347,16 +341,3 @@ class ShardedBatchedEngine(ShardedDriver, TorchEngine):
         stats["supersteps"] = int(self.shard_comm.all_sum(torch.tensor(
             stats["supersteps"], device=self.device)))
         return out
-
-    def _refused(self, what: str):
-        raise NotImplementedError(
-            f"ShardedBatchedEngine.{what} is not ported yet (its driver "
-            "digests states, or hands them to per-world callbacks, over "
-            "the whole fleet); run the fleet on one device with "
-            "TorchEngine(batch=...) — bit-identical by the sharding law")
-
-    def run_verified(self, *args, **kwargs):
-        self._refused("run_verified")
-
-    def run_stream(self, *args, **kwargs):
-        self._refused("run_stream")

@@ -17,8 +17,10 @@ ride, SPMD with one process (rank) per shard where the reference runs one
   buckets are empty but the one bound for the neighbour; ``all_to_all``
   swaps ``[D, ...]`` destination buckets with equal splits.
 - :class:`ShardedDriver` is the sharded engines' shared harness: a rank's
-  shard of a fresh state, the rank's slice of a per-world budget vector,
-  and the global state rebuilt from every rank's shard.
+  shard of a fresh or a global state, the global state rebuilt from every
+  rank's shard, and what the integrity plane and the chunked drivers ask
+  of a sharded state (each leaf's sharded axis, the gathered state for a
+  callback).
 
 Transport: the backend is the process group's, which its caller chose
 (``parallel.launch.spawn(..., backend=...)``), never probed. Under
@@ -263,7 +265,9 @@ class ShardedDriver:
     replicated; a world-sharded engine's holds this rank's worlds on the
     leading axis of every leaf. ``run`` and ``run_quiet`` are the local
     engine's, over collectives; :meth:`gather_state` rebuilds the global
-    state on every rank, for comparisons and checkpoints."""
+    state on every rank, for comparisons, checkpoints and callbacks, and
+    :meth:`scatter_state` cuts a global state (a resumed checkpoint) to
+    this rank's shard."""
 
     #: worlds resident on this rank (world-sharded engines only)
     worlds_local = None
@@ -275,21 +279,30 @@ class ShardedDriver:
         self.shard_comm = MeshComm(self.mesh, self.axis, n_global, device)
         return self.shard_comm
 
+    def leaf_axis(self, name: str, x: torch.Tensor) -> Optional[int]:
+        """The axis of leaf ``name`` (a field, or ``states.<key>`` as
+        integrity/digest.py ``state_leaves`` names it) that is sharded
+        over the ranks, or None for a replicated leaf: axis 0 of every
+        leaf (world-sharded), else axis 0 of each ``states`` leaf and the
+        last of the engine's ``_NODE_LEAVES``."""
+        field = name.partition(".")[0]
+        if self.worlds_local is not None or field == "states":
+            return 0
+        if field in self._NODE_LEAVES:
+            return x.dim() - 1
+        return None
+
     def _leafwise(self, st, fn):
-        """``st`` with ``fn(x, axis)`` applied to each sharded leaf: axis
-        0 of every leaf (world-sharded) or the node axis: 0 of each
-        ``states`` leaf, the last of the engine's ``_NODE_LEAVES``; other
-        leaves (the scalars) pass through."""
+        """``st`` with ``fn(x, axis)`` applied to each sharded leaf
+        (:meth:`leaf_axis`); replicated leaves pass through."""
         out = {}
         for name, x in st._asdict().items():
             if isinstance(x, dict):
-                out[name] = {k: fn(v, 0) for k, v in x.items()}
-            elif self.worlds_local is not None:
-                out[name] = fn(x, 0)
-            elif name in self._NODE_LEAVES:
-                out[name] = fn(x, x.dim() - 1)
-            else:
-                out[name] = x
+                out[name] = {k: fn(v, self.leaf_axis(f"{name}.{k}", v))
+                             for k, v in x.items()}
+                continue
+            axis = self.leaf_axis(name, x)
+            out[name] = x if axis is None else fn(x, axis)
         return type(st)(**out)
 
     def _local_slice(self, x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -300,10 +313,20 @@ class ShardedDriver:
         """The next event time over every rank's nodes."""
         return self.comm.all_min(super()._next_event(st))
 
+    def global_init_state(self):
+        """A fresh global state (every node and world), built on this
+        rank without a collective: the template a checkpoint loads into."""
+        return super().init_state()
+
     def init_state(self):
         """This rank's shard of a fresh state (node- or world-axis leaves
         sliced by rank, scalars replicated)."""
-        return self._leafwise(super().init_state(), self._local_slice)
+        return self.scatter_state(self.global_init_state())
+
+    def scatter_state(self, st):
+        """This rank's shard of the global state ``st`` (the inverse of
+        :meth:`gather_state`; no collective)."""
+        return self._leafwise(st, self._local_slice)
 
     def gather_state(self, st):
         """The global state, every rank's shard concatenated in rank
@@ -311,3 +334,10 @@ class ShardedDriver:
         c = self.shard_comm
         return self._leafwise(st, lambda x, ax: c.all_gather(x, ax))
 
+    # -- the integrity plane's and the chunked drivers' hooks ----------------
+
+    def _sharding(self):
+        return self
+
+    def _callback_state(self, state):
+        return self.gather_state(state)
