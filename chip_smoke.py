@@ -366,10 +366,24 @@ then the analysis slice (``analysis/``, the oracle, ``obs/query.py``,
     and earlier, the crash window named); K2 and K1 once per recorded
     superstep; at 2^12 the ``FlightLog`` and chain = the CPU leg's;
 59. ``profile_session`` around 16 supersteps of the gossip wave at 2^17:
-    the Chrome trace parses and names K2 and K1 once per superstep.
+    the Chrome trace parses and names K2 and K1 once per superstep;
 
-The card-against-CPU phases (5, 11, 18, 23, 28, 36, 40, 55, 56, 57
-and 58) run
+then the command line and the cross-world twins (60-64, each phase
+function's docstring), and the parity artifact and the examples:
+
+65. ``tools/parity_cuda.py``'s ``run_row`` on the card for
+    ``gossip-1024-burst-windowed`` with its fused and batched columns (K2
+    and K1 once per superstep of the adaptive main run, K3 once per fused
+    superstep, K2 and K1 across the 3 worlds) and ``gossip-64-drop`` with
+    its faulted column (K1 once per superstep on the eager path, K2 not
+    at all): the oracle on the CPU = the engines on the card, and every
+    digest, flag and count = the reference's ``PARITY_TPU.json``; then
+    ``examples/torch/chaos.py``, ``cross_world.py --nodes 12`` and
+    ``token_ring.py --engine --nodes 8`` in this process on the card,
+    each stdout = the same argv's on the CPU.
+
+The card-against-CPU phases (5, 11, 18, 23, 28, 36, 40, 55, 56, 57,
+58 and 65) run
 their card legs here and take their CPU legs from a second process
 (``chip_smoke.py --cpu-legs DIR``, started with the script, the card
 hidden from it, two torch threads; phase 55's CPU ranks one thread each)
@@ -385,7 +399,8 @@ Wall-clock overheads are printed and gated at 2x at most (the host is
 shared). Every phase prints its wall (``phase N wall_s=``), and the
 script its total (``chip_smoke wall_s=``). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
 over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43, 46-51, 54 and
-57-59, K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51, 54 and 57-59;
+57-65, K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51, 54 and 57-65,
+K3's over phases 9, 61 and 65;
 K1′,
 ``mailbox_insert_per_shard``, phase 52's ranks' K1 launches (its verified
 legs' included), its times from phase 52; every other time from phases 6, 13 and 19), the
@@ -6219,6 +6234,114 @@ def phase_cross_world(device):
     return launches
 
 
+#: phase 65's parity rows and the columns each runs beside its main one
+PARITY_ROWS = (("gossip-1024-burst-windowed", ("fused_sparse", "batched")),
+               ("gossip-64-drop", ("faulted",)))
+#: phase 65's engine examples (``examples/torch/``), each with its argv
+ENGINE_EXAMPLES = (("chaos.py",), ("cross_world.py", "--nodes", "12"),
+                   ("token_ring.py", "--engine", "--nodes", "8"))
+
+
+def _parity_tool():
+    """``tools/parity_cuda.py`` as a module."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "parity_cuda.py")
+    spec = importlib.util.spec_from_file_location("parity_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(device):
+    """Each of :data:`ENGINE_EXAMPLES`' ``main`` in this process with
+    ``--device device``: ``{argv: (exit code, stdout)}``."""
+    import contextlib
+    import io
+    import os
+    import runpy
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch")
+    out = {}
+    for script, *argv in ENGINE_EXAMPLES:
+        main = runpy.run_path(os.path.join(here, script))["main"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main([*argv, "--device", str(device)])
+        out[" ".join((script, *argv))] = (rc, buf.getvalue())
+    return out
+
+
+@cpu_leg("examples")
+def leg_examples(dev):
+    """Phase 65's leg: the engine examples on the CPU."""
+    return run_examples(dev)
+
+
+def phase_parity_examples(device):
+    """Phase 65: the parity artifact's rows and the engine examples on the
+    card (module docstring). Returns K1-K3's launches of the phase."""
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    tool = _parity_tool()
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    rows = {name: tool.run_row(name, device, columns=cols)
+            for name, cols in PARITY_ROWS}
+    torch.cuda.synchronize()
+    launches = {k: ci.LAUNCHES[k] for k in tool.KERNELS}
+    for name, e in rows.items():
+        say(f"parity {name}: {e['supersteps']} supersteps, {e['delivered']} "
+            f"delivered, wall_s={e['wall_s']} oracle_wall_s="
+            f"{e['oracle_wall_s']} launches={e['launches']}")
+    wave, drop = (rows[name] for name, _ in PARITY_ROWS)
+    lw, ld = wave["launches"], drop["launches"]
+    _require_all("parity rows on the card", {
+        **{f"{name}: the oracle = the engines, every column": tool.row_ok(e)
+           for name, e in rows.items()},
+        **{f"{name}: = PARITY_TPU.json": "reference_mismatch" not in e
+           for name, e in rows.items()},
+        "wave: K2 = K1 = its supersteps (adaptive)":
+            lw["main"]["fire_compact"] == lw["main"]["mailbox_insert"]
+            == wave["supersteps"],
+        "wave: K3 = its supersteps (fused)":
+            lw["fused_sparse"]["sample_insert"] == wave["supersteps"],
+        "wave: K2 = K1 > 0 across the worlds":
+            lw["batched"]["fire_compact"] == lw["batched"]["mailbox_insert"]
+            > 0,
+        "drop: K1 = its supersteps, K2 0 (eager)":
+            ld["main"]["mailbox_insert"] == drop["supersteps"]
+            and ld["main"]["fire_compact"] == 0,
+        "drop: K1 > 0, K2 0 under faults":
+            ld["faulted"]["mailbox_insert"] > 0
+            and ld["faulted"]["fire_compact"] == 0,
+        "K1, K2 and K3 each launched": all(launches.values()),
+        "the rows' counts are the phase's": launches == {
+            k: sum(c[k] for e in rows.values()
+                   for c in e["launches"].values()) for k in launches}})
+
+    ci.reset_launches()
+    card = run_examples(device)
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k] += ci.LAUNCHES[k]
+    _require_all("examples on the card", {
+        f"{argv}: exit 0": rc == 0 for argv, (rc, _) in card.items()})
+    _require_all("examples launched K1", {
+        "K1 > 0": ci.LAUNCHES["mailbox_insert"] > 0})
+
+    def check(card, cpu):
+        _require_all("examples: card vs CPU", {
+            f"{argv}: stdout = the CPU's": card[argv] == cpu[argv]
+            for argv in cpu})
+        for argv, (_, out) in card.items():
+            say(f"example {argv} on the card = its CPU run: "
+                f"{out.splitlines()[0]}")
+    against_cpu("examples", card, check)
+    say(f"parity and examples: launches={launches}")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -6394,10 +6517,13 @@ def run_phases(torch, build, t_start) -> int:
     shard_launches = timed(63, phase_cli_sharded, device, sharded)
     world_launches = timed(64, phase_cross_world, device)
     timed("60 (collected)", phase_cli_finish, started)
+    parity_launches = timed(65, phase_parity_examples, device)
+    launches["sample_insert"] += parity_launches["sample_insert"]
     launches["sample_insert"] += cli_launches["sample_insert"]
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += (wave_launches[k] + cli_launches[k] + svc_launches[k]
-                        + shard_launches[k] + world_launches[k])
+                        + shard_launches[k] + world_launches[k]
+                        + parity_launches[k])
 
     LEGS.drain(wait=True)
     say(f"chip_smoke wall_s={time.perf_counter() - t_start}")

@@ -170,12 +170,14 @@ def test_spawned_rank_holds_neither():
 
 
 def test_sources_import_neither_jax_nor_reference():
-    """The package's sources and ``chip_smoke.py``, the script that drives
-    the port on the card."""
+    """The package's sources, ``chip_smoke.py`` (the script that drives
+    the port on the card), the port's parity tool and its examples."""
     offenders = []
     smoke = PKG.parent / "chip_smoke.py"
-    assert smoke.exists()
-    for path in [*PKG.rglob("*.py"), smoke]:
+    tool = PKG.parent / "tools" / "parity_cuda.py"
+    examples = sorted((PKG.parent / "examples" / "torch").glob("*.py"))
+    assert smoke.exists() and tool.exists() and len(examples) == 6
+    for path in [*PKG.rglob("*.py"), smoke, tool, *examples]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
