@@ -380,7 +380,17 @@ function's docstring), and the parity artifact and the examples:
     digest, flag and count = the reference's ``PARITY_TPU.json``; then
     ``examples/torch/chaos.py``, ``cross_world.py --nodes 12`` and
     ``token_ring.py --engine --nodes 8`` in this process on the card,
-    each stdout = the same argv's on the CPU.
+    each stdout = the same argv's on the CPU;
+
+then the bench script:
+
+66. ``bench_cuda.py --smoke`` on the card in this process for
+    ``token_ring_dense``, ``gossip_100k_insert``, ``praos_1m_fused`` and
+    ``gossip_100k_chaos`` (K4, K2 and K1, K3, K2 and K1 across 8
+    worlds), every in-bench gate on: one line each with the bench
+    line's keys, ``platform`` ``cuda``, the card's name and
+    ``nvidia-smi``'s power limit; each of K1-K4 launched (the insert
+    gate's kernel-against-plain and timing launches apart).
 
 The card-against-CPU phases (5, 11, 18, 23, 28, 36, 40, 55, 56, 57,
 58 and 65) run
@@ -399,8 +409,8 @@ Wall-clock overheads are printed and gated at 2x at most (the host is
 shared). Every phase prints its wall (``phase N wall_s=``), and the
 script its total (``chip_smoke wall_s=``). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
 over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43, 46-51, 54 and
-57-65, K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51, 54 and 57-65,
-K3's over phases 9, 61 and 65;
+57-66, K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51, 54 and 57-66,
+K3's over phases 9, 61, 65 and 66, K4's over phases 16 and 66;
 K1′,
 ``mailbox_insert_per_shard``, phase 52's ranks' K1 launches (its verified
 legs' included), its times from phase 52; every other time from phases 6, 13 and 19), the
@@ -419,8 +429,14 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
-SPIN_CYCLES = 2_000_000       # _time_ms's device-side wait, ~1 ms at 1980 MHz
+# the workload builders and kernel timing helpers: bench_cuda.py's, one copy
+from bench_cuda import (  # noqa: E402
+    HBM_BYTES_PER_S, bursty_gossip, chaos_fleet, dense_ring, gossip_wave,
+    hetero_pack, host_state as _host_state, k1_bytes, nvidia_smi,
+    praos_consensus, praos_link, search_base, serve_gossip_configs,
+    spec_gossip, stage_args as _stage_args, stage_times, steady_gossip)
+from bench_cuda import time_ms as _time_ms  # noqa: E402
+
 SLICE_N, SLICE_M, SLICE_P, SLICE_W, SLICE_S = 1 << 17, 8, 1, 8_000, 1 << 18
 SLICE_K = 16
 # K2's wide build (payloads past the 27 words the narrow build stages on
@@ -460,13 +476,6 @@ SASS_INT = {"IADD3", "IADD", "IMAD", "IMUL", "IMNMX", "VIMNMX", "VIADD",
 SASS_FP32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET",
              "FCHK", "FSWZADD"}
 SASS_MUFU = {"MUFU", "F2I", "I2F", "F2F", "I2I", "FRND", "I2FP", "F2IP"}
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
 
 
 def say(*parts) -> None:
@@ -700,16 +709,6 @@ def phase_insert(device, **sizes):
     return err
 
 
-def gossip_wave(n):
-    """bench.py _gossip_wave: burst relays, 8 ms propagation floor."""
-    from timewarp_tpu_torch.models.gossip import gossip, gossip_links
-    from timewarp_tpu_torch.net.delays import Quantize
-    sc = gossip(n, fanout=8, think_us=2_000, burst=True, end_us=5_000_000,
-                mailbox_cap=16)
-    return sc, Quantize(gossip_links(median_us=20_000, sigma=0.6,
-                                     floor_us=8_000), 1_000)
-
-
 def phase_main_path(device, n=SLICE_N, cap=SLICE_S):
     import torch
     from timewarp_tpu_torch.core.scenario import NEVER
@@ -749,17 +748,6 @@ def _require_all(what, checks) -> None:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"{what} invariants failed: {bad}")
-
-
-def _host_state(st, sc=None):
-    """Every leaf of an ``EngineState`` or ``EdgeState`` (any device) as
-    numpy, ``states`` a dict."""
-    from timewarp_tpu_torch.interp.torch_engine.edge_engine import EdgeState
-    from timewarp_tpu_torch.interp.torch_engine.state_io import (
-        edge_state_to_numpy, state_to_numpy)
-    to_numpy = edge_state_to_numpy if isinstance(st, EdgeState) \
-        else state_to_numpy
-    return to_numpy(st, sc)
 
 
 def _states_equal(what, a, b, sc=None) -> None:
@@ -943,44 +931,6 @@ def phase_card_vs_cpu(device):
     vs_cpu("wave", device, check)
 
 
-def _time_ms(fn, reps=20, queued=True):
-    """Mean ms of ``fn`` on the card: CUDA events around each call. Before
-    every call a 1 GiB write flushes the 50 MB L2, then the device waits
-    ``SPIN_CYCLES`` clocks (``torch.cuda._sleep``) before the start event,
-    so that the host has queued all of the call's launches by the time
-    the start event fires and the events time the device, not the host.
-    With ``queued`` (a kernel's wrapper, which never waits on the
-    device) that is checked: a call whose start event had already fired
-    when its end event was queued is timed again with a wait twice as
-    long, and after six such tries the timing fails. The plain versions
-    pass ``queued=False``: some read a result back to the host, so their
-    times include host time."""
-    import torch
-    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    total, spin = 0.0, SPIN_CYCLES
-    for _ in range(reps):
-        for _ in range(6):
-            flush.zero_()
-            torch.cuda._sleep(spin)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            late = queued and a.query()
-            b.synchronize()
-            if not late:
-                break
-            spin *= 2
-        else:
-            raise RuntimeError("timing: the host did not queue the call "
-                               f"within {spin // 2} device clocks")
-        total += a.elapsed_time(b)
-    return total / reps
-
-
 def phase_where_time_goes(tag, eng, warm, steps, run=None, mid=None):
     """``steps`` supersteps of ``eng``'s run from superstep ``warm`` (or
     from the state ``mid``): their wall time unprofiled, then the same
@@ -1019,30 +969,6 @@ def phase_where_time_goes(tag, eng, warm, steps, run=None, mid=None):
             say(f"  device_us_per_superstep={e.self_device_time_total / steps}"
                 f" launches_per_superstep={e.count / steps} rank={i + 1} "
                 f"{e.key[:90]}")
-
-
-def k1_bytes(args):
-    """K1's bytes on its arguments (``mailbox_insert``'s): the planes
-    written once and read once, except the old words of each row the
-    batch fills (commutative: all but its rel, by which the hole is
-    found; ordered: all), start/cnt (and counts), and the deliver time,
-    sender and payload of each entry that finds a row (the others are not
-    read)."""
-    import torch
-    _, cnt, counts, _, src, _, mb_rel, mb_src, mb_payload = args
-    K, n = mb_rel.shape
-    P = mb_payload.shape[1]
-    ordered, with_src = counts is not None, src is not None
-    if ordered:
-        room = K - counts
-    else:
-        room = (mb_rel == 2**31 - 1).sum(dim=0, dtype=torch.int32)
-    gathered = int(torch.minimum(cnt, room).sum())
-    planes = mb_rel.numel() + mb_payload.numel() \
-        + (mb_src.numel() if with_src else 0)
-    row = (1 + with_src + P) * 4         # bytes of a mailbox row or entry
-    unread = gathered * (row - 4 * (not ordered))   # filled rows' old words
-    return 2 * planes * 4 - unread + (2 + ordered) * n * 4 + gathered * row
 
 
 def time_k1(device, ordered, with_src, seed=4):
@@ -1096,22 +1022,6 @@ def phase_times(device):
 
 
 # -- the fused-sparse slice: K3 and Praos at 2^20 ---------------------------
-
-def praos_link():
-    """The Praos bench's link: quantized lognormal, 8 ms floor."""
-    from timewarp_tpu_torch.net.delays import LogNormalDelay, Quantize
-    return Quantize(LogNormalDelay(20_000, 0.6, cap_us=150_000,
-                                   floor_us=8_000), 1_000)
-
-
-def praos_consensus(n):
-    """bench.py _praos_consensus: burst diffusion, 8 ms propagation
-    floor, slots of 1 s, about four leaders a slot."""
-    from timewarp_tpu_torch.models.praos import praos
-    sc = praos(n, slot_us=1_000_000, n_slots=1 << 30, leader_prob=4.0 / n,
-               fanout=8, burst=True, mailbox_cap=16)
-    return sc, praos_link()
-
 
 def sample_inputs(device, n=PRAOS_N, K=SLICE_K, P=PRAOS_P, S=PRAOS_S,
                   seed=8, frac=0.6, hot=True, extra=(), src=False):
@@ -1433,17 +1343,6 @@ def phase_time_k3(device, t):
 
 # -- the static-topology slice: K4 and the dense ring at 2^20 --------------
 
-def dense_ring(n, **kw):
-    """bench.py _dense_ring: every node holds a token, think 0, 500 µs
-    links, no deadline within reach; ``kw`` overrides."""
-    from timewarp_tpu_torch.models.token_ring import token_ring
-    from timewarp_tpu_torch.net.delays import FixedDelay
-    args = dict(n_tokens=n, think_us=0, bootstrap_us=1_000, end_us=1 << 50,
-                with_observer=False, mailbox_cap=4)
-    args.update(kw)
-    return token_ring(n, **args), FixedDelay(500)
-
-
 def ring_planes(device, n, seed, fire, full, t0=3):
     """Seeded ``[10, n]`` K4 planes whose minimum is ``t0``: a ``fire``
     share of the nodes wakes at ``t0`` (holding tokens, the timer due), a
@@ -1640,16 +1539,6 @@ def phase_time_k4(device, planes):
 
 # -- the eager routing slice: steady gossip at 2^20 and K1 at its width ---
 
-def steady_gossip(n):
-    """bench.py gossip_steady_1m: rumor mongering, every infected node
-    relays to one peer per 1 ms round; window 1 (the eager path)."""
-    from timewarp_tpu_torch.models.gossip import gossip
-    from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
-    sc = gossip(n, fanout=1, think_us=1_000, gossip_interval=1_000,
-                end_us=1 << 50, steady=True, mailbox_cap=8)
-    return sc, Quantize(UniformDelay(500, 4_500), 1_000)
-
-
 def phase_steady_main_path(device, n=STEADY_N, warm=64, steps=256):
     """The slice's main path: steady gossip through ``run_quiet``."""
     import torch
@@ -1829,37 +1718,6 @@ def phase_k1_eager(device, eng, state):
 
 # -- the world axis and faults: the 8-world chaos fleet at 100 000 nodes ---
 
-def chaos_fleet(n=CHAOS_N, B=CHAOS_B):
-    """bench.py bench_gossip_100k_chaos: steady gossip, 8 worlds, 8
-    distinct fault schedules (a reset crash, a crash, a partition and a
-    degradation window per world), built as the bench builds them.
-    Returns ``(scenario, link, spec, fleet, heal_us)``."""
-    from timewarp_tpu_torch.faults import (FaultFleet, FaultSchedule,
-                                           LinkWindow, NodeCrash, Partition)
-    from timewarp_tpu_torch.interp.torch_engine.batched import BatchSpec
-    from timewarp_tpu_torch.models.gossip import gossip
-    from timewarp_tpu_torch.net.delays import Quantize, UniformDelay
-    sc = gossip(n, fanout=1, think_us=1_000, gossip_interval=1_000,
-                end_us=300_000, steady=True, mailbox_cap=8)
-    link = Quantize(UniformDelay(500, 4_500), 1_000)
-    half = n // 2
-    heal_us = 0
-    scheds = []
-    for b in range(B):
-        part_end = 70_000 + 2_000 * b
-        crash_up = 60_000 + 5_000 * b
-        heal_us = max(heal_us, part_end, crash_up + 10_000)
-        scheds.append(FaultSchedule((
-            NodeCrash((7 * b + 3) % n, 20_000, crash_up, reset_state=True),
-            NodeCrash((11 * b + half + 5) % n, 30_000, crash_up + 10_000),
-            Partition((tuple(range(half)), tuple(range(half, n))),
-                      25_000, part_end),
-            LinkWindow(None, None, 80_000, 120_000, scale=2.0 + 0.25 * b),
-        )))
-    return sc, link, BatchSpec(seeds=tuple(range(B))), \
-        FaultFleet(tuple(scheds)), heal_us
-
-
 def fleet_compact_inputs(device, B, n, M, P, fracs, seed, window1=False):
     """B worlds' outboxes, world b a share ``fracs[b]`` of valid lanes."""
     import torch
@@ -1880,22 +1738,6 @@ def fleet_insert_inputs(device, B, n, K, P, S, ordered, with_src, seed,
               for b, f in enumerate(shares)]
     return {k: None if worlds[0][k] is None
             else torch.stack([w[k] for w in worlds]) for k in worlds[0]}
-
-
-def fleet_k1_bytes(args):
-    """K1's bound bytes over a fleet: :func:`k1_bytes` per world, summed."""
-    return sum(k1_bytes(tuple(None if x is None else x[b] for x in args))
-               for b in range(args[6].shape[0]))
-
-
-def fleet_k2_bytes(pdst, woff, pay, S):
-    """K2's bound bytes over a fleet: per world the dst planes and the woff
-    plane read, the fired lanes' payload read, the batch written; summed."""
-    B, M, n = pdst.shape
-    P = pay.shape[2]
-    fired = int((pdst >= 0).sum())
-    return (pdst.numel() + (0 if woff is None else woff.numel())) * 4 \
-        + fired * P * 4 + B * (3 + P) * S * 4
 
 
 def phase_fleet_kernels(device, n=CHAOS_N, B=CHAOS_B):
@@ -2168,54 +2010,11 @@ def phase_fleet_checkpoint(device, eng, steps=40):
         f"{steps} more; world {b} forked solo = world {b}")
 
 
-def _stage_args(eng, drive):
-    """K2's and K1's arguments (``fire_compact``'s and
-    ``mailbox_insert``'s, every world at once) of the busiest superstep
-    ``drive()`` runs on ``eng`` (the most messages K1 inserts, the first
-    of equals), taken where the engine's stage receives them."""
-    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
-    taken = {"valid": -1}
-    compact, insert = eng.stage.compact, eng.stage.insert
-
-    def take_compact(pdst, woff_n, payload):
-        taken["pending"] = (pdst, woff_n if eng.stage.W > 1 else None,
-                            payload, eng.stage.S)
-        return compact(pdst, woff_n, payload)
-
-    def take_insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
-                    counts):
-        start, cnt = ci.bucket_bounds(sd, eng.stage.n)
-        valid = int(cnt.sum())
-        if valid > taken["valid"]:
-            taken.update(valid=valid, k2=taken["pending"], k1=(
-                start, cnt, counts, drel_s,
-                src_s if eng.stage.inbox_src else None, pay_s, mb_rel,
-                mb_src, mb_payload))
-        return insert(sd, drel_s, src_s, pay_s, mb_rel, mb_src, mb_payload,
-                      counts)
-    eng.stage.compact, eng.stage.insert = take_compact, take_insert
-    try:
-        drive()
-    finally:
-        del eng.stage.compact, eng.stage.insert
-    return taken["k2"], taken["k1"]
-
-
 def _time_stage_args(tag, a2, a1):
     """K2's and K1's times on captured stage arguments (``_stage_args``),
     their plain versions' times and their byte bounds (per world, summed
     over the worlds), printed under ``tag``. Returns ``(r2, r1)``."""
-    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
-    b2 = fleet_k2_bytes(*a2)
-    b1 = fleet_k1_bytes(a1)
-    r2 = dict(ms=_time_ms(lambda: ci.fire_compact(*a2)),
-              plain_ms=_time_ms(lambda: ci.fire_compact_plain(*a2),
-                                queued=False),
-              bound_ms=b2 / HBM_BYTES_PER_S * 1e3, bytes=b2)
-    r1 = dict(ms=_time_ms(lambda: ci.mailbox_insert(*a1)),
-              plain_ms=_time_ms(lambda: ci.mailbox_insert_plain(*a1),
-                                queued=False),
-              bound_ms=b1 / HBM_BYTES_PER_S * 1e3, bytes=b1)
+    r2, r1 = stage_times(a2, a1)
     B, M, n = a2[0].shape
     fired = (a2[0] >= 0).sum(dim=(1, 2)).tolist()
     for name, r, shape in (
@@ -2498,20 +2297,6 @@ def phase_planes_main_path(device, quiet_fin, n=CHAOS_N, chunk=64,
             counts[b, col["cut"]] + counts[b, col["down"]]
             + counts[b, col["purge"]] == fd[b] for b in range(B))})
     return launches, eng
-
-
-def bursty_gossip(n):
-    """bench.py _bursty_gossip: burst waves with a 40 ms incubation, an
-    8 ms-floor link, and a degradation window undercutting it to 2 ms."""
-    from timewarp_tpu_torch.faults import FaultSchedule, LinkWindow
-    from timewarp_tpu_torch.models.gossip import gossip, gossip_links
-    from timewarp_tpu_torch.net.delays import Quantize
-    sc = gossip(n, fanout=8, think_us=40_000, burst=True, end_us=5_000_000,
-                mailbox_cap=16)
-    link = Quantize(gossip_links(median_us=20_000, sigma=0.6,
-                                 floor_us=8_000), 1_000)
-    return sc, link, FaultSchedule((LinkWindow(None, None, 100_000, 200_000,
-                                               scale=0.25),))
 
 
 def _same_events(what, a, b, sc) -> None:
@@ -2798,17 +2583,6 @@ SPEC_N, SPEC_B, SPEC_W = 100_000, 8, 8_000
 # odd ones (above W: never), the tail capped at 50 ms (at the floor, a
 # superstep per 500 µs of the tail's span)
 SPEC_XM_US, SPEC_CAP_US = (4_000, 9_000), 50_000
-
-
-def spec_gossip(n, cap_us=60_000_000):
-    """bench.py gossip_100k_spec: burst gossip over a long-tail link —
-    Pareto delays from 4 ms (capped at ``cap_us``), declared floor the
-    500 µs quantize grid."""
-    from timewarp_tpu_torch.models.gossip import gossip
-    from timewarp_tpu_torch.net.delays import ParetoDelay, Quantize
-    sc = gossip(n, fanout=8, think_us=40_000, burst=True, end_us=5_000_000,
-                mailbox_cap=16)
-    return sc, Quantize(ParetoDelay(4_000, 1.2, cap_us=cap_us), 500)
 
 
 def _wave_done(what, eng, fin, n) -> None:
@@ -3140,34 +2914,6 @@ def phase_spec_times(device, spec, cons, wide, steps=32, warm=16):
 
 
 # -- the sweep service: sweep_hetero and the 8-world chaos pack -------------
-
-def hetero_pack(n=4096, steps=2000):
-    """``bench.py`` ``bench_sweep_hetero``'s pack (three token-ring worlds,
-    one faulted and one at the largest pow2 budget <= steps / 2; two
-    windowed burst-gossip worlds) and its chunk."""
-    from timewarp_tpu_torch.sweep import SweepPack
-    half = max(8, 1 << (max(1, steps // 2).bit_length() - 1))
-    ring = {"nodes": n, "n_tokens": max(4, n // 64), "think_us": 2000,
-            "end_us": 1 << 40, "mailbox_cap": 8}
-    gossip = {"nodes": n, "fanout": 4, "burst": True, "end_us": 400_000,
-              "mailbox_cap": 16, "think_us": 700}
-    pack = SweepPack.from_json([
-        {"id": "ring-s0", "scenario": "token-ring", "params": ring,
-         "link": "uniform:1000:5000", "seed": 0, "budget": steps},
-        {"id": "ring-s1", "scenario": "token-ring", "params": ring,
-         "link": "uniform:2000:7000", "seed": 1, "budget": half},
-        {"id": "ring-chaos", "scenario": "token-ring", "params": ring,
-         "link": "uniform:1000:5000", "seed": 2, "budget": steps,
-         "faults": "crash:3:5ms:40ms:reset; partition:0-1|2-3:10ms:30ms"},
-        {"id": "gos-s0", "scenario": "gossip", "params": gossip,
-         "link": "quantize:1000:uniform:3000:9000", "seed": 3,
-         "window": "auto", "budget": steps},
-        {"id": "gos-s1", "scenario": "gossip", "params": gossip,
-         "link": "quantize:1000:uniform:4000:8000", "seed": 4,
-         "window": "auto", "budget": steps},
-    ])
-    return pack, max(64, 1 << (max(1, steps // 8).bit_length() - 1))
-
 
 def chaos_pack(n=CHAOS_N, B=CHAOS_B, budget=1024):
     """``bench.py`` ``bench_gossip_100k_chaos``'s 8 worlds as pack JSON:
@@ -3678,18 +3424,6 @@ SEARCH_BUILDERS = ["timewarp_tpu_torch.sweep.bucket",
                    "timewarp_tpu_torch.search.fork"]
 
 
-def search_base(n=64, steps=300):
-    """``bench.py`` ``bench_search_gossip``'s base config: burst gossip,
-    fanout 2, ``end_us`` 120 000, ``uniform:1000:5000``, ``window="auto"``."""
-    from timewarp_tpu_torch.sweep.spec import RunConfig
-    params = {"nodes": n, "fanout": 2, "end_us": 120_000, "burst": True,
-              "think_us": 5000, "mailbox_cap": 16}
-    return RunConfig(run_id="search-base", family="gossip",
-                     params=tuple(sorted(params.items())),
-                     link="uniform:1000:5000", seed=0, window="auto",
-                     budget=steps)
-
-
 def _journal_records(jd):
     from timewarp_tpu_torch.sweep import SweepJournal
     return [{k: v for k, v in e.items() if k != "ts"}
@@ -4019,25 +3753,6 @@ def phase_search_chaos(device, keep, n=CHAOS_N):
 #: its gossip at 4096 nodes is host-bound in the legs and the solo runs,
 #: about 20 ms a fleet superstep (NVIDIA H100 80GB HBM3, 700.00 W)
 SERVE_N, SERVE_STEPS = 4096, 128
-
-
-def serve_gossip_configs(n=SERVE_N, steps=SERVE_STEPS):
-    """``bench.py`` ``bench_serve_gossip``'s eight configs: 4096-node
-    burst gossip, fanout 4, ``end_us`` 400 ms, ``mailbox_cap`` 16,
-    ``think_us`` 700, ``quantize:1000:uniform:3000:9000``, seeds 0-7,
-    budgets ``steps`` (even worlds) and ``steps // 2``, ``w3`` crashing
-    node 1 from 5 to 40 ms with a reset."""
-    gossip = {"nodes": n, "fanout": 4, "burst": True, "end_us": 400_000,
-              "mailbox_cap": 16, "think_us": 700}
-    cfgs = []
-    for i in range(8):
-        d = {"id": f"w{i}", "scenario": "gossip", "params": gossip,
-             "link": "quantize:1000:uniform:3000:9000", "seed": i,
-             "budget": steps if i % 2 == 0 else max(steps // 2, 8)}
-        if i == 3:
-            d["faults"] = "crash:1:5ms:40ms:reset"
-        cfgs.append(d)
-    return cfgs
 
 
 def _in_thread(fn, **kw):
@@ -6343,6 +6058,73 @@ def phase_parity_examples(device):
     return launches
 
 
+#: phase 66's configs of ``bench_cuda.py --smoke``: K4; K2 and K1; K3; K2
+#: and K1 across the world axis
+BENCH_SMOKE = ("token_ring_dense", "gossip_100k_insert", "praos_1m_fused",
+               "gossip_100k_chaos")
+#: the keys of a ``bench_cuda.py --smoke`` line, beside a config's own
+BENCH_SMOKE_KEYS = {"config", "config_key", "metric", "smoke", "ok",
+                    "seconds", "schema", "platform", "device_kind",
+                    "torch_version", "power_limit", "git_sha"}
+
+
+def phase_bench_smoke(device):
+    """Phase 66: ``bench_cuda.py --smoke`` for :data:`BENCH_SMOKE` on the
+    card, in this process (module docstring). Returns K1-K4's launches of
+    the configs' runs: the insert gate's comparisons and timings
+    (``bench_cuda.CHECK_LAUNCHES``) are taken out."""
+    import contextlib
+    import io
+    import os
+
+    import bench_cuda
+    import torch
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
+    checks = dict(bench_cuda.CHECK_LAUNCHES)
+    prior = os.environ.get("TW_BENCH_CONFIG")
+    os.environ["TW_BENCH_CONFIG"] = ",".join(BENCH_SMOKE)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            bench_cuda.main(["--smoke", "--device", str(device.type)])
+    finally:
+        if prior is None:
+            del os.environ["TW_BENCH_CONFIG"]
+        else:
+            os.environ["TW_BENCH_CONFIG"] = prior
+    torch.cuda.synchronize()
+    launches = {k: ci.LAUNCHES[k] - bench_cuda.CHECK_LAUNCHES.get(k, 0)
+                + checks.get(k, 0) for k in ci.LAUNCHES}
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    limit = bench_cuda.power_limit()
+    kind = torch.cuda.get_device_name(0)
+    for ln in lines:
+        own = {k: v for k, v in ln.items() if k not in BENCH_SMOKE_KEYS}
+        say(f"bench_cuda --smoke {ln['config']}: seconds={ln['seconds']} "
+            f"{ln['metric']} power_limit={ln['power_limit']} "
+            f"{json.dumps(own)}")
+    _require_all("bench_cuda --smoke", {
+        "one line a config": [ln["config"] for ln in lines]
+        == list(BENCH_SMOKE),
+        **{f"{ln['config']}: the line's keys, ok, platform cuda, "
+           f"{kind}, {limit}":
+           BENCH_SMOKE_KEYS <= set(ln) and ln["ok"] is True
+           and ln["smoke"] is True and ln["platform"] == "cuda"
+           and ln["config_key"].endswith("|cuda")
+           and ln["device_kind"] == kind and ln["power_limit"] == limit
+           for ln in lines},
+        "K1, K2, K3 and K4 each launched": all(launches.values()),
+        "the insert gate's checks counted apart":
+            bench_cuda.CHECK_LAUNCHES["fire_compact"]
+            > checks["fire_compact"]})
+    say(f"bench_cuda --smoke: launches={launches} (the insert gate's "
+        f"comparisons and timings apart: "
+        f"{ {k: bench_cuda.CHECK_LAUNCHES[k] - checks[k] for k in checks} })")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6524,6 +6306,9 @@ def run_phases(torch, build, t_start) -> int:
         launches[k] += (wave_launches[k] + cli_launches[k] + svc_launches[k]
                         + shard_launches[k] + world_launches[k]
                         + parity_launches[k])
+    bench_launches = timed(66, phase_bench_smoke, device)
+    for k in launches:
+        launches[k] += bench_launches[k]
 
     LEGS.drain(wait=True)
     say(f"chip_smoke wall_s={time.perf_counter() - t_start}")

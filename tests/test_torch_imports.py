@@ -1,7 +1,7 @@
 """The port stands alone: importing ``timewarp_tpu_torch`` (every module
 of it) in a fresh interpreter leaves ``jax`` and the reference package
 ``timewarp_tpu`` out of ``sys.modules``; no source file of the port, nor
-``chip_smoke.py``, imports either (the run-mode planes' packages ``obs``,
+``chip_smoke.py`` and ``bench_cuda.py``, imports either (the run-mode planes' packages ``obs``,
 ``integrity``, ``dispatch``, ``speculate`` and ``controlled.py`` also
 imported first and alone, and so are the sweep service's packages
 ``sweep``, ``pack``, ``manage`` and ``interp.aio``, the chaos search's
@@ -171,13 +171,17 @@ def test_spawned_rank_holds_neither():
 
 def test_sources_import_neither_jax_nor_reference():
     """The package's sources, ``chip_smoke.py`` (the script that drives
-    the port on the card), the port's parity tool and its examples."""
+    the port on the card), the port's bench script ``bench_cuda.py``, the
+    port's parity tool and its examples; none imports the reference's
+    ``bench.py`` either."""
     offenders = []
     smoke = PKG.parent / "chip_smoke.py"
+    bench = PKG.parent / "bench_cuda.py"
     tool = PKG.parent / "tools" / "parity_cuda.py"
     examples = sorted((PKG.parent / "examples" / "torch").glob("*.py"))
-    assert smoke.exists() and tool.exists() and len(examples) == 6
-    for path in [*PKG.rglob("*.py"), smoke, tool, *examples]:
+    assert smoke.exists() and bench.exists() and tool.exists() \
+        and len(examples) == 6
+    for path in [*PKG.rglob("*.py"), smoke, bench, tool, *examples]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
@@ -185,7 +189,7 @@ def test_sources_import_neither_jax_nor_reference():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
             offenders += [f"{path.name}: {n}" for n in names
-                          if _is_jax(n) or _is_reference(n)]
+                          if _is_jax(n) or _is_reference(n) or n == "bench"]
     assert not offenders
 
 

@@ -119,8 +119,11 @@ def make_guard_row(comm, t, prev_time, counters, wake, never,
     import torch
     B = t.shape[0]
     neg = torch.zeros((B,), dtype=torch.int32, device=t.device)
-    for c in counters:
-        neg = neg + (c < 0).to(torch.int32)
+    # the counters of one dtype in one stack: a few launches, not three a
+    # counter (the guard row is paid every superstep)
+    for dt in sorted({c.dtype for c in counters}, key=str):
+        same = torch.stack([c for c in counters if c.dtype == dt])
+        neg = neg + (same < 0).sum(dim=0, dtype=torch.int32)
     wake_past = torch.zeros_like(neg)
     mb_neg = torch.zeros_like(neg)
     if not faulted:

@@ -13,7 +13,9 @@ i``, word index ``j`` and element index by the port's ``mix32``, summed
 with a wrapping uint32 sum per word vector, and the word sums folded in
 order. A scenario's ``u32_states`` (uint32 in the reference, int64 words
 in the port) count as one word per element, as in the reference. Cost:
-one elementwise pass over the state, about 40 int64 ops per word.
+one elementwise pass over the state, about 40 int64 ops per word, the
+word vectors of one length in one pass (about 40 launches a length), and
+the final fold of the per-vector sums on the host.
 
 A sharded state digests to the word its gathered state would, with
 no state gathered (``shards``: the sharded engine, whose ``leaf_axis``
@@ -118,43 +120,76 @@ def _global_index(L: int, x, axis, shards, dev):
     return (j // block) * (c.n_shards * block) + c.rank * block + j % block
 
 
+def _host_mix(*xs) -> int:
+    """``trace.hashing.mix32`` of Python ints, on the host."""
+    from ..trace.hashing import _M1, _M2
+    h = _SEED
+    for x in xs:
+        h ^= (int(x) & _MASK) * _M1 & _MASK
+        h = h * _M2 & _MASK
+        h ^= h >> 16
+    return h
+
+
+def _fold(h, x):
+    """One argument of ``mix32`` folded into the words ``h``."""
+    from ..trace.hashing import _M1, _M2, _mul32
+    h = _mul32(h ^ _mul32(x, _M1), _M2)
+    return h ^ (h >> 16)
+
+
 def _word_sums(state, u32, batched: bool, shards=None):
-    """Each non-empty word vector's wrapping sum of its mixed words, an
-    int64 ``[B]`` tensor (values in ``[0, 2**32)``), in the fold order;
-    ``shards`` a node-sharded engine (module docstring): this rank's
-    elements under their global indices."""
+    """Each non-empty word vector's wrapping sum of its mixed words
+    (``mix32(0xD1D0 + i, j, idx, w)``), an int64 ``[B]`` tensor (values
+    in ``[0, 2**32)``), in the fold order; ``shards`` a node-sharded
+    engine (module docstring): this rank's elements under their global
+    indices. The vectors of one length mix together: each vector's leaf
+    tag and word index fold on the host (every prefix in one copy to the
+    device), then one pass over the stacked ``[B, G, L]`` words."""
     import torch
-    from ..trace.hashing import mix32
     words = {f"states.{k}" for k in u32}
     leaves = state_leaves(state)
     B = leaves[0][1].shape[0] if batched else 1
     dev = leaves[0][1].device
-    sums = []
+    by_len = {}
+    n = 0
     for i, (name, leaf) in enumerate(leaves):
         x = leaf if batched else leaf.unsqueeze(0)
         axis = None if shards is None else shards.leaf_axis(name, leaf)
         for j, w in enumerate(_leaf_words(x, name in words, B)):
-            L = w.shape[1]
-            if L == 0:
-                continue
-            if axis is not None:
-                idx = _global_index(L, leaf, axis, shards, dev)
-            else:
-                idx = torch.arange(L, dtype=torch.int64, device=dev)
-            # the leaf tag and word index fold on the host (mix32)
-            lh = mix32(0xD1D0 + i, j, idx, w).sum(dim=1) & _MASK
+            if w.shape[1]:
+                by_len.setdefault(w.shape[1], []).append(
+                    (n, _host_mix(0xD1D0 + i, j), leaf, axis, w))
+                n += 1
+    groups = list(by_len.values())
+    pre = torch.tensor([v[1] for g in groups for v in g],
+                       dtype=torch.int64, device=dev)
+    sums = [None] * n
+    at = 0
+    for group in groups:
+        G, L = len(group), group[0][4].shape[1]
+        local = torch.arange(L, dtype=torch.int64, device=dev)
+        idx = local[None, :] if shards is None else torch.stack([
+            local if axis is None
+            else _global_index(L, leaf, axis, shards, dev)
+            for _, _, leaf, axis, _ in group])
+        h = _fold(pre[at:at + G, None], idx)                     # [G, L]
+        w = torch.stack([v[4] for v in group], dim=1)            # [B, G, L]
+        g = _fold(h[None], w).sum(dim=2) & _MASK                 # [B, G]
+        for m, (k, _, _, axis, _) in enumerate(group):
+            sums[k] = g[:, m]
             if shards is not None and axis is None \
                     and shards.shard_comm.rank != 0:
-                lh = torch.zeros_like(lh)     # replicated: rank 0's alone
-            sums.append(lh)
+                sums[k] = torch.zeros_like(sums[k])  # replicated: rank 0's
+        at += G
     return sums
 
 
 def _digest(state, u32=(), batched: bool = False, shards=None):
     """``[B]`` int64 digests (values in ``[0, 2**32)``); B = 1 solo.
-    ``shards`` is a sharded engine (module docstring) or None."""
+    ``shards`` is a sharded engine (module docstring) or None. The word
+    sums cross to the host in one copy and fold there."""
     import torch
-    from ..trace.hashing import mix32
     if shards is not None and shards.worlds_local is not None:
         # a world-sharded fleet: this rank's worlds, gathered
         return shards.shard_comm.all_gather(_digest(state, u32, batched), 0)
@@ -164,11 +199,16 @@ def _digest(state, u32=(), batched: bool = False, shards=None):
                                          u32=tuple(range(len(sums))))
     leaves = state_leaves(state)
     B = leaves[0][1].shape[0] if batched else 1
-    h = torch.full((B,), _SEED, dtype=torch.int64,
-                   device=leaves[0][1].device)
-    for lh in sums:
-        h = mix32(h, lh)
-    return h
+    dev = leaves[0][1].device
+    host = torch.stack(list(sums)).cpu().numpy() if sums \
+        else np.zeros((0, B), np.int64)
+    out = []
+    for b in range(B):
+        h = _SEED
+        for lh in host[:, b]:
+            h = _host_mix(h, lh)
+        out.append(h)
+    return torch.tensor(out, dtype=torch.int64, device=dev)
 
 
 def tree_digest(state, u32=(), shards=None):

@@ -44,7 +44,9 @@ CLI (``timewarp-tpu ledger``)::
     ledger anomalies [--ledger DIR] TARGET  # obs/regress.py
 
 ``bench.py --ledger DIR`` auto-appends every emitted bench line (one
-batch per bench invocation), so running the bench *is* recording it.
+batch per bench invocation), so running the bench *is* recording it;
+so does the port's ``bench_cuda.py --ledger DIR``, whose lines add
+``torch_version`` and ``power_limit`` to the record.
 """
 
 from __future__ import annotations
@@ -284,6 +286,12 @@ class RunLedger:
             "source": source,
             "line": line,
         }
+        # bench_cuda.py's lines say where they ran in torch's terms: the
+        # torch version and the card's power limit (null on the CPU) go
+        # beside jax_version; a line without them records as before
+        for f in ("torch_version", "power_limit"):
+            if f in line:
+                rec[f] = line[f]
         # the comparable measurements ride the index line itself:
         # the rate (median-of-reps, with min/max bands when --reps
         # ran), the smoke wall seconds, and the serving layer's
