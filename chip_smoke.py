@@ -390,7 +390,19 @@ then the bench script:
     worlds), every in-bench gate on: one line each with the bench
     line's keys, ``platform`` ``cuda``, the card's name and
     ``nvidia-smi``'s power limit; each of K1-K4 launched (the insert
-    gate's kernel-against-plain and timing launches apart).
+    gate's kernel-against-plain and timing launches apart);
+
+then the NCCL leg:
+
+67. ``tools/multichip_cuda.py``'s rows 1-3 (``__graft_entry__.py``'s
+    ``dryrun_multichip``: the token ring of 32 nodes through
+    ``ShardedEdgeEngine``, gossip of 16 nodes through ``ShardedEngine``,
+    burst gossip under a 2 000 µs window) in ONE NCCL rank on ``cuda:0``
+    (``spawn(..., backend="nccl")``: every collective of ``MeshComm``
+    on device tensors, the exchange's data moving only on the card),
+    each equal to its one-device run on the card (traces, every leaf,
+    the rows' invariants), K1 once per superstep on rows 2 and 3; the
+    four-card rows are the tool's alone.
 
 The card-against-CPU phases (5, 11, 18, 23, 28, 36, 40, 55, 56, 57,
 58 and 65) run
@@ -409,7 +421,7 @@ Wall-clock overheads are printed and gated at 2x at most (the host is
 shared). Every phase prints its wall (``phase N wall_s=``), and the
 script its total (``chip_smoke wall_s=``). Then one ``{"kernels": [...]}`` line (K1's ``launches`` summed
 over its main paths, phases 4, 21, 27, 34, 38, 39, 42, 43, 46-51, 54 and
-57-66, K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51, 54 and 57-66,
+57-67, K2's over phases 4, 27, 34, 38, 39, 42, 43, 46-51, 54 and 57-66,
 K3's over phases 9, 61, 65 and 66, K4's over phases 16 and 66;
 K1′,
 ``mailbox_insert_per_shard``, phase 52's ranks' K1 launches (its verified
@@ -4311,10 +4323,11 @@ CK_STEPS = 48
 
 def _comm_timers(comm):
     """Wrap ``comm``'s collectives in timers (the device drained before
-    and after each, so a collective's time is its own: with gloo, the
-    copies to the host and back and the transport): seconds spent in the
-    exchange (``all_to_all`` and the roll's sends) and in the reductions
-    (pop-min, counters, liveness)."""
+    and after each, NCCL's stream included, so a collective's time is its
+    own: with gloo, the copies to the host and back and the transport;
+    with NCCL, its kernels on the device): seconds spent in the exchange
+    (``all_to_all`` and the roll's sends) and in the reductions (pop-min,
+    counters, liveness)."""
     import torch
     acc = {"exchange": 0.0, "reduce": 0.0}
     cuda = comm.device.type == "cuda"
@@ -4338,14 +4351,32 @@ def _comm_timers(comm):
     return acc
 
 
+def warm_transport(device):
+    """Each collective the engines ride, once between every pair of
+    ranks, before anything is timed: NCCL connects two ranks at their
+    first exchange, which took the first supersteps of four ranks to
+    hundreds of ms each."""
+    import torch
+    import torch.distributed as dist
+    D = dist.get_world_size()
+    x = torch.zeros(D * 256, dtype=torch.int32, device=device)
+    dist.all_to_all_single(torch.empty_like(x), x)
+    y = torch.zeros(8, dtype=torch.int64, device=device)
+    dist.all_reduce(y)
+    dist.all_gather([torch.empty_like(y) for _ in range(D)], y)
+    dist.barrier()
+
+
 def _rank_run(tag, run, comm, steps_of, prof_run):
     """``run()`` on every rank at once, timed between barriers, with the
     collectives' timers and the kernels' launches counted over it (the
-    caller zeroes the counts just before); then ``prof_run(result)`` (a
-    few supersteps more) under ``torch.profiler`` for each rank's device
-    time, and the card's idle share: one minus the ranks' kernel time
-    summed, over the profiled run's wall. Prints the rank's line; returns
-    ``(result, record)``."""
+    caller zeroes the counts just before); then, unless ``prof_run`` is
+    None, ``prof_run(result)`` (a few supersteps more) under
+    ``torch.profiler`` for each rank's device time, NCCL's kernels apart
+    (they wait on the other ranks), and the idle share: of the rank's
+    card (one minus its kernel time, NCCL's aside, over the profiled
+    run's wall) and of each card over the ranks sharing it (their kernel
+    time summed). Prints the rank's line; returns ``(result, record)``."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -4363,28 +4394,39 @@ def _rank_run(tag, run, comm, steps_of, prof_run):
     steps = steps_of(out)
     rec = dict(wall=wall, steps=steps, exchange_s=acc["exchange"],
                reduce_s=acc["reduce"], launches=dict(ci.LAUNCHES))
-    if cuda:
+    if cuda and prof_run is not None:
         dist.barrier()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             prof_run(out)
             torch.cuda.synchronize()
             pwall = time.perf_counter() - t1
-        dev_s = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        dev_s = nccl_s = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                if e.key.lower().startswith("nccl"):
+                    nccl_s += e.self_device_time_total / 1e6
+                else:
+                    dev_s += e.self_device_time_total / 1e6
+        card = torch.cuda.current_device()
         both = [None] * dist.get_world_size()
-        dist.all_gather_object(both, (dev_s, pwall))
-        rec.update(device_s=dev_s, idle_share_rank=1 - dev_s / pwall,
-                   idle_share_card=1 - sum(d for d, _ in both)
-                   / max(w for _, w in both))
+        dist.all_gather_object(both, (dev_s, pwall, card))
+        mates = [(d, w) for d, w, c in both if c == card]
+        rec.update(device_s=dev_s, nccl_s=nccl_s, card=card,
+                   idle_share_rank=1 - dev_s / pwall,
+                   idle_share_card=1 - sum(d for d, _ in mates)
+                   / max(w for _, w in mates))
+    transport = "host staging" if comm.gloo else "NCCL on the device"
     say(f"rank {dist.get_rank()} {tag}: supersteps={steps} wall_s={wall} "
         f"wall_ms_per_superstep={wall / max(steps, 1) * 1e3} "
         f"exchange_share={acc['exchange'] / wall} (all_to_all and roll "
-        f"with host staging, {acc['exchange']} s) reduce_share="
+        f"with {transport}, {acc['exchange']} s) reduce_share="
         f"{acc['reduce'] / wall} (pop-min, counters, liveness) "
         + (f"device_idle_share_rank={rec['idle_share_rank']} "
-           f"device_idle_share_card={rec['idle_share_card']}"
-           if cuda else "device idle share not measured on the CPU"))
+           f"device_idle_share_card={rec['idle_share_card']} (cuda:"
+           f"{rec['card']}; NCCL kernels {rec['nccl_s']} s apart)"
+           if "card" in rec else "device idle share not measured"
+           + (" on the CPU" if not cuda else " (no profile)")))
     return out, rec
 
 
@@ -4414,15 +4456,17 @@ def _take_k1(eng, drive):
     return taken["args"], taken["valid"]
 
 
-def rank_node_sharded(device, steps=SHARD_STEPS, n=STEADY_N):
+def rank_node_sharded(device, steps=SHARD_STEPS, n=STEADY_N,
+                      engines=("fused", "general"), verified=True):
     """Phase 52 in one rank: steady gossip at ``n`` through
-    ``ShardedFusedSparseEngine`` (K1′) and ``ShardedEngine``, ``run`` for
-    ``steps`` supersteps each, K1 counted over each run, the two engines'
-    shards of the state equal on the rank (the fused one's gathered for
-    the caller); then K1′ at the rank's busiest superstep of the same
-    ``steps`` (a ``run_quiet`` from the start; the gossip saturates past
-    superstep 32) against its plain version (bit-equal) and, one rank
-    at a time, its time and bound."""
+    ``ShardedFusedSparseEngine`` (K1′) and ``ShardedEngine`` (``engines``
+    names which: the fused one always), ``run`` for ``steps`` supersteps
+    each, K1 counted over each run, the two engines' shards of the state
+    equal on the rank (the fused one's gathered for the caller); then K1′
+    at the rank's busiest superstep of the same ``steps`` (a
+    ``run_quiet`` from the start; the gossip saturates past superstep 32)
+    against its plain version (bit-equal) and, one rank at a time, its
+    time and bound; then, with ``verified``, the verified legs."""
     import torch
     import torch.distributed as dist
     from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
@@ -4437,6 +4481,8 @@ def rank_node_sharded(device, steps=SHARD_STEPS, n=STEADY_N):
     out = {}
     for name, cls in (("fused", ShardedFusedSparseEngine),
                       ("general", ShardedEngine)):
+        if name not in engines:
+            continue
         eng = cls(sc, link, mesh, device=device)
         ci.reset_launches()
         (st, tr), rec = _rank_run(
@@ -4482,7 +4528,8 @@ def rank_node_sharded(device, steps=SHARD_STEPS, n=STEADY_N):
                               S2=args[3].numel())
         del eng, st
         torch.cuda.empty_cache()
-    out.update(rank_node_verified(device, sc, link, mesh))
+    if verified:
+        out.update(rank_node_verified(device, sc, link, mesh))
     return out
 
 
@@ -4541,14 +4588,17 @@ def rank_node_verified(device, sc, link, mesh):
 
 def rank_edge_sharded(device, steps=SHARD_STEPS, n=RING_N):
     """Phase 53 in one rank: the dense ring at ``n`` through
-    ``ShardedEdgeEngine`` (the ring's delivery a roll over the ranks)."""
+    ``ShardedEdgeEngine`` (the ring's delivery a roll over the ranks),
+    the kernels' launches counted over the run."""
     import torch.distributed as dist
+    from timewarp_tpu_torch.interp.torch_engine import cuda_insert as ci
     from timewarp_tpu_torch.interp.torch_engine.sharded import \
         ShardedEdgeEngine
     from timewarp_tpu_torch.interp.torch_engine.state_io import \
         edge_state_to_numpy
     from timewarp_tpu_torch.parallel import make_mesh
     eng = ShardedEdgeEngine(*dense_ring(n), make_mesh(), device=device)
+    ci.reset_launches()
     (st, tr), rec = _rank_run(f"phase 53 ShardedEdgeEngine dense ring n={n}",
                               lambda: eng.run(steps), eng.comm,
                               lambda r: len(r[1]),
@@ -4641,11 +4691,12 @@ def rank_checkpoint(device, path):
     import torch.distributed as dist
     from timewarp_tpu_torch import cli
     from timewarp_tpu_torch.parallel import make_mesh
+    D = dist.get_world_size()
     args = cli.run_parser().parse_args(
-        CLI_CK + ["--engine", "sharded", "--devices", str(SHARD_D),
+        CLI_CK + ["--engine", "sharded", "--devices", str(D),
                   "--steps", str(CK_STEPS), "--save", path])
     t0 = time.perf_counter()
-    summary = cli.execute(args, device, None, mesh=make_mesh(SHARD_D),
+    summary = cli.execute(args, device, None, mesh=make_mesh(D),
                           rank=dist.get_rank())
     return dict(summary=summary, wall=time.perf_counter() - t0)
 
@@ -4709,20 +4760,24 @@ def leg_ranks(dev, n=1 << 12):
                  device=dev, args=(n,), threads=1)[0]
 
 
-def ranks_on_card(device, steps=SHARD_STEPS, sizes=None, ck_path=None):
-    """Phases 52-55 (the card's half of 55) in one gloo rank sharing the
-    card, and the checkpoint leg (``ck_path``): each between barriers,
-    its wall measured on rank 0. ``sizes`` (the node counts of 52, 53, 54
-    and 55) defaults to the configurations' own."""
+def ranks_on_card(device, steps=SHARD_STEPS, sizes=None, ck_path=None,
+                  phases=(52, 53, 54, 55), node_opts=None):
+    """``phases`` of 52-55 (the card's half of 55) in one rank, and the
+    checkpoint leg (``ck_path``), after :func:`warm_transport`: each
+    between barriers, its wall measured on rank 0. ``sizes`` (the node
+    counts of 52, 53, 54 and 55) defaults to the configurations' own;
+    ``node_opts`` are :func:`rank_node_sharded`'s options."""
     import torch.distributed as dist
     n52, n53, n54, n55 = sizes or (STEADY_N, RING_N, CHAOS_N, 1 << 12)
     out, walls = {}, {}
-    for phase, fn in ((52, lambda: rank_node_sharded(device, steps, n52)),
+    warm_transport(device)
+    for phase, fn in ((52, lambda: rank_node_sharded(device, steps, n52,
+                                                     **(node_opts or {}))),
                       (53, lambda: rank_edge_sharded(device, steps, n53)),
                       (54, lambda: rank_fleet_sharded(device, n54)),
                       (55, lambda: small_sharded_cases(device, n55)),
                       ("ck", lambda: rank_checkpoint(device, ck_path))):
-        if phase == "ck" and ck_path is None:
+        if phase not in phases and not (phase == "ck" and ck_path):
             continue
         dist.barrier()
         t0 = time.perf_counter()
@@ -4742,15 +4797,21 @@ def _np_states_equal(what, a, b) -> None:
             raise AssertionError(f"{what}: state.{name} differs")
 
 
-def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
-    """Phases 52-55: the multi-device slice, ranks of ``torch.distributed``
-    (gloo, sharing the card) started by ``parallel.launch.spawn``; each
-    sharded run held equal to its one-device run over the same supersteps
-    (every leaf of the gathered state, every counter, the trace's digest
-    chain), the card ranks to CPU ranks at 2^12; the verified, streamed
-    and checkpointed legs against theirs. ``sizes`` as
-    :func:`ranks_on_card`'s. Returns ``(K1′ record, K1′ launches, K2/K1
-    launches of phase 54)``."""
+def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None,
+                  ranks=SHARD_D, backend="gloo", phases=(52, 53, 54, 55),
+                  engines=("fused", "general"), verified=True):
+    """Phases 52-55: the multi-device slice, ``ranks`` ranks of
+    ``torch.distributed`` over ``backend`` started by
+    ``parallel.launch.spawn`` (chip_smoke's own: 2 gloo ranks sharing the
+    card; ``tools/multichip_cuda.py`` runs ``phases`` 52-54 on NCCL, one
+    card a rank); each sharded run held equal to its one-device run over
+    the same supersteps (every leaf of the gathered state, every counter,
+    the trace's digest chain), the card ranks to CPU ranks at 2^12; the
+    verified, streamed and checkpointed legs against theirs. ``sizes`` as
+    :func:`ranks_on_card`'s; ``engines`` and ``verified`` as
+    :func:`rank_node_sharded`'s. Returns ``(K1′ record, K1′ launches,
+    K2/K1 launches of phase 54, {phase: every rank's result})``; ``chaos_fin``
+    (phase 27's final fleet) is read only for 54."""
     import os
 
     import torch
@@ -4762,111 +4823,141 @@ def phase_sharded(device, chaos_fin, steps=SHARD_STEPS, sizes=None):
     from timewarp_tpu_torch.trace.events import assert_traces_equal
     n52, n53, n54, n55 = sizes or (STEADY_N, RING_N, CHAOS_N, 1 << 12)
     # the one-device runs first, while the card is the script's alone
-    sc, link = steady_gossip(n52)
-    solo_st, solo_tr = TorchEngine(sc, link, device=device).run(steps)
-    solo52 = state_to_numpy(solo_st, sc)
-    del solo_st
-    twins52 = solo_verified(device, sc, link)
-    ring_st, ring_tr = EdgeEngine(*dense_ring(n53), device=device).run(
-        steps)
-    solo53 = edge_state_to_numpy(ring_st)
-    del ring_st
-    want54 = state_to_numpy(chaos_fin, chaos_fleet(n54)[0])
-    twins54 = solo_fleet_drivers(device, n54)
+    if 52 in phases:
+        sc, link = steady_gossip(n52)
+        solo_st, solo_tr = TorchEngine(sc, link, device=device).run(steps)
+        solo52 = state_to_numpy(solo_st, sc)
+        del solo_st
+        twins52 = solo_verified(device, sc, link) if verified else None
+    if 53 in phases:
+        ring_st, ring_tr = EdgeEngine(*dense_ring(n53),
+                                      device=device).run(steps)
+        solo53 = edge_state_to_numpy(ring_st)
+        del ring_st
+    if 54 in phases:
+        want54 = state_to_numpy(chaos_fin, chaos_fleet(n54)[0])
+        twins54 = solo_fleet_drivers(device, n54)
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ck_path = os.path.join(_scratch(), "sharded_ck.npz")
+    ck_path = os.path.join(_scratch(), "sharded_ck.npz") if 55 in phases \
+        else None
     t0 = time.perf_counter()
-    res = spawn("chip_smoke:ranks_on_card", SHARD_D, backend="gloo",
-                device=device.type, args=(steps, sizes, ck_path))
+    res = spawn("chip_smoke:ranks_on_card", ranks, backend=backend,
+                device=device.type,
+                args=(steps, sizes, ck_path, phases,
+                      dict(engines=engines, verified=verified)))
     spawn_wall = time.perf_counter() - t0
     walls = res[0]["walls"]
-    say(f"sharded ranks: {SHARD_D} gloo ranks on cuda:0 spawn_and_run_s="
-        f"{spawn_wall} (phases {sum(walls.values())} s, the rest starting "
-        "the ranks)")
+    where = "the CPU" if device.type == "cpu" else "cuda:0" \
+        if torch.cuda.device_count() == 1 \
+        else f"{min(ranks, torch.cuda.device_count())} cards"
+    say(f"sharded ranks: {ranks} {backend} ranks on {where} "
+        f"spawn_and_run_s={spawn_wall} (phases {sum(walls.values())} s, the "
+        "rest starting the ranks)")
+    k1p, k1p_launches = None, 0
+    fleet_launches = {"fire_compact": 0, "mailbox_insert": 0}
 
     # 52: node-sharded gossip = the one-device run, K1′ once per superstep
-    r52 = [r[52] for r in res]
-    _np_states_equal("phase 52 sharded fused vs one device", solo52,
-                     r52[0]["fused"]["state"])
-    for name in ("fused", "general"):
-        assert_traces_equal(solo_tr, r52[0][name]["trace"], "one device",
-                            f"sharded {name}")
-        for r, rr in enumerate(r52):
-            ln = rr[name]["launches"]
-            _require_all(f"phase 52 {name} rank {r}", {
-                "K1 once per superstep": ln["mailbox_insert"] == len(solo_tr),
-                "no K2/K3/K4": ln["fire_compact"] == ln["sample_insert"]
-                == ln["fused_ring"] == 0,
-                "the same trace on every rank": np.array_equal(
-                    rr[name]["trace"].recv_hash, solo_tr.recv_hash)})
-    _require_all("phase 52", {"S2 = D * bucket_cap in 1024-entry tiles":
-                              r52[0]["fused"]["S"] % 1024 == 0})
-    k1p = max((rr["k1p"] for rr in r52), key=lambda r: r["ms"])
-    k1p_launches = sum(rr[nm]["launches"]["mailbox_insert"]
-                       for rr in r52 for nm in ("fused", "general"))
-    fs = int(solo52["delivered"])
-    say(f"phase 52: node-sharded steady gossip n={n52} over {SHARD_D} "
-        f"ranks, {len(solo_tr)} supersteps: ShardedFusedSparseEngine = "
-        f"ShardedEngine = TorchEngine (traces, every leaf, delivered={fs}, "
-        f"overflow={int(solo52['overflow'])}); K1' launched "
-        f"{k1p_launches} times in all (once per superstep on each rank)")
-    k1p_launches += check_node_verified(r52, twins52)
-    say(f"phase 52 wall_s={walls[52]}")
+    if 52 in phases:
+        r52 = [r[52] for r in res]
+        _np_states_equal("phase 52 sharded fused vs one device", solo52,
+                         r52[0]["fused"]["state"])
+        for name in engines:
+            assert_traces_equal(solo_tr, r52[0][name]["trace"], "one device",
+                                f"sharded {name}")
+            for r, rr in enumerate(r52):
+                ln = rr[name]["launches"]
+                _require_all(f"phase 52 {name} rank {r}", {
+                    "K1 once per superstep":
+                        ln["mailbox_insert"] == len(solo_tr),
+                    "no K2/K3/K4": ln["fire_compact"] == ln["sample_insert"]
+                    == ln["fused_ring"] == 0,
+                    "the same trace on every rank": np.array_equal(
+                        rr[name]["trace"].recv_hash, solo_tr.recv_hash)})
+        _require_all("phase 52", {"S2 = D * bucket_cap in 1024-entry tiles":
+                                  r52[0]["fused"]["S"] % 1024 == 0})
+        k1p = max((rr["k1p"] for rr in r52), key=lambda r: r["ms"])
+        k1p_launches = sum(rr[nm]["launches"]["mailbox_insert"]
+                           for rr in r52 for nm in engines)
+        fs = int(solo52["delivered"])
+        say(f"phase 52: node-sharded steady gossip n={n52} over {ranks} "
+            f"{backend} ranks, {len(solo_tr)} supersteps: "
+            f"{' = '.join(ENGINE_NAMES[e] for e in engines)} = TorchEngine "
+            f"(traces, every leaf, delivered={fs}, overflow="
+            f"{int(solo52['overflow'])}); K1' launched {k1p_launches} times "
+            "in all (once per superstep on each rank)")
+        if verified:
+            k1p_launches += check_node_verified(r52, twins52)
+        say(f"phase 52 wall_s={walls[52]}")
 
     # 53: the sharded ring = EdgeEngine
-    r53 = res[0][53]
-    assert_traces_equal(ring_tr, r53["trace"], "EdgeEngine", "sharded ring")
-    _np_states_equal("phase 53 sharded ring vs EdgeEngine", solo53,
-                     r53["state"])
-    say(f"phase 53: sharded dense ring n={n53} over {SHARD_D} ranks, "
-        f"{len(ring_tr)} supersteps = EdgeEngine (traces, every leaf, "
-        f"delivered={int(solo53['delivered'])})")
-    say(f"phase 53 wall_s={walls[53]}")
+    if 53 in phases:
+        r53 = res[0][53]
+        assert_traces_equal(ring_tr, r53["trace"], "EdgeEngine",
+                            "sharded ring")
+        _require_all("phase 53", {
+            f"rank {r}: no kernel (EdgeEngine's torch ops)":
+                not any(rr[53]["launches"].values())
+            for r, rr in enumerate(res)})
+        _np_states_equal("phase 53 sharded ring vs EdgeEngine", solo53,
+                         r53["state"])
+        say(f"phase 53: sharded dense ring n={n53} over {ranks} {backend} "
+            f"ranks, {len(ring_tr)} supersteps = EdgeEngine (traces, every "
+            f"leaf, delivered={int(solo53['delivered'])})")
+        say(f"phase 53 wall_s={walls[53]}")
 
     # 54: the sharded chaos fleet = phase 27's worlds
-    r54 = [r[54] for r in res]
-    _np_states_equal("phase 54 sharded chaos fleet vs phase 27", want54,
-                     r54[0]["state"])
-    fleet_launches = {"fire_compact": 0, "mailbox_insert": 0}
-    for r, rr in enumerate(r54):
-        ln = rr["launches"]
-        _require_all(f"phase 54 rank {r}", {
-            "4 worlds a rank": rr["local_worlds"] == CHAOS_B // SHARD_D,
-            "K2 and K1 once per fleet superstep":
-                ln["fire_compact"] == ln["mailbox_insert"] == rr["steps"],
-            "no K3/K4": ln["sample_insert"] == ln["fused_ring"] == 0})
-        for k in fleet_launches:
-            fleet_launches[k] += ln[k]
-    say(f"phase 54: sharded chaos fleet B={CHAOS_B} n={n54} over "
-        f"{SHARD_D} ranks of {CHAOS_B // SHARD_D} worlds: every leaf = phase "
-        f"27's fleet; fleet supersteps per rank {[rr['steps'] for rr in r54]}"
-        f", K2/K1 once per fleet superstep on each rank")
-    for k, v in check_fleet_drivers(r54, twins54).items():
-        fleet_launches[k] += v
-    say(f"phase 54 wall_s={walls[54]}")
+    if 54 in phases:
+        r54 = [r[54] for r in res]
+        _np_states_equal("phase 54 sharded chaos fleet vs phase 27", want54,
+                         r54[0]["state"])
+        for r, rr in enumerate(r54):
+            ln = rr["launches"]
+            _require_all(f"phase 54 rank {r}", {
+                f"{CHAOS_B // ranks} worlds a rank":
+                    rr["local_worlds"] == CHAOS_B // ranks,
+                "K2 and K1 once per fleet superstep":
+                    ln["fire_compact"] == ln["mailbox_insert"] == rr["steps"],
+                "no K3/K4": ln["sample_insert"] == ln["fused_ring"] == 0})
+            for k in fleet_launches:
+                fleet_launches[k] += ln[k]
+        say(f"phase 54: sharded chaos fleet B={CHAOS_B} n={n54} over "
+            f"{ranks} {backend} ranks of {CHAOS_B // ranks} worlds: every "
+            "leaf = phase 27's fleet; fleet supersteps per rank "
+            f"{[rr['steps'] for rr in r54]}, K2/K1 once per fleet superstep "
+            "on each rank")
+        for k, v in check_fleet_drivers(r54, twins54).items():
+            fleet_launches[k] += v
+        say(f"phase 54 wall_s={walls[54]}")
 
     # 55: the card's ranks = CPU ranks at 2^12
-    t0 = time.perf_counter()
-    cpu = LEGS.get("ranks") if LEGS is not None and sizes is None \
-        else leg_ranks("cpu", n55)
-    cpu_wall = time.perf_counter() - t0
-    card = res[0][55]
-    for tag, c in card.items():
-        g = cpu[tag]
-        ta, tb = (c["trace"], g["trace"])
-        for w, (x, y) in enumerate(zip(*(t if isinstance(t, list) else [t]
-                                         for t in (ta, tb)))):
-            assert_traces_equal(x, y, f"card {tag} w{w}", "CPU ranks")
-        _np_states_equal(f"phase 55 {tag}: card vs CPU ranks", c["state"],
-                         g["state"])
-        say(f"phase 55: {tag}: card ranks = CPU ranks (traces, every leaf; "
-            f"{c['steps']} supersteps, card wall_s={c['wall']} CPU wall_s="
-            f"{g['wall']})")
-    say(f"phase 55 wall_s={walls[55] + cpu_wall}")
-    check_sharded_checkpoint(res[0]["ck"], ck_path)
-    say(f"phase 55 (checkpoint) wall_s={walls['ck']}")
-    return k1p, k1p_launches, fleet_launches
+    if 55 in phases:
+        t0 = time.perf_counter()
+        cpu = LEGS.get("ranks") if LEGS is not None and sizes is None \
+            else leg_ranks("cpu", n55)
+        cpu_wall = time.perf_counter() - t0
+        card = res[0][55]
+        for tag, c in card.items():
+            g = cpu[tag]
+            ta, tb = (c["trace"], g["trace"])
+            for w, (x, y) in enumerate(zip(*(t if isinstance(t, list)
+                                             else [t] for t in (ta, tb)))):
+                assert_traces_equal(x, y, f"card {tag} w{w}", "CPU ranks")
+            _np_states_equal(f"phase 55 {tag}: card vs CPU ranks",
+                             c["state"], g["state"])
+            say(f"phase 55: {tag}: card ranks = CPU ranks (traces, every "
+                f"leaf; {c['steps']} supersteps, card wall_s={c['wall']} "
+                f"CPU wall_s={g['wall']})")
+        say(f"phase 55 wall_s={walls[55] + cpu_wall}")
+        check_sharded_checkpoint(res[0]["ck"], ck_path)
+        say(f"phase 55 (checkpoint) wall_s={walls['ck']}")
+    return k1p, k1p_launches, fleet_launches, {
+        p: [r[p] for r in res] for p in phases if p != 55}
+
+
+#: phase 52's engines by the name rank_node_sharded keys them
+ENGINE_NAMES = {"fused": "ShardedFusedSparseEngine",
+                "general": "ShardedEngine"}
 
 
 def solo_verified(device, sc, link):
@@ -4918,7 +5009,7 @@ def check_node_verified(r52, twins):
                 == ln["fused_ring"] == 0})
             total += ln["mailbox_insert"]
         g = r52[0][f"verify_{mode}"]
-        say(f"phase 52: verify={mode} steady gossip over {SHARD_D} ranks, "
+        say(f"phase 52: verify={mode} steady gossip over {len(r52)} ranks, "
             f"{SHARD_VERIFY_STEPS} supersteps in chunks of "
             f"{SHARD_VERIFY_CHUNK}, {g['flip'][1]}: = TorchEngine's "
             f"run_verified (trace, every leaf, integrity record: "
@@ -4999,7 +5090,7 @@ def check_fleet_drivers(r54, twins):
             for k in launches:
                 launches[k] += ln[k]
         g = r54[0][leg]
-        say(f"phase 54: the chaos fleet's {leg} driver over {SHARD_D} ranks "
+        say(f"phase 54: the chaos fleet's {leg} driver over {len(r54)} ranks "
             f"= one device's (traces, every leaf"
             + (f", integrity record, {g['flip'][1]}, rollbacks="
                f"{g['rec']['rollbacks']}" if leg == "verified" else
@@ -6125,6 +6216,41 @@ def phase_bench_smoke(device):
     return launches
 
 
+def _multichip_tool():
+    """``tools/multichip_cuda.py`` as the module ``multichip_cuda`` (its
+    directory on ``sys.path``, so that the ranks import it by name)."""
+    import importlib
+    import os
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module("multichip_cuda")
+
+
+def phase_multichip_dryrun(device):
+    """Phase 67: the multichip tool's rows 1-3 in one NCCL rank on the
+    card against their one-device runs (module docstring), unprofiled (a
+    rank's first profile costs about 10 s; the tool profiles). Returns
+    K1-K4's launches of the rank's sharded runs."""
+    tool = _multichip_tool()
+    res, solo = tool.run_dryrun_rows(device, 1, "nccl", profile=False)
+    launches = {k: sum(r[0]["launches"][k] for r in res.values())
+                for k in res[1][0]["launches"]}
+    for row, per in res.items():
+        g = per[0]
+        say(f"phase 67: row {row} {tool.ROWS[row]} in one NCCL rank on "
+            f"cuda:0 = one device ({len(solo[row])} supersteps, "
+            f"delivered={solo[row].total_delivered()}); wall_ms_per_superstep"
+            f"={g['wall'] / max(g['steps'], 1) * 1e3} exchange_share="
+            f"{g['exchange_s'] / g['wall']} reduce_share="
+            f"{g['reduce_s'] / g['wall']} (idle share: the tool's, not "
+            f"profiled here); launches={g['launches']}")
+    _require_all("phase 67", {"K1 launched": launches["mailbox_insert"]
+                              > 0})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6279,8 +6405,8 @@ def run_phases(torch, build, t_start) -> int:
     err_k2 = max(err_k2, served_errs[0])
     err_k1 = max(err_k1, served_errs[1])
 
-    k1p, k1p_launches, shard_fleet_launches = phase_sharded(device,
-                                                            chaos_fin)
+    k1p, k1p_launches, shard_fleet_launches, _ = phase_sharded(device,
+                                                               chaos_fin)
     for k in ("fire_compact", "mailbox_insert"):
         launches[k] += shard_fleet_launches[k]
 
@@ -6309,6 +6435,9 @@ def run_phases(torch, build, t_start) -> int:
     bench_launches = timed(66, phase_bench_smoke, device)
     for k in launches:
         launches[k] += bench_launches[k]
+    nccl_launches = timed(67, phase_multichip_dryrun, device)
+    for k in launches:
+        launches[k] += nccl_launches[k]
 
     LEGS.drain(wait=True)
     say(f"chip_smoke wall_s={time.perf_counter() - t_start}")

@@ -172,16 +172,18 @@ def test_spawned_rank_holds_neither():
 def test_sources_import_neither_jax_nor_reference():
     """The package's sources, ``chip_smoke.py`` (the script that drives
     the port on the card), the port's bench script ``bench_cuda.py``, the
-    port's parity tool and its examples; none imports the reference's
-    ``bench.py`` either."""
+    port's parity and multichip tools and its examples; none imports the
+    reference's ``bench.py`` either."""
     offenders = []
     smoke = PKG.parent / "chip_smoke.py"
     bench = PKG.parent / "bench_cuda.py"
     tool = PKG.parent / "tools" / "parity_cuda.py"
+    multichip = PKG.parent / "tools" / "multichip_cuda.py"
     examples = sorted((PKG.parent / "examples" / "torch").glob("*.py"))
     assert smoke.exists() and bench.exists() and tool.exists() \
-        and len(examples) == 6
-    for path in [*PKG.rglob("*.py"), smoke, bench, tool, *examples]:
+        and multichip.exists() and len(examples) == 6
+    for path in [*PKG.rglob("*.py"), smoke, bench, tool, multichip,
+                 *examples]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):

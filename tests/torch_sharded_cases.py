@@ -810,6 +810,19 @@ def fail_on_rank(device, bad):
     return dist.get_rank()
 
 
+def fail_with_a_slow_exit(device, bad, seconds):
+    """A launch target whose rank ``bad`` raises and then takes
+    ``seconds`` to exit (as a teardown that blocks would), while the
+    others sleep as long in no collective: only the failed rank's claim
+    can stop the launch early."""
+    if dist.get_rank() == bad:
+        import atexit
+        atexit.register(time.sleep, seconds)
+        raise ValueError(f"rank {bad} fails on purpose")
+    time.sleep(seconds)
+    return dist.get_rank()
+
+
 CASES = {k[5:]: v for k, v in sorted(globals().items())
          if k.startswith("case_")}
 #: what the ranks run on the CPU (K1 per shard is the card's case)

@@ -34,9 +34,14 @@ Where the port differs from the reference's CLI (each loud):
   stays (K2's batch width).
 - ``--jax-profile`` is refused in favour of ``--torch-profile DIR``, a
   ``torch.profiler`` session (obs/profiler.py).
-- ``--devices N`` with a sharded engine starts N gloo ranks
-  (parallel/launch.py ``spawn``; on the card they share it); rank 0
-  prints the summary. On the CPU ``--devices`` is required. A sharded
+- ``--devices N`` with a sharded engine starts N ranks
+  (parallel/launch.py ``spawn``); rank 0 prints the summary. The ranks
+  are gloo processes (on the card they share it) unless ``--dist-backend
+  nccl`` (new) asks for NCCL, one card a rank, the collectives on device
+  tensors; ``nccl`` with ``--device cpu``, or with fewer cards than
+  ``--devices``, exits naming the cause and never falls back to gloo.
+  The reference's ``--devices N`` always means N devices of its
+  platform. On the CPU ``--devices`` is required. A sharded
   ``--save`` writes the gathered state from rank 0, in the one-device
   layout and meta; ``--resume`` loads a checkpoint of either on every
   rank and keeps the rank's shard.
@@ -676,9 +681,16 @@ def run_parser() -> argparse.ArgumentParser:
                         "for the batched world axis; implies the "
                         "world count")
     p.add_argument("--devices", type=int, default=None,
-                   help="ranks for the sharded engines (one gloo process "
+                   help="ranks for the sharded engines (one process "
                         "each; default: one per CUDA device, required "
                         "with --device cpu)")
+    p.add_argument("--dist-backend", default="gloo",
+                   choices=["gloo", "nccl"],
+                   help="the sharded engines' ranks: gloo processes "
+                        "(default; on the card they share it, every "
+                        "collective through host buffers) or nccl (one "
+                        "CUDA device a rank, the collectives on device "
+                        "tensors)")
     p.add_argument("--mailbox-cap", type=int, default=8)
     p.add_argument("--edge-cap", type=int, default=2)
     p.add_argument("--tokens", type=int, default=None,
@@ -957,6 +969,16 @@ def check_args(args) -> None:
         if args.devices is not None and args.devices < 1:
             raise SystemExit(f"--devices must be >= 1, got "
                              f"{args.devices}")
+        if args.dist_backend == "nccl" and args.device == "cpu":
+            raise SystemExit(
+                "--dist-backend nccl ships device tensors, one CUDA "
+                "device a rank, and --device cpu has none; run CPU ranks "
+                "with --dist-backend gloo")
+    elif args.dist_backend != "gloo":
+        raise SystemExit(
+            "--dist-backend chooses the sharded engines' ranks; pass "
+            "--engine sharded|sharded-edge|sharded-fused|sharded-batched "
+            "(the knob would be silently ignored)")
 
 
 def main(argv=None) -> int:
@@ -1011,18 +1033,25 @@ class _Clock:
 
 
 def _run_sharded(args, argv, device) -> dict:
-    """Start ``--devices`` gloo ranks of the sharded engine (on the card
-    they share it); each re-parses ``argv`` and runs :func:`execute` over
-    the mesh. Rank 0's summary."""
+    """Start ``--devices`` ranks of the sharded engine over
+    ``--dist-backend`` (gloo ranks share the card; NCCL's own one each);
+    each re-parses ``argv`` and runs :func:`execute` over the mesh. Rank
+    0's summary."""
     import torch
 
     from .parallel.launch import RankFailed, spawn
+    from .parallel.mesh import check_backend
     n = args.devices
     if n is None:
         n = torch.cuda.device_count()
     try:
+        check_backend(args.dist_backend, n)
+    except RuntimeError as e:
+        raise SystemExit(f"--dist-backend {args.dist_backend} "
+                         f"--devices {n}: {e}") from None
+    try:
         res = spawn("timewarp_tpu_torch.cli:rank_main", n,
-                    backend="gloo", device=device,
+                    backend=args.dist_backend, device=device,
                     args=(argv, n),
                     threads=max(1, torch.get_num_threads() // n))
     except RankFailed as e:

@@ -10,6 +10,13 @@ back through a file. The target is named as an importable
 ``"module:function"`` so a rank imports only the modules it needs. A
 rank that raises fails the whole call with that rank's traceback; the
 other ranks are stopped, and no partial result comes back.
+
+Under ``nccl`` rank r runs on ``cuda:r`` and its process group is bound
+to that card. A rank left behind by a failed one blocks inside a
+collective, and a failed rank could block in NCCL's teardown: so the
+failing rank writes its traceback and claims the failure before anything
+else, leaves without a teardown, and :func:`spawn` stops every rank as
+soon as the claim appears, never waiting out ``timeout``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import multiprocessing as mp
 import os
 import pickle
 import shutil
+import sys
 import tempfile
 import time
 import traceback
@@ -38,7 +46,8 @@ class RankFailed(RuntimeError):
 
 def _rank_device(device: str, rank: int) -> str:
     """The rank's device: ``cpu``, or for ``cuda`` the card ``rank`` modulo
-    the cards present (gloo ranks share one card; NCCL's each own one)."""
+    the cards present (one card a rank where there are enough, as NCCL's
+    always are; gloo ranks share the cards otherwise)."""
     if device == "cpu":
         return "cpu"
     return f"cuda:{rank % torch.cuda.device_count()}"
@@ -51,12 +60,19 @@ def _rank_main(target: str, rank: int, n_ranks: int, backend: str,
     try:
         torch.set_num_threads(threads)
         dev = _rank_device(device, rank)
+        bind = {}
         if dev != "cpu":
             torch.cuda.set_device(torch.device(dev))
+        if backend == "nccl":
+            # one host by construction (a file rendezvous): NCCL's
+            # bootstrap stays on the loopback interface; the group is
+            # bound to the rank's card, so a barrier needs no guess
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+            bind["device_id"] = torch.device(dev)
         dist.init_process_group(
             backend, init_method=f"file://{rundir}/rendezvous",
             world_size=n_ranks, rank=rank,
-            timeout=datetime.timedelta(minutes=30))
+            timeout=datetime.timedelta(minutes=30), **bind)
         mod, _, fn = target.partition(":")
         result = getattr(importlib.import_module(mod), fn)(dev, *args)
         tmp = os.path.join(rundir, f"rank{rank}.pkl.tmp")
@@ -66,10 +82,12 @@ def _rank_main(target: str, rank: int, n_ranks: int, backend: str,
     except BaseException:
         # the traceback for the caller, then the exception ends the rank
         # (exit code 1). The first rank to fail claims ``first`` (created
-        # exclusively): the others fail after it, in a collective it left
-        # (its connections close only when it ends, after this claim)
+        # exclusively, after its traceback is written): the others fail
+        # after it, in a collective it left (its connections close only
+        # when it ends, after this claim)
+        tb = traceback.format_exc()
         with open(os.path.join(rundir, f"rank{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
+            f.write(tb)
         try:
             fd = os.open(os.path.join(rundir, "first"),
                          os.O_CREAT | os.O_EXCL | os.O_WRONLY)
@@ -77,10 +95,15 @@ def _rank_main(target: str, rank: int, n_ranks: int, backend: str,
             os.close(fd)
         except FileExistsError:
             pass
+        if backend == "nccl":
+            # no teardown: NCCL's can block on the ranks left inside a
+            # collective, which spawn stops
+            sys.stderr.write(tb)
+            sys.stderr.flush()
+            os._exit(1)
         raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def spawn(target: str, n_ranks: int, *, backend: str, device: str,
@@ -107,6 +130,10 @@ def spawn(target: str, n_ranks: int, *, backend: str, device: str,
             "spawn(device='cuda') but CUDA is not available; pass "
             "device='cpu' to run the ranks on the CPU")
     check_backend(backend, n_ranks)
+    if backend == "nccl" and device != "cuda":
+        raise ValueError(
+            f"backend='nccl' ships device tensors, one GPU a rank, and "
+            f"device={device!r}; run CPU ranks as backend='gloo'")
     if threads is None:
         threads = max(1, (os.cpu_count() or 1) // n_ranks)
     rundir = tempfile.mkdtemp(prefix="tw-ranks-")
@@ -119,27 +146,28 @@ def spawn(target: str, n_ranks: int, *, backend: str, device: str,
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
+        first = os.path.join(rundir, "first")
         while any(p.exitcode is None for p in procs):
             bad = [r for r, p in enumerate(procs)
                    if p.exitcode not in (None, 0)]
-            if bad or time.monotonic() > deadline:
+            if bad or os.path.exists(first) \
+                    or time.monotonic() > deadline:
                 break
             procs[0].join(0.05) if procs[0].exitcode is None else \
                 time.sleep(0.05)
+        claimed = os.path.exists(first)
         failed = [r for r, p in enumerate(procs)
                   if p.exitcode not in (None, 0)]
         late = [r for r, p in enumerate(procs) if p.exitcode is None]
-        if failed or late:
+        if failed or late or claimed:
             _stop(procs)
-            if not failed:
+            if not (failed or claimed):
                 raise RankFailed(
                     f"{target}: ranks {late} still running after "
                     f"{timeout} s; every rank stopped")
             # the first rank to fail names the fault; the others may have
             # failed after it, in a collective it left
-            first = os.path.join(rundir, "first")
-            r = int(open(first).read()) if os.path.exists(first) \
-                else failed[0]
+            r = int(open(first).read()) if claimed else failed[0]
             err = os.path.join(rundir, f"rank{r}.err")
             tb = open(err).read() if os.path.exists(err) else (
                 f"(exit code {procs[r].exitcode}, no traceback: the rank "

@@ -26,7 +26,15 @@ Transport: the backend is the process group's, which its caller chose
 (``parallel.launch.spawn(..., backend=...)``), never probed. Under
 ``gloo`` every collective ships host buffers, copying a device tensor to
 the CPU and back explicitly in :meth:`MeshComm._ship`; under ``nccl`` it
-ships device tensors, and NCCL needs a GPU of its own per rank.
+ships the device tensors themselves, rank r on ``cuda:r`` (NCCL needs a
+GPU of its own per rank). NCCL runs each collective on a stream of its
+own, ordered after the work already queued on the rank's current stream,
+and the current stream waits for it before its next kernel, so the
+kernels' launches and the collectives stay in program order with no host
+sync; nothing crosses to the host but what an engine reads on purpose
+(the pop-min, the run loop's liveness). Every collective here is an
+integer min, max or sum or a data move, so the two backends give the same
+bits.
 """
 
 from __future__ import annotations
@@ -139,6 +147,11 @@ class MeshComm(LocalComm):
         self.device = device
         self.rank = dist.get_rank()
         self.gloo = mesh.backend == "gloo"
+        if not self.gloo and device.type != "cuda":
+            raise ValueError(
+                f"backend={mesh.backend!r} ships device tensors and the "
+                f"rank's device is {device}; run CPU ranks as "
+                "backend='gloo'")
 
     # -- transport ---------------------------------------------------------
 
